@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (exit code != 0, no result line) on failure:
+
+1. Device: the card's name and ``nvidia-smi`` name / power limit; TF32 is
+   switched off for matmuls and cuDNN so every fp32 product is full fp32.
+2. Build: ``nvcc`` compiles the three hand-written kernels from
+   ``src/repro_torch/csrc`` (one process per source, in parallel).
+3. Kernel vs plain twin, on the card, at the main path's shapes:
+   ``ls_che`` (SISO and 2x2 grids), ``mmse_detect_demap`` (SISO-16QAM,
+   2x2-16QAM, 4x8-64QAM, SISO-256QAM) at batch 8, and ``ldpc_decode`` (r12
+   and r34, 216 codewords, at a converging and a non-converging SNR).
+   Each kernel's time per call (CUDA events around the wrapper, so launch
+   overhead included) and device time (CUPTI), its plain twin's time, a
+   library yardstick's where one PyTorch call computes the same thing,
+   and its bound (the larger of bytes at 3.35 TB/s and operations at
+   67 TFLOP/s fp32) are printed.
+4. Closed loop: ``SlotScheduler("siso-coded", fused)`` for 50 TTIs, then
+   ``"mimo2x2-coded"`` for 10, each with the kernels' launch counts zeroed
+   just before and read just after; every kernel must have launched, jobs
+   must be conserved exactly, and one served batch must decode on the
+   kernels exactly as it does on the plain twins (on the CPU).  Ten more
+   SISO ticks run under ``torch.profiler`` for the device's busy and idle
+   time and the split of device time by kernel.
+5. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
+   ``{"ok": true, "device": {...}}``.
+
+Without a CUDA device it exits with code 2 and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _device_events(prof) -> list:
+    """(name, microseconds) of every device-side event (kernels, copies)
+    the profiler recorded."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_us(fn, kernel: str, reps: int = 20):
+    """Mean device microseconds per launch of the CUDA kernel whose name
+    contains ``kernel``, from a CUPTI trace of ``reps`` calls of ``fn``;
+    None when the trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [us for name, us in _device_events(prof) if kernel in name]
+    return sum(hits) / len(hits) if hits else None
+
+
+def profile_ticks(sch, n_ticks: int) -> dict:
+    """Host wall time, device busy time and its split by kernel over
+    ``n_ticks`` steady ticks of a scheduler (CUPTI trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            sch.tick()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = {}
+    for name, us in _device_events(prof):
+        by_name[name] = by_name.get(name, 0.0) + us
+    events = _device_events(prof)
+    busy = sum(by_name.values()) if events else None  # None: not measured
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ours = {k: sum(us for name, us in by_name.items() if pat in name)
+            for k, pat in KERNEL_SYMBOLS.items()}
+    return {
+        "ticks": n_ticks, "wall_ms": wall_us / 1e3,
+        "device_busy_ms": None if busy is None else busy / 1e3,
+        "device_idle_share": None if busy is None else 1.0 - busy / wall_us,
+        "device_events": len(events),
+        "ported_kernels_ms": {k: v / 1e3 for k, v in ours.items()},
+        "top_device_ms": [(name[:60], us / 1e3) for name, us in top],
+    }
+
+
+# the device-side symbol of each ported kernel (for the CUPTI trace)
+KERNEL_SYMBOLS = {"ls_che": "ls_che_kernel",
+                  "mmse_detect_demap": "detect_demap_kernel",
+                  "ldpc_decode": "ldpc_minsum_kernel"}
+
+
+def bound(bytes_moved: float, flops: float) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain twin
+# ---------------------------------------------------------------------------
+
+def _grid_y(slot):
+    import torch
+
+    return torch.fft.fft(slot["y_time"], dim=2).contiguous()
+
+
+def check_ls_che(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import rx_fused
+    from repro_torch.phy import coding, ofdm, scenarios
+
+    cases = []
+    for name in ("siso-qam16-r12-snr15", "mimo2x2-qam16-r12-snr17"):
+        scn = scenarios.get_scenario(name)
+        g = scn.grid
+        y = _grid_y(coding.make_coded_slot(ofdm.make_generator(1, dev),
+                                           scn, 8))
+        op = torch.from_numpy(rx_fused.make_ls_interp_operator(
+            g.n_subcarriers, g.n_tx, g.pilot_stride,
+            ofdm.pilot_sequence_np(g))).to(dev)
+        args = (y, g.pilot_symbols, g.pilot_stride, op)
+        got = rx_fused.ls_che(*args)
+        want = rx_fused.ls_che_torch(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f"ls_che[{name}] disagrees with its twin (max err {err})")
+        comb = rx_fused._comb_extract(y, g.pilot_symbols, g.pilot_stride,
+                                      g.n_tx).mean(dim=1)
+        b, n_sc, n_rx, n_tx = got.shape
+        n_p = op.shape[1]
+        n_psym = len(g.pilot_symbols)
+        nbytes = 8 * (b * n_psym * n_tx * n_p * n_rx + op.numel()
+                      + got.numel())
+        flops = 8.0 * b * n_rx * n_tx * n_p * n_sc
+        bms, by = bound(nbytes, flops)
+        cases.append(dict(
+            shape=f"{name} B=8", max_abs_err=err,
+            tolerance="rtol 1e-5, atol 1e-6",
+            ms=time_ms(lambda: rx_fused.ls_che(*args)),
+            device_us=device_us(lambda: rx_fused.ls_che(*args),
+                                KERNEL_SYMBOLS["ls_che"]),
+            plain_ms=time_ms(lambda: rx_fused.ls_che_torch(*args)),
+            library_ms=time_ms(
+                lambda: torch.einsum("btpr,tps->bsrt", comb, op)),
+            bound_ms=bms, bound_by=by,
+        ))
+    return cases
+
+
+def _detect_flops(n_rx: int, n_tx: int, nb: int) -> float:
+    """fp32 operations per RE of the fused detect+demap, counted from the
+    algorithm (complex multiply-add = 8, reciprocal of a complex pivot =
+    6, per level: subtract, square, compare)."""
+    nrhs = 1 + n_tx
+    n_lv = 2 ** nb
+    f = 8.0 * n_tx * n_tx * n_rx + 8.0 * n_tx * n_rx
+    for kd in range(n_tx):
+        below = n_tx - kd - 1
+        f += 6 + below * (6 + 8 * ((n_tx - kd) + nrhs))
+        f += nrhs * (8 * below + 6)
+    f += n_tx * (6 + 2 * (3 * n_lv + nb * (n_lv + 1)))
+    return f
+
+
+def check_detect_demap(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import rx_fused
+    from repro_torch.phy import ofdm, scenarios
+
+    cases = []
+    for name in ("siso-qam16-r12-snr15", "mimo2x2-qam16-r12-snr17",
+                 "mimo4x8-qam64-snr24", "siso-qam256-r34-snr28"):
+        scn = scenarios.get_scenario(name)
+        slot = scn.make_batch(ofdm.make_generator(2, dev), 8)
+        y = _grid_y(slot)
+        h = slot["h"][:, 0].contiguous()  # (B, n_sc, n_rx, n_tx)
+        nv = slot["noise_var"]
+        args = (y, h, nv, scn.modem)
+        got = rx_fused.mmse_detect_demap(*args)
+        want = rx_fused.mmse_detect_demap_torch(*args)
+        torch.cuda.synchronize()
+        for a, b_, what, tol in zip(got, want, ("x_hat", "nv_eff", "llr"),
+                                    (1e-4, 1e-4, 1e-5)):
+            check(torch.allclose(a, b_, rtol=tol, atol=1e-5),
+                  f"detect_demap[{name}] {what} disagrees with its twin")
+        agree = float((torch.sign(got[2]) == torch.sign(want[2]))
+                      .float().mean())
+        check(agree >= 0.999,
+              f"detect_demap[{name}] LLR sign agreement {agree}")
+        err = max(float((a - b_).abs().max()) for a, b_ in zip(got, want))
+        b, n_sym, n_sc, n_rx = y.shape
+        n_tx = h.shape[-1]
+        nb = scn.modem.bits_per_symbol // 2
+        n_re = b * n_sym * n_sc
+        nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4
+                  + n_re * n_tx * (8 + 4 + 4 * 2 * nb))
+        bms, by = bound(nbytes, n_re * _detect_flops(n_rx, n_tx, nb))
+        cases.append(dict(
+            shape=f"{name} B=8", max_abs_err=err, llr_sign_agree=agree,
+            tolerance="x_hat, nv_eff rtol 1e-4 atol 1e-5; LLR rtol 1e-5 "
+                      "atol 1e-5 and signs >= 99.9%",
+            ms=time_ms(lambda: rx_fused.mmse_detect_demap(*args)),
+            device_us=device_us(lambda: rx_fused.mmse_detect_demap(*args),
+                                KERNEL_SYMBOLS["mmse_detect_demap"]),
+            plain_ms=time_ms(
+                lambda: rx_fused.mmse_detect_demap_torch(*args)),
+            library_ms=None, bound_ms=bms, bound_by=by,
+        ))
+    return cases
+
+
+def _code_llrs(code, n_cw: int, snr_db: float, dev):
+    """(n_cw, n_mother) BPSK-over-AWGN channel LLRs of random codewords."""
+    import torch
+
+    from repro_torch.phy import coding, ofdm
+
+    gen = ofdm.make_generator(int(snr_db * 10) + code.m_b, dev)
+    bits = torch.randint(0, 2, (n_cw, code.k), generator=gen, device=dev)
+    tx = coding.rate_match(code, coding.encode(code, bits)).float()
+    s2 = 10.0 ** (-snr_db / 10.0)
+    y = (2 * tx - 1) + math.sqrt(s2) * torch.randn(
+        tx.shape, generator=gen, device=dev)
+    return coding.derate_match(code, 2.0 * y / s2).contiguous()
+
+
+def check_ldpc(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import ldpc
+    from repro_torch.phy import coding
+
+    cases = []
+    for rate, snrs in (("r12", (3.0, -6.0)), ("r34", (6.0, -6.0))):
+        code = coding.make_code(rate)
+        n_edges = sum(len(e) for e in code.layers())
+        for snr in snrs:
+            llr = _code_llrs(code, 216, snr, dev)
+            post, iters = ldpc.ldpc_decode(llr, code)
+            post_t, iters_t = ldpc.ldpc_decode_torch(llr, code)
+            torch.cuda.synchronize()
+            check(torch.equal(iters, iters_t),
+                  f"ldpc[{rate}@{snr}dB] iteration counts differ")
+            check(torch.equal(post > 0, post_t > 0),
+                  f"ldpc[{rate}@{snr}dB] hard bits differ")
+            err = float((post - post_t).abs().max())
+            it = iters.long()
+            # ~10 fp32 ops per edge and lifted row per sweep, 2 per edge
+            # for each syndrome check (one before the first sweep)
+            flops = float(((it * 10 + (it + 1) * 2) * n_edges
+                           * code.z).sum())
+            nbytes = 2 * llr.numel() * 4 + iters.numel() * 4
+            bms, by = bound(nbytes, flops)
+            cases.append(dict(
+                shape=f"{rate} {snr:+.0f}dB 216cw", max_abs_err=err,
+                tolerance="hard bits and iteration counts exact",
+                iters_hist=torch.bincount(iters.long(),
+                                          minlength=13).tolist(),
+                ms=time_ms(lambda: ldpc.ldpc_decode(llr, code)),
+                device_us=device_us(lambda: ldpc.ldpc_decode(llr, code),
+                                    KERNEL_SYMBOLS["ldpc_decode"]),
+                plain_ms=time_ms(lambda: ldpc.ldpc_decode_torch(llr, code),
+                                 reps=20, warmup=1),
+                library_ms=None, bound_ms=bms, bound_by=by,
+            ))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the closed loop through the kernels
+# ---------------------------------------------------------------------------
+
+def drive(ladder: str, n_ticks: int, dev) -> tuple:
+    """One closed-loop run with the launch counts zeroed just before it and
+    read just after; returns (scheduler, report, launches)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import SlotScheduler
+
+    sch = SlotScheduler(ladder, options={"fused": True}, n_users=8,
+                        batch_size=8, arrival_rate=0.8, max_retx=2, seed=0,
+                        device=dev)
+    _build.reset_launches()
+    rep = sch.run(n_ticks)
+    launches = dict(_build.launches)
+    return sch, rep, launches
+
+
+def check_conservation(sch, rep) -> None:
+    loop = sch.loop
+    queued = [j.job_id for u in loop.users for j in u.backlog]
+    check(sorted(loop.finalized_jobs + queued)
+          == list(range(loop._job_ids.n)), "job conservation broken")
+    check(rep.n_arrivals == loop._job_ids.n, "arrival count mismatch")
+    for f in ("first_tx_bler", "residual_bler", "mean_harq_rounds",
+              "goodput_bits_per_tti", "energy_uj_per_slot",
+              "gops_per_watt"):
+        v = getattr(rep, f)
+        check(v is not None and math.isfinite(v), f"report {f}={v}")
+
+
+def check_batch_against_twins(sch, dev) -> dict:
+    """Serve one fresh batch of the lowest rung on the kernels and the same
+    batch on the plain twins (CPU): outputs finite, decode identical."""
+    import torch
+
+    from repro_torch.phy import link
+    from repro_torch.serve import runtime
+
+    scn = sch.rungs[0]
+    factory = runtime.TorchSlotFactory(dev)
+    slots = [factory(100 + i, scn, 1, rv=0) for i in range(8)]
+    batch = runtime.stack_slots(slots)
+    got = sch.runners[0].pipeline.run(batch)
+    torch.cuda.synchronize()
+    for k in ("h_hat", "x_hat", "nv_eff", "llr", "cw_llr"):
+        check(bool(torch.isfinite(torch.view_as_real(got[k])
+                                  if got[k].is_complex() else got[k])
+                   .all()), f"non-finite {k}")
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+           for k, v in batch.items()}
+    want = link.build_classical(scn, fused=True, device="cpu").run(cpu)
+    for k in ("crc_ok", "info_bits_hat", "decode_iters"):
+        check(torch.equal(got[k].cpu(), want[k]),
+              f"served batch: {k} differs between kernels and twins")
+    flips = int(((got["llr"].cpu() > 0) != (want["llr"] > 0)).sum())
+    check(flips <= 2, f"served batch: {flips} LLR hard-bit flips")
+    return {"llr_flips": flips,
+            "bler": float((~got["crc_ok"]).float().mean())}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | tf32 matmul=False cudnn=False",
+          flush=True)
+
+    build_s = _build.build_all()
+    print(f"build: {len(_build.SOURCES)} kernels in {build_s:.1f}s "
+          f"({', '.join(_build.SOURCES)})", flush=True)
+
+    results = {}
+    for name, fn in (("ls_che", check_ls_che),
+                     ("mmse_detect_demap", check_detect_demap),
+                     ("ldpc_decode", check_ldpc)):
+        results[name] = fn(dev)
+        for c in results[name]:
+            lib = ("-" if c["library_ms"] is None
+                   else f"{c['library_ms']:.4f}")
+            dus = ("not measured" if c["device_us"] is None
+                   else f"{c['device_us']:.2f}")
+            print(f"kernel {name} [{c['shape']}]: kernel_ms={c['ms']:.4f} "
+                  f"device_us={dus} "
+                  f"plain_ms={c['plain_ms']:.4f} library_ms={lib} "
+                  f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) "
+                  f"max_abs_err={c['max_abs_err']:.3g} "
+                  f"(tolerance: {c['tolerance']})", flush=True)
+
+    sch, rep, launches = drive("siso-coded", 50, dev)
+    print(f"main path siso-coded: launches {launches}, steady tick "
+          f"{rep.steady_tick_s * 1e3:.3f} ms, first tick "
+          f"{rep.first_tick_s * 1e3:.3f} ms", flush=True)
+    print(rep.summary(), flush=True)
+    check_conservation(sch, rep)
+    for k in results:
+        check(launches.get(k, 0) > 0, f"{k} never launched on the main path")
+    served = check_batch_against_twins(sch, dev)
+    print(f"served batch vs twins: {served}", flush=True)
+    prof = profile_ticks(sch, 10)
+    print(f"profiled siso-coded ticks: {json.dumps(prof)}", flush=True)
+
+    sch2, rep2, launches2 = drive("mimo2x2-coded", 10, dev)
+    print(f"path mimo2x2-coded: launches {launches2}, steady tick "
+          f"{rep2.steady_tick_s * 1e3:.3f} ms, first tick "
+          f"{rep2.first_tick_s * 1e3:.3f} ms", flush=True)
+    print(rep2.summary(), flush=True)
+    check_conservation(sch2, rep2)
+    for k in results:
+        check(launches2.get(k, 0) > 0, f"{k} never launched on mimo2x2")
+
+    sources = {"ls_che": "ls_che.cu", "mmse_detect_demap": "detect_demap.cu",
+               "ldpc_decode": "ldpc_minsum.cu"}
+    replaces = {
+        "ls_che": "src/repro/kernels/rx_fused.py:587",
+        "mmse_detect_demap": "src/repro/kernels/rx_fused.py:389",
+        "ldpc_decode": "src/repro/kernels/ldpc.py:304",
+    }
+    kernels = []
+    for name, cases in results.items():
+        head = cases[0]  # the main path's shape (SISO grid / r12)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/csrc/{sources[name]}",
+            replaces=replaces[name], launches=launches[name],
+            launches_mimo2x2=launches2[name],
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], cases=cases,
+        ))
+    line = json.dumps({"kernels": kernels})
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    print(line, flush=True)
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

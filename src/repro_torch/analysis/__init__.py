@@ -1,0 +1,1 @@
+"""analysis of the PyTorch/CUDA port (see the package docstring)."""

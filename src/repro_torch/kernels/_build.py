@@ -1,0 +1,132 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is a self-contained source with a plain C entry
+point.  At first CUDA use it is compiled by ``nvcc`` for ``sm_90a`` into
+a shared library under ``build/repro_torch_kernels/`` at the repository
+root (git-ignored) and loaded with :mod:`ctypes`; the library's file name
+carries a hash of the source and flags, so an edited source rebuilds.
+:func:`build_all` starts one ``nvcc`` per source, all in parallel.
+
+Every wrapper that launches a kernel adds one to :data:`launches` under
+the kernel's name, and nowhere else, so a run can show that its path went
+through the kernels (:func:`reset_launches` zeroes the counts).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch_kernels")
+SOURCES = ("ls_che", "detect_demap", "ldpc_minsum")
+# -fmad=false: no multiply-add contraction, so each kernel rounds every
+# product and sum where its plain PyTorch twin does
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+)
+
+launches: collections.Counter = collections.Counter()
+_libs: dict = {}
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, or
+    the ``PATH``; raise when there is none."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (CUDA_HOME, /usr/local/cuda or PATH): the "
+            "repro_torch CUDA kernels are built from csrc/ at first use"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_all(names=SOURCES) -> float:
+    """Compile every listed source whose library is missing, one ``nvcc``
+    process each, all started together.  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return 0.0
+    exe = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (rc {proc.returncode}):\n"
+                          f"{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(library_path(name)))
+        _libs[name] = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel's C entry returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device, as a C pointer."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_cuda(name: str, **args) -> None:
+    """Check each ``arg=(tensor, dtype)`` before its pointer goes to a
+    kernel: all on one CUDA device, contiguous, of the given dtype."""
+    dev = None
+    for arg, (t, dtype) in args.items():
+        if t.device.type != "cuda" or (dev is not None and t.device != dev):
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{dev or 'a CUDA device'}")
+        dev = t.device
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, expected {dtype}")

@@ -1,0 +1,196 @@
+"""Batched layered normalized-min-sum LDPC decoder (port of
+:mod:`repro.kernels.ldpc`, fp32).
+
+Per layer of the quasi-cyclic code: variable-to-check messages ``t`` (the
+posterior minus the layer's previous check message), min / second-min
+magnitudes excluding self (the first argmin takes the second min), the
+sign product, ``alpha`` damping, and the write-back through the inverse
+circulant rolls.  Converged codewords freeze (per-codeword syndrome early
+exit) and the per-codeword iteration count is an output.
+
+:func:`ldpc_decode` runs the plain PyTorch twin (:func:`ldpc_decode_torch`,
+the reference core's arithmetic) only because the tensor it was given lies
+on the CPU; on a CUDA tensor it launches ``csrc/ldpc_minsum.cu`` (one warp
+per codeword, z == 32) or raises.  The int8 saturating decoder is not
+ported yet (ROADMAP queue 1, item 10).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, quant
+
+DEFAULT_MAX_ITERS = 12
+DEFAULT_ALPHA = 0.8  # normalized-min-sum damping
+_CW_PER_BLOCK = 4  # CW_PER_BLOCK in csrc/ldpc_minsum.cu
+_SMEM_LIMIT = 48 * 1024  # the kernel's shared memory per block
+
+
+# ---------------------------------------------------------------------------
+# plain twin (standard convention inside: v = log P(0)/P(1))
+# ---------------------------------------------------------------------------
+
+def _syndrome_ok(v: torch.Tensor, layers: tuple) -> torch.Tensor:
+    """(n_b, z, B) -> (B,) bool: all parity checks hold for the codeword."""
+    hard = (v < 0).to(torch.int32)
+    bad = []
+    for edges in layers:
+        p = torch.roll(hard[edges[0][0]], -edges[0][1], dims=0)
+        for c, s in edges[1:]:
+            p = p ^ torch.roll(hard[c], -s, dims=0)
+        bad.append(p)
+    return torch.all(torch.all(torch.stack(bad) == 0, dim=0), dim=0)
+
+
+def _layered_iteration(v: torch.Tensor, c2v: tuple, layers: tuple,
+                       alpha: float):
+    """One sweep over the layers (layers see each other's updates)."""
+    v = v.clone()
+    new_c2v = []
+    for li, edges in enumerate(layers):
+        t = torch.stack(
+            [torch.roll(v[c], -s, dims=0) for c, s in edges]
+        ) - c2v[li]  # (E, z, B)
+        at = torch.abs(t)
+        sg = torch.where(t < 0.0, -1.0, 1.0)
+        m1 = torch.amin(at, dim=0, keepdim=True)
+        amin = torch.argmin(at, dim=0)  # first index on ties
+        is_min = (
+            torch.arange(len(edges), device=v.device)[:, None, None]
+            == amin[None]
+        )
+        m2 = torch.amin(torch.where(is_min, float("inf"), at), dim=0,
+                        keepdim=True)
+        mag = torch.where(is_min, m2, m1)
+        par = torch.prod(sg, dim=0, keepdim=True)
+        upd = alpha * par * sg * mag
+        vn = t + upd
+        for e, (c, s) in enumerate(edges):
+            v[c] = torch.roll(vn[e], s, dims=0)
+        new_c2v.append(upd)
+    return v, tuple(new_c2v)
+
+
+def _decode_core(v0: torch.Tensor, layers: tuple, max_iters: int,
+                 alpha: float):
+    """Iterate to convergence.  v0 (n_b, z, B) -> (posterior, iters (B,)).
+    A converged codeword's state and messages freeze (identical numerics
+    to stopping it); the loop ends when all have converged."""
+    c2v = tuple(
+        torch.zeros((len(e),) + v0.shape[1:], dtype=v0.dtype,
+                    device=v0.device)
+        for e in layers
+    )
+    v = v0
+    done = _syndrome_ok(v0, layers)
+    iters = torch.zeros(v0.shape[-1], dtype=torch.int32, device=v0.device)
+    it = 0
+    while it < max_iters and not bool(torch.all(done)):
+        vn, c2vn = _layered_iteration(v, c2v, layers, alpha)
+        keep = done[None, None, :]
+        v = torch.where(keep, v, vn)
+        c2v = tuple(torch.where(keep, a, b) for a, b in zip(c2v, c2vn))
+        iters = iters + torch.where(done, 0, 1).to(torch.int32)
+        done = torch.logical_or(done, _syndrome_ok(v, layers))
+        it += 1
+    return v, iters
+
+
+def _to_lanes(llr: torch.Tensor, n_b: int, z: int) -> torch.Tensor:
+    """(B, n_b*z) log P(1)/P(0) LLRs -> (n_b, z, B) internal state."""
+    b = llr.shape[0]
+    return -torch.movedim(llr.reshape(b, n_b, z).to(torch.float32), 0, -1)
+
+
+def _from_lanes(v: torch.Tensor) -> torch.Tensor:
+    """(n_b, z, B) internal posterior -> (B, n_b*z) repo convention."""
+    n_b, z, b = v.shape
+    return -torch.movedim(v, -1, 0).reshape(b, n_b * z)
+
+
+def ldpc_decode_torch(llr: torch.Tensor, code, *,
+                      max_iters: int = DEFAULT_MAX_ITERS,
+                      alpha: float = DEFAULT_ALPHA):
+    """llr (B, n_mother) -> (posterior LLRs (B, n_mother), iters (B,))."""
+    v, iters = _decode_core(
+        _to_lanes(llr, code.n_b, code.z), code.layers(), max_iters, alpha
+    )
+    return _from_lanes(v), iters
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _schedule(code, device: torch.device):
+    """The layer schedule as CSR int32 tensors on ``device``: layer
+    offsets, edge block columns, edge circulant shifts."""
+    layers = code.layers()
+    off = [0]
+    for edges in layers:
+        off.append(off[-1] + len(edges))
+    cols = [c for edges in layers for c, _ in edges]
+    shifts = [s for edges in layers for _, s in edges]
+    as_t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=device)
+    return as_t(off), as_t(cols), as_t(shifts), max(map(len, layers))
+
+
+def _ldpc_lib():
+    fn = _build.library("ldpc_minsum").ldpc_minsum_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ldpc_decode_cuda(llr: torch.Tensor, code, *,
+                     max_iters: int = DEFAULT_MAX_ITERS,
+                     alpha: float = DEFAULT_ALPHA):
+    """Launch ``csrc/ldpc_minsum.cu``: one warp per codeword."""
+    if code.z != 32:
+        raise ValueError(f"ldpc_minsum kernel needs z == 32 (one warp lane "
+                         f"per lifted row), got z={code.z}")
+    if llr.ndim != 2 or llr.shape[1] != code.n_mother:
+        raise ValueError(f"llr {tuple(llr.shape)} is not (B, {code.n_mother})")
+    _build.require_cuda("ldpc_minsum", llr=(llr, torch.float32))
+    off, cols, shifts, max_deg = _schedule(code, llr.device)
+    n_edges = int(cols.numel())
+    per_block = _CW_PER_BLOCK * (code.n_b + n_edges) * code.z * 4
+    if per_block > _SMEM_LIMIT:
+        raise ValueError(f"{code.name}: {per_block} B of decoder state per "
+                         f"block of {_CW_PER_BLOCK} codewords exceeds 48 KB "
+                         "of shared memory")
+    n_cw = llr.shape[0]
+    post = torch.empty_like(llr)
+    iters = torch.empty(n_cw, dtype=torch.int32, device=llr.device)
+    err = _ldpc_lib()(
+        llr.data_ptr(), post.data_ptr(), iters.data_ptr(), off.data_ptr(),
+        cols.data_ptr(), shifts.data_ptr(), n_cw, code.n_b, code.m_b,
+        n_edges, max_deg, int(max_iters), float(alpha),
+        _build.stream_of(llr),
+    )
+    _build.launches["ldpc_decode"] += 1
+    _build.check(err, "ldpc_minsum")
+    return post, iters
+
+
+def ldpc_decode(llr: torch.Tensor, code, *,
+                max_iters: int = DEFAULT_MAX_ITERS,
+                alpha: float = DEFAULT_ALPHA,
+                precision: Optional[str] = None):
+    """Layered normalized-min-sum decode of ``llr`` (B, n_mother) in the
+    log P(1)/P(0) convention (zero = punctured).  Returns (posterior LLRs,
+    per-codeword iteration counts); hard decisions are ``posterior > 0``.
+    The CUDA kernel on a CUDA tensor, the plain twin on a CPU tensor."""
+    quant.require_unquantized(precision)
+    if llr.device.type == "cpu":
+        return ldpc_decode_torch(llr, code, max_iters=max_iters,
+                                 alpha=alpha)
+    return ldpc_decode_cuda(llr.contiguous(), code, max_iters=max_iters,
+                            alpha=alpha)

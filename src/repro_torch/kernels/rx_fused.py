@@ -1,0 +1,335 @@
+"""Fused classical-receiver kernels (port of :mod:`repro.kernels.rx_fused`).
+
+* ``ls_che``: DMRS comb extract -> pilot-symbol average -> per-pilot
+  divide and frequency interpolation, folded into one complex GEMM against
+  the static operator of :func:`make_ls_interp_operator`.  On a CUDA
+  tensor: ``csrc/ls_che.cu``.
+* ``mmse_detect_demap``: per RE the regularized Gram, an in-register
+  unpivoted Gauss solve of the augmented system [H^H y | G], unbiasing and
+  max-log LLRs, with no Gram / equalized-symbol grid in memory.  On a CUDA
+  tensor: ``csrc/detect_demap.cu``.
+
+Each wrapper runs its plain PyTorch twin (``*_torch``, the same arithmetic
+in the same order) only because the tensor it was given lies on the CPU;
+on a CUDA tensor it launches the hand-written kernel or raises.  SIC
+(``sic_detect_demap``) is not ported yet (ROADMAP queue 1, item 9).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build, quant
+
+
+def _cmul(ar, ai, br, bi):
+    """(ar + i*ai) * (br + i*bi) in split-complex form."""
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+# ---------------------------------------------------------------------------
+# fused equalize -> demap: plain twin
+# ---------------------------------------------------------------------------
+
+def _bit_of_table(n_levels: int, nb: int):
+    """bit_of[p][j]: bit p (MSB first) of the axis-level index j."""
+    return [[(j >> (nb - 1 - p)) & 1 for j in range(n_levels)]
+            for p in range(nb)]
+
+
+def _detect_demap_core(yr, yi, hr, hi, nv, levels: Sequence[float],
+                       norm: float, nb: int):
+    """Gram -> Gauss solve -> unbias -> max-log LLRs on split-complex
+    lists (``yr/yi`` per rx, ``hr/hi`` [rx][tx], broadcastable), in the
+    reference core's operation order.  Returns per-tx lists
+    (xr, xi, nve, llr) with ``llr[t]`` the 2*nb per-bit list."""
+    n_rx, n_tx = len(yr), len(hr[0])
+    n_lv = len(levels)
+
+    gr = [[None] * n_tx for _ in range(n_tx)]
+    gi = [[None] * n_tx for _ in range(n_tx)]
+    for t in range(n_tx):
+        for u in range(n_tx):
+            sr, si = 0.0, 0.0
+            for r in range(n_rx):
+                pr, pi = _cmul(hr[r][t], -hi[r][t], hr[r][u], hi[r][u])
+                sr, si = sr + pr, si + pi
+            gr[t][u], gi[t][u] = sr, si
+
+    ar = [[gr[t][u] + nv if t == u else gr[t][u] + 0.0
+           for u in range(n_tx)] for t in range(n_tx)]
+    ai = [[gi[t][u] + 0.0 for u in range(n_tx)] for t in range(n_tx)]
+    nrhs = 1 + n_tx
+    br = [[None] * nrhs for _ in range(n_tx)]
+    bi = [[None] * nrhs for _ in range(n_tx)]
+    for t in range(n_tx):
+        sr, si = 0.0, 0.0
+        for r in range(n_rx):
+            pr, pi = _cmul(hr[r][t], -hi[r][t], yr[r], yi[r])
+            sr, si = sr + pr, si + pi
+        br[t][0], bi[t][0] = sr, si
+        for u in range(n_tx):
+            br[t][1 + u], bi[t][1 + u] = gr[t][u], gi[t][u]
+
+    for kd in range(n_tx):
+        dr, di = ar[kd][kd], ai[kd][kd]
+        den = dr * dr + di * di
+        ivr, ivi = dr / den, -di / den
+        for i in range(kd + 1, n_tx):
+            fr, fi = _cmul(ar[i][kd], ai[i][kd], ivr, ivi)
+            for u in range(kd, n_tx):
+                pr, pi = _cmul(fr, fi, ar[kd][u], ai[kd][u])
+                ar[i][u], ai[i][u] = ar[i][u] - pr, ai[i][u] - pi
+            for j in range(nrhs):
+                pr, pi = _cmul(fr, fi, br[kd][j], bi[kd][j])
+                br[i][j], bi[i][j] = br[i][j] - pr, bi[i][j] - pi
+    zr = [[None] * nrhs for _ in range(n_tx)]
+    zi = [[None] * nrhs for _ in range(n_tx)]
+    for kd in range(n_tx - 1, -1, -1):
+        dr, di = ar[kd][kd], ai[kd][kd]
+        den = dr * dr + di * di
+        ivr, ivi = dr / den, -di / den
+        for j in range(nrhs):
+            sr, si = br[kd][j], bi[kd][j]
+            for u in range(kd + 1, n_tx):
+                pr, pi = _cmul(ar[kd][u], ai[kd][u], zr[u][j], zi[u][j])
+                sr, si = sr - pr, si - pi
+            zr[kd][j], zi[kd][j] = _cmul(sr, si, ivr, ivi)
+
+    scale = float(np.sqrt(norm))
+    bit_of = _bit_of_table(n_lv, nb)
+    xr, xi, nve, llr = [], [], [], []
+    for t in range(n_tx):
+        mu = torch.clamp(zr[t][1 + t], 1e-6, 1.0 - 1e-6)
+        ux, uy = zr[t][0] / mu, zi[t][0] / mu
+        ne = (1.0 - mu) / mu
+        nvs = torch.clamp(ne * norm, min=1e-6)
+        xr.append(ux)
+        xi.append(uy)
+        nve.append(ne)
+        bits = []
+        for comp in (ux, uy):
+            d = [(comp * scale - lv) ** 2 for lv in levels]
+            for p in range(nb):
+                d0 = d1 = None
+                for j in range(n_lv):
+                    if bit_of[p][j]:
+                        d1 = d[j] if d1 is None else torch.minimum(d1, d[j])
+                    else:
+                        d0 = d[j] if d0 is None else torch.minimum(d0, d[j])
+                bits.append((d0 - d1) / nvs)
+        llr.append(bits)
+    return xr, xi, nve, llr
+
+
+def mmse_detect_demap_torch(y, h, noise_var, modem):
+    """Plain PyTorch twin of the fused detect+demap kernel.
+
+    y (B, n_sym, n_sc, n_rx) complex, h (B, n_sc, n_rx, n_tx) complex (flat
+    in time), noise_var 0-d -> (x_hat (B, n_sym, n_sc, n_tx) complex64,
+    nv_eff (B, n_sym, n_sc, n_tx), llr (B, n_sym, n_sc, n_tx, 2*nb)).
+    """
+    n_rx, n_tx = y.shape[-1], h.shape[-1]
+    nb = modem.bits_per_symbol // 2
+    f32 = lambda v: v.to(torch.float32)
+    yr = [f32(y[..., r].real) for r in range(n_rx)]
+    yi = [f32(y[..., r].imag) for r in range(n_rx)]
+    # h broadcasts over the symbol axis
+    hr = [[f32(h[:, None, :, r, t].real) for t in range(n_tx)]
+          for r in range(n_rx)]
+    hi = [[f32(h[:, None, :, r, t].imag) for t in range(n_tx)]
+          for r in range(n_rx)]
+    xr, xi, nve, llr = _detect_demap_core(
+        yr, yi, hr, hi, noise_var, modem.levels, modem.norm, nb
+    )
+    shape = y.shape[:-1]
+    x_hat = torch.stack(
+        [torch.complex(xr[t], xi[t]).expand(shape) for t in range(n_tx)],
+        dim=-1,
+    )
+    nv_eff = torch.stack([nve[t].expand(shape) for t in range(n_tx)], dim=-1)
+    llr_out = torch.stack(
+        [torch.stack([b.expand(shape) for b in llr[t]], dim=-1)
+         for t in range(n_tx)], dim=-2,
+    )
+    return x_hat, nv_eff, llr_out
+
+
+# ---------------------------------------------------------------------------
+# fused equalize -> demap: CUDA kernel
+# ---------------------------------------------------------------------------
+
+_DEMAP_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 4))
+
+
+@functools.lru_cache(maxsize=None)
+def _levels_on(levels: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(levels, dtype=torch.float32, device=device)
+
+
+def _demap_lib():
+    fn = _build.library("detect_demap").detect_demap_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + \
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mmse_detect_demap_cuda(y, h, noise_var, modem):
+    """Launch ``csrc/detect_demap.cu``: one thread per RE."""
+    b, n_sym, n_sc, n_rx = y.shape
+    n_tx = h.shape[-1]
+    nb = modem.bits_per_symbol // 2
+    if (n_rx, n_tx) not in _DEMAP_SHAPES or not 1 <= nb <= 4:
+        raise ValueError(
+            f"detect_demap kernel has no instance for n_rx={n_rx}, "
+            f"n_tx={n_tx}, {nb} bits per axis; instances: {_DEMAP_SHAPES} "
+            "x 1..4 bits"
+        )
+    if tuple(h.shape) != (b, n_sc, n_rx, n_tx):
+        raise ValueError(f"h {tuple(h.shape)} != {(b, n_sc, n_rx, n_tx)}")
+    if noise_var.numel() != 1:
+        raise ValueError("noise_var must hold one value")
+    _build.require_cuda("detect_demap", y=(y, torch.complex64),
+                        h=(h, torch.complex64),
+                        noise_var=(noise_var, torch.float32))
+    lv = _levels_on(tuple(float(v) for v in modem.levels), y.device)
+    x_hat = torch.empty((b, n_sym, n_sc, n_tx), dtype=torch.complex64,
+                        device=y.device)
+    nv_eff = torch.empty((b, n_sym, n_sc, n_tx), dtype=torch.float32,
+                         device=y.device)
+    llr = torch.empty((b, n_sym, n_sc, n_tx, 2 * nb), dtype=torch.float32,
+                      device=y.device)
+    fn = _demap_lib()
+    err = fn(y.data_ptr(), h.data_ptr(), noise_var.data_ptr(), lv.data_ptr(),
+             float(modem.norm), float(np.sqrt(modem.norm)),
+             x_hat.data_ptr(), nv_eff.data_ptr(), llr.data_ptr(),
+             b, n_sym, n_sc, n_rx, n_tx, nb, _build.stream_of(y))
+    _build.launches["mmse_detect_demap"] += 1
+    _build.check(err, "detect_demap")
+    return x_hat, nv_eff, llr
+
+
+def mmse_detect_demap(y, h, noise_var, modem, *,
+                      precision: Optional[str] = None):
+    """Fused MMSE equalize -> demap: the CUDA kernel on a CUDA tensor (laid
+    out contiguously first), the plain twin on a CPU tensor.  Quantized
+    precisions raise (not ported)."""
+    quant.require_unquantized(precision)
+    if y.device.type == "cpu":
+        return mmse_detect_demap_torch(y, h, noise_var, modem)
+    return mmse_detect_demap_cuda(y.contiguous(), h.contiguous(), noise_var,
+                                  modem)
+
+
+def sic_detect_demap(*_args, **_kw):
+    raise NotImplementedError(
+        "fused SIC detect+demap is not ported yet (ROADMAP queue 1, item 9: "
+        "SIC and interference serving)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# fused LS channel estimation
+# ---------------------------------------------------------------------------
+
+def make_ls_interp_operator(n_sc: int, n_tx: int, pilot_stride: int,
+                            seq: np.ndarray) -> np.ndarray:
+    """(n_tx, n_p, n_sc) complex64 operator folding the per-pilot divide
+    and the clamped linear frequency interpolation into one GEMM:
+    ``H_ls[..., t] = ybar[comb_t] @ op[t]`` (unit-power pilots: dividing
+    by ``seq`` is multiplying by its conjugate)."""
+    spacing = pilot_stride * n_tx
+    if n_sc % spacing:
+        raise ValueError(
+            f"n_sc={n_sc} not a multiple of the comb spacing {spacing}"
+        )
+    n_p = n_sc // spacing
+    seq = np.asarray(seq)
+    pos = np.arange(n_sc, dtype=np.float64)
+    op = np.zeros((n_tx, n_p, n_sc), np.complex64)
+    for t in range(n_tx):
+        p_idx = np.arange(t * pilot_stride, n_sc, spacing)
+        xp = pos[p_idx]
+        for s in range(n_sc):
+            x = pos[s]
+            if x <= xp[0]:
+                w = {0: 1.0}
+            elif x >= xp[-1]:
+                w = {n_p - 1: 1.0}
+            else:
+                i = int(np.searchsorted(xp, x, side="right") - 1)
+                f = (x - xp[i]) / (xp[i + 1] - xp[i])
+                w = {i: 1.0 - f, i + 1: f}
+            for i, wt in w.items():
+                op[t, i, s] += wt * np.conj(seq[p_idx[i]])
+    return op
+
+
+def _comb_extract(y, pilot_symbols: tuple, pilot_stride: int, n_tx: int):
+    """(B, n_psym, n_tx, n_p, n_rx) strided gather of the DMRS REs."""
+    spacing = pilot_stride * n_tx
+    yp = y[:, list(pilot_symbols)]  # (B, n_psym, n_sc, n_rx)
+    return torch.stack(
+        [yp[:, :, t * pilot_stride::spacing, :] for t in range(n_tx)], dim=2
+    )
+
+
+def ls_che_torch(y, pilot_symbols: tuple, pilot_stride: int, op):
+    """Plain PyTorch twin of the fused LS-CHE kernel.
+    y (B, n_sym, n_sc, n_rx), op (n_tx, n_p, n_sc)
+    -> H (B, n_sc, n_rx, n_tx)."""
+    n_tx = op.shape[0]
+    comb = torch.mean(
+        _comb_extract(y, pilot_symbols, pilot_stride, n_tx), dim=1
+    )  # (B, n_tx, n_p, n_rx)
+    return torch.einsum("btpr,tps->bsrt", comb, op)
+
+
+def _ls_lib():
+    fn = _build.library("ls_che").ls_che_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
+            [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ls_che_cuda(y, pilot_symbols: tuple, pilot_stride: int, op):
+    """Launch ``csrc/ls_che.cu``: one block per (batch, rx) row."""
+    b, n_sym, n_sc, n_rx = y.shape
+    n_tx, n_p, n_sc_op = op.shape
+    if n_sc_op != n_sc or n_p * pilot_stride * n_tx != n_sc:
+        raise ValueError(f"operator {tuple(op.shape)} does not fit a "
+                         f"{n_sc}-subcarrier grid at stride {pilot_stride}")
+    if not pilot_symbols or max(pilot_symbols) >= min(n_sym, 32) or \
+            len(set(pilot_symbols)) != len(pilot_symbols):
+        raise ValueError(f"bad pilot symbols {pilot_symbols} for "
+                         f"{n_sym} symbols")
+    if n_sc > 1024:
+        raise ValueError(f"ls_che kernel takes n_sc <= 1024, got {n_sc}")
+    _build.require_cuda("ls_che", y=(y, torch.complex64),
+                        op=(op, torch.complex64))
+    mask = sum(1 << s for s in pilot_symbols)
+    h = torch.empty((b, n_sc, n_rx, n_tx), dtype=torch.complex64,
+                    device=y.device)
+    err = _ls_lib()(y.data_ptr(), op.data_ptr(), h.data_ptr(), b, n_sym,
+                    n_sc, n_rx, n_tx, pilot_stride, mask, len(pilot_symbols),
+                    _build.stream_of(y))
+    _build.launches["ls_che"] += 1
+    _build.check(err, "ls_che")
+    return h
+
+
+def ls_che(y, pilot_symbols: tuple, pilot_stride: int, op):
+    """Fused LS CHE (comb extract -> divide -> interp): the CUDA kernel on
+    a CUDA tensor (laid out contiguously first), the plain twin on a CPU
+    tensor."""
+    if y.device.type == "cpu":
+        return ls_che_torch(y, pilot_symbols, pilot_stride, op)
+    return ls_che_cuda(y.contiguous(), pilot_symbols, pilot_stride, op)

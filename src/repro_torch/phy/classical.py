@@ -1,0 +1,140 @@
+"""Classical wireless signal processing (port of
+:mod:`repro.phy.classical`): CFFT, LS / Wiener channel estimation and
+unbiased MIMO-MMSE detection.
+
+The Wiener smoother's (n_sc x n_sc) solve, the FFT and the small batched
+MMSE solves of the unfused detector stay library calls, as the reference
+leaves them to XLA outside any Pallas kernel.  Solves go through
+``torch.linalg.solve_ex`` so they never block the host on an error check.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def cfft_auto(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """CFFT for any transform length (``torch.fft.fft``)."""
+    return torch.fft.fft(x, dim=axis)
+
+
+def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.solve_ex(a, b)[0]
+
+
+def mmse_channel_estimate(
+    h_ls: torch.Tensor,  # (B, n_sc) LS estimate
+    noise_var: torch.Tensor,
+    corr_len: float = 16.0,
+) -> torch.Tensor:
+    """Wiener smoothing of the LS estimate with an exponential frequency
+    correlation model: H_mmse = R (R + sigma^2 I)^-1 H_ls."""
+    n_sc = h_ls.shape[-1]
+    ar = torch.arange(n_sc, device=h_ls.device)
+    d = torch.abs(ar[:, None] - ar[None, :])
+    r = torch.exp(-d / corr_len).to(torch.complex64)
+    a = r + noise_var * torch.eye(n_sc, dtype=torch.complex64,
+                                  device=h_ls.device)
+    w = _solve(a, r)  # (n_sc, n_sc), applied as sum_k w[s, k] h[b, k]
+    return torch.einsum("sk,bk->bs", w, h_ls)
+
+
+def _regularized_gram_rhs(y, h, noise_var):
+    """Shared MMSE front end: (gram H^H H, A = gram + s2 I, rhs H^H y)
+    for y (B, n_sc, n_rx), h (B, n_sc, n_rx, n_tx)."""
+    n_tx = h.shape[-1]
+    hh = torch.conj(torch.swapaxes(h, -1, -2))  # (B, n_sc, n_tx, n_rx)
+    gram = torch.einsum("bstr,bsru->bstu", hh, h)
+    a = gram + noise_var * torch.eye(n_tx, dtype=h.dtype, device=h.device)
+    rhs = torch.einsum("bstr,bsr->bst", hh, y)
+    return gram, a, rhs
+
+
+def mimo_mmse_detect_ext(y, h, noise_var):
+    """Unbiased MMSE detection with per-stream post-equalization noise.
+
+    Returns (x_hat_unbiased (B, n_sc, n_tx), nv_eff (B, n_sc, n_tx)):
+    the MMSE output divided by mu_t = Re[(H^H H + s2 I)^-1 H^H H]_tt and
+    the residual noise variance (1 - mu_t) / mu_t.
+    """
+    gram, a, rhs = _regularized_gram_rhs(y, h, noise_var)
+    sol = _solve(a, torch.cat([rhs[..., None], gram], dim=-1))
+    x_mmse = sol[..., 0]
+    mu = torch.clamp(
+        torch.diagonal(sol[..., 1:], dim1=-2, dim2=-1).real,
+        1e-6, 1.0 - 1e-6,
+    )  # (B, n_sc, n_tx)
+    return x_mmse / mu, (1.0 - mu) / mu
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_weights(n_sc: int, offset: int, spacing: int):
+    """Static operands of ``jnp.interp(pos, pos[p_idx], fp)``: the upper
+    neighbour ``i``, the float32 fraction ``delta / dx`` and the clamp
+    masks, computed exactly as ``jnp.interp`` computes them."""
+    pos = np.arange(n_sc, dtype=np.float32)
+    xp = pos[offset::spacing]
+    i = np.clip(np.searchsorted(xp, pos, side="right"), 1, len(xp) - 1)
+    frac = (pos - xp[i - 1]) / (xp[i] - xp[i - 1])  # float32 divide
+    return i, frac.astype(np.float32), pos < xp[0], pos > xp[-1]
+
+
+def _interp_rows(fp: torch.Tensor, n_sc: int, offset: int,
+                 spacing: int) -> torch.Tensor:
+    """Clamped linear interpolation of each row of ``fp`` (rows, n_p) from
+    the comb ``offset::spacing`` onto all ``n_sc`` subcarriers: the same
+    arithmetic and end clamping as ``jnp.interp``, on real and imaginary
+    parts alike."""
+    i, frac, left, right = _interp_weights(n_sc, offset, spacing)
+    dev = fp.device
+    i = torch.from_numpy(i).to(dev)
+    frac = torch.from_numpy(frac).to(dev)
+    out = []
+    for part in (fp.real, fp.imag):
+        lo, hi = part[:, i - 1], part[:, i]
+        f = lo + frac * (hi - lo)
+        f = torch.where(torch.from_numpy(left).to(dev), part[:, :1], f)
+        f = torch.where(torch.from_numpy(right).to(dev), part[:, -1:], f)
+        out.append(f)
+    return torch.complex(out[0], out[1])
+
+
+def ls_channel_estimate_link(
+    y: torch.Tensor,  # (B, n_sym, n_sc, n_rx) received grid
+    pilot_seq: torch.Tensor,  # (n_sc,) known pilot symbols
+    pilot_masks: torch.Tensor,  # (n_tx, n_sym, n_sc) staggered per-tx combs
+    pilot_stride: int,
+) -> torch.Tensor:
+    """Per-(rx, tx) LS estimate from staggered DMRS combs + clamped linear
+    interpolation.  Returns H_hat (B, n_sc, n_rx, n_tx)."""
+    n_tx = pilot_masks.shape[0]
+    b, n_sym, n_sc, n_rx = y.shape
+    spacing = pilot_stride * n_tx
+    est = y / pilot_seq[None, None, :, None]  # (B, n_sym, n_sc, n_rx)
+    outs = []
+    for t in range(n_tx):
+        w = pilot_masks[t].to(torch.float32)[None, :, :, None]
+        h_p = torch.sum(est * w, dim=1) / torch.clamp(
+            torch.sum(w, dim=1), min=1e-9
+        )  # (B, n_sc, n_rx), nonzero only on tx t's comb
+        fp = torch.movedim(h_p[:, t * pilot_stride::spacing, :], 1, -1)
+        full = _interp_rows(
+            fp.reshape(b * n_rx, -1), n_sc, t * pilot_stride, spacing
+        ).reshape(b, n_rx, n_sc)
+        outs.append(torch.movedim(full, 1, -1))  # (B, n_sc, n_rx)
+    return torch.stack(outs, dim=-1)  # (B, n_sc, n_rx, n_tx)
+
+
+def mmse_smooth_link(
+    h_ls: torch.Tensor,  # (B, n_sc, n_rx, n_tx)
+    noise_var: torch.Tensor,
+    corr_len: float = 16.0,
+) -> torch.Tensor:
+    """Wiener smoothing of a per-(rx, tx) LS estimate (antenna pairs fold
+    into the batch of :func:`mmse_channel_estimate`)."""
+    b, n_sc, n_rx, n_tx = h_ls.shape
+    flat = torch.movedim(h_ls, 1, -1).reshape(b * n_rx * n_tx, n_sc)
+    sm = mmse_channel_estimate(flat, noise_var, corr_len=corr_len)
+    return torch.movedim(sm.reshape(b, n_rx, n_tx, n_sc), -1, 1)

@@ -1,0 +1,436 @@
+"""Receiver-pipeline subsystem (port of :mod:`repro.phy.link`, classical
+receivers only; the neural builders wait for ROADMAP queue 1, item 11).
+
+A :class:`ReceiverPipeline` is a chain of :class:`RxStage`\\ s threading a
+slot dict through eager PyTorch (no CUDA graphs yet).  Each stage names the
+TensorPool engine that does its work and carries the reference's cycle
+estimator, so TTI and energy reports are the reference's numbers.
+
+Pipelines hold their static operators (interpolation operator, pilot
+sequence and masks, data-RE indices) on the device they were built for;
+``device=None`` means CUDA.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import pool
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import quant, rx_fused
+from repro_torch.phy import classical, coding, ofdm
+from repro_torch.phy.scenarios import LinkScenario
+
+_C16 = 4  # bytes per complex64 element when streamed as 2 x fp16
+
+
+@dataclasses.dataclass(frozen=True)
+class RxStage:
+    """One receiver stage: compute-class + apply + cycle estimator."""
+    name: str
+    compute: str  # dominant engine: "TE" | "PE" | "DMA"
+    apply: Callable[[dict], dict]
+    cycles: Optional[Callable[[], pool.BlockCycles]] = None
+
+
+def _sum_cycles(cs) -> pool.BlockCycles:
+    cs = list(cs)
+    return pool.BlockCycles(
+        te_cycles=sum(c.te_cycles for c in cs),
+        pe_cycles=sum(c.pe_cycles for c in cs),
+        dma_cycles=sum(c.dma_cycles for c in cs),
+    )
+
+
+class ReceiverPipeline:
+    """A named chain of RxStages over the unified link-slot schema.
+
+    ``run`` executes the chain eagerly on the slot's device; the cycle
+    methods report the TensorPool budget without running anything.
+    """
+
+    def __init__(self, name: str, stages: list, scenario: LinkScenario,
+                 precision: str = "fp32",
+                 device: DeviceLike = None):
+        self.name = name
+        self.stages = tuple(stages)
+        self.scenario = scenario
+        self.precision = quant.require_unquantized(precision)
+        self.device = resolve_device(device)
+
+    def run(self, slot: dict) -> dict:
+        """End-to-end receive over a batch of slots."""
+        with torch.no_grad():
+            state = dict(slot)
+            for st in self.stages:
+                state = st.apply(state)
+        return state
+
+    # -- TensorPool budget ------------------------------------------------
+    def stage_cycles(self) -> dict:
+        return {
+            st.name: st.cycles() for st in self.stages
+            if st.cycles is not None
+        }
+
+    def total_cycles(self) -> pool.BlockCycles:
+        return _sum_cycles(
+            st.cycles() for st in self.stages if st.cycles is not None
+        )
+
+    def tti_report(self, batch: int = 1, clock_hz: float = 1e9,
+                   tti_s: float = 1e-3) -> dict:
+        """Per-engine ms and the 1 ms TTI utilization for ``batch`` slots."""
+        tot = self.total_cycles()
+        to_ms = lambda cyc: batch * cyc / clock_hz * 1e3
+        conc_ms = to_ms(tot.concurrent())
+        return {
+            "te_ms": to_ms(tot.te_cycles),
+            "pe_ms": to_ms(tot.pe_cycles),
+            "dma_ms": to_ms(tot.dma_cycles),
+            "sequential_ms": to_ms(tot.sequential),
+            "concurrent_ms": conc_ms,
+            "tti_utilization": conc_ms / (tti_s * 1e3),
+            "fits_tti": bool(conc_ms <= tti_s * 1e3),
+        }
+
+    def energy_report(self, clock_hz: float = 1e9):
+        """Per-slot modeled EnergyReport at this pipeline's precision."""
+        from repro_torch.analysis import costmodel
+
+        return costmodel.pipeline_energy(self, clock_hz=clock_hz)
+
+
+# ---------------------------------------------------------------------------
+# Metrics
+# ---------------------------------------------------------------------------
+
+def slot_metrics(state: dict, scenario: LinkScenario,
+                 per_slot: bool = False) -> dict:
+    """BER / channel-MSE / EVM / BLER / decode effort from a finished
+    pipeline state (tensors; ``per_slot=True`` gives (B,) tensors)."""
+    def red(x):
+        return dict(dim=tuple(range(1, x.ndim))) if per_slot else {}
+
+    data_mask = state.get("data_mask")  # (n_sym, n_sc)
+    if data_mask is None:
+        dev = next(v.device for v in state.values()
+                   if isinstance(v, torch.Tensor))
+        data_mask = ~torch.any(
+            ofdm.link_pilot_masks(scenario.grid, dev), dim=0
+        )
+    out = {}
+    if "llr" in state and "bits" in state:
+        hard = (state["llr"] > 0).to(torch.int32)
+        err = (hard != state["bits"]).to(torch.float32)
+        m = data_mask[None, :, :, None, None].to(torch.float32)
+        denom = torch.sum(m.expand(err.shape), **red(err))
+        out["ber"] = torch.sum(err * m, **red(err)) / denom
+    h_est = state.get("h_hat", state.get("h_ls"))
+    if h_est is not None and "h" in state:
+        h_bar = torch.mean(state["h"], dim=1)  # (B, n_sc, n_rx, n_tx)
+        e = torch.abs(h_est - h_bar) ** 2
+        out["che_mse"] = torch.mean(e, **red(e))
+    if "x_hat" in state and "x" in state:
+        e = torch.abs(state["x_hat"] - state["x"]) ** 2
+        m = data_mask[None, :, :, None].to(torch.float32)
+        denom = torch.sum(m.expand(e.shape), **red(e))
+        out["evm"] = torch.sum(e * m, **red(e)) / denom
+    if "info_bits_hat" in state and "info_bits" in state:
+        blk = torch.any(
+            state["info_bits_hat"] != state["info_bits"], dim=-1
+        ).to(torch.float32)  # (B, C)
+        out["bler"] = torch.mean(blk, **red(blk))
+        it = state["decode_iters"].to(torch.float32)
+        out["decode_iters"] = torch.mean(it, **red(it))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Stage factories (cycle models are the reference's, per slot)
+# ---------------------------------------------------------------------------
+
+def _grid_bytes(cfg: ofdm.GridConfig, per_re: int = 1) -> float:
+    return cfg.n_symbols * cfg.n_subcarriers * per_re * _C16
+
+
+def cfft_stage(cfg: ofdm.GridConfig) -> RxStage:
+    def apply(state):
+        state["y"] = classical.cfft_auto(state["y_time"], axis=2)
+        return state
+
+    def cycles():
+        flops = (cfg.n_symbols * cfg.n_rx
+                 * 5.0 * cfg.fft_size * math.log2(cfg.fft_size))
+        return pool.BlockCycles(
+            te_cycles=0.0,
+            pe_cycles=pool.pe_cycles(flops, ipc=0.7),
+            dma_cycles=pool.dma_cycles(2 * _grid_bytes(cfg, cfg.n_rx)),
+        )
+
+    return RxStage("cfft", "PE", apply, cycles)
+
+
+def ls_che_stage(cfg: ofdm.GridConfig, fused: bool = False,
+                 device: DeviceLike = None) -> RxStage:
+    """LS CHE on the staggered DMRS combs; ``fused=True`` runs the fused
+    comb-extract + interpolation-GEMM kernel (:func:`rx_fused.ls_che`)."""
+    dev = resolve_device(device)
+    seq = ofdm.pilot_sequence(cfg, dev)
+    n_sc, n_psym = cfg.n_subcarriers, len(cfg.pilot_symbols)
+    if fused:
+        op = torch.from_numpy(rx_fused.make_ls_interp_operator(
+            n_sc, cfg.n_tx, cfg.pilot_stride, ofdm.pilot_sequence_np(cfg)
+        )).to(dev)
+        n_p = op.shape[1]
+
+        def apply(state):
+            state["h_ls"] = rx_fused.ls_che(
+                state["y"], cfg.pilot_symbols, cfg.pilot_stride, op
+            )
+            return state
+
+        def cycles():
+            macs = 4.0 * cfg.n_rx * cfg.n_tx * n_p * n_sc
+            flops = 2.0 * n_psym * cfg.n_tx * n_p * cfg.n_rx
+            return pool.BlockCycles(
+                te_cycles=pool.te_cycles(macs, utilization=0.67),
+                pe_cycles=pool.pe_cycles(flops, ipc=0.7),
+                dma_cycles=pool.dma_cycles(
+                    n_psym * n_sc * cfg.n_rx * _C16
+                    + n_sc * cfg.n_rx * cfg.n_tx * _C16
+                ),
+            )
+
+        return RxStage("ls_che_fused", "TE", apply, cycles)
+
+    masks = ofdm.link_pilot_masks(cfg, dev)
+
+    def apply(state):
+        state["h_ls"] = classical.ls_channel_estimate_link(
+            state["y"], seq, masks, cfg.pilot_stride
+        )
+        return state
+
+    def cycles():
+        flops = (n_psym * cfg.n_subcarriers * cfg.n_rx * 10.0
+                 + cfg.n_subcarriers * cfg.n_rx * cfg.n_tx * 8.0)
+        return pool.BlockCycles(
+            te_cycles=0.0,
+            pe_cycles=pool.pe_cycles(flops, ipc=0.6),
+            dma_cycles=pool.dma_cycles(
+                _grid_bytes(cfg, cfg.n_rx)
+                + cfg.n_subcarriers * cfg.n_rx * cfg.n_tx * _C16
+            ),
+        )
+
+    return RxStage("ls_che", "PE", apply, cycles)
+
+
+def mmse_che_stage(cfg: ofdm.GridConfig, corr_len: float = 16.0) -> RxStage:
+    """Wiener smoothing of the LS estimate per antenna pair."""
+
+    def apply(state):
+        state["h_hat"] = classical.mmse_smooth_link(
+            state["h_ls"], state["noise_var"], corr_len=corr_len
+        )
+        return state
+
+    def cycles():
+        n_sc = cfg.n_subcarriers
+        flops = 8.0 * n_sc * n_sc * cfg.n_rx * cfg.n_tx
+        return pool.BlockCycles(
+            te_cycles=0.0,
+            pe_cycles=pool.pe_cycles(flops, ipc=0.77),
+            dma_cycles=pool.dma_cycles(
+                2 * n_sc * cfg.n_rx * cfg.n_tx * _C16
+            ),
+        )
+
+    return RxStage("mmse_che", "PE", apply, cycles)
+
+
+def _broadcast_h(h_est, n_sym):
+    b, n_sc, n_rx, n_tx = h_est.shape
+    return h_est[:, None].expand(b, n_sym, n_sc, n_rx, n_tx).reshape(
+        b * n_sym, n_sc, n_rx, n_tx
+    )
+
+
+def detect_demap_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem) -> RxStage:
+    """Fused equalize -> demap (:func:`rx_fused.mmse_detect_demap`)."""
+
+    def apply(state):
+        h_est = state.get("h_hat", state.get("h_ls"))
+        x_hat, nv_eff, llr = rx_fused.mmse_detect_demap(
+            state["y"], h_est, state["noise_var"], modem,
+        )
+        state["x_hat"], state["nv_eff"], state["llr"] = x_hat, nv_eff, llr
+        return state
+
+    def cycles():
+        t, r = cfg.n_tx, cfg.n_rx
+        lvl = 2 ** (modem.bits_per_symbol // 2)
+        per_re = (8.0 * (t * t * r + t ** 3 + t * r) + t * lvl * 8.0)
+        flops = cfg.n_symbols * cfg.n_subcarriers * per_re
+        return pool.BlockCycles(
+            te_cycles=0.0,
+            pe_cycles=pool.pe_cycles(flops, ipc=0.8),
+            dma_cycles=pool.dma_cycles(
+                _grid_bytes(cfg, cfg.n_rx)
+                + cfg.n_subcarriers * cfg.n_rx * cfg.n_tx * _C16
+                + _grid_bytes(cfg, cfg.n_tx * modem.bits_per_symbol // 2)
+            ),
+        )
+
+    return RxStage("detect_demap_fused", "PE", apply, cycles)
+
+
+def detect_stage(cfg: ofdm.GridConfig, fused: bool = False,
+                 modem: Optional[ofdm.Modem] = None) -> RxStage:
+    """MIMO-MMSE detection; ``fused=True`` (requires ``modem``) returns
+    the combined :func:`detect_demap_stage`, so builders then skip
+    :func:`demod_stage`."""
+    if fused:
+        if modem is None:
+            raise ValueError("fused detect+demap needs the modem")
+        return detect_demap_stage(cfg, modem)
+
+    def apply(state):
+        h_est = state.get("h_hat", state.get("h_ls"))
+        b, n_sym, n_sc, n_rx = state["y"].shape
+        yf = state["y"].reshape(b * n_sym, n_sc, n_rx)
+        x_hat, nv_eff = classical.mimo_mmse_detect_ext(
+            yf, _broadcast_h(h_est, n_sym), state["noise_var"]
+        )
+        state["x_hat"] = x_hat.reshape(b, n_sym, n_sc, cfg.n_tx)
+        state["nv_eff"] = nv_eff.reshape(b, n_sym, n_sc, cfg.n_tx)
+        return state
+
+    def cycles():
+        t, r = cfg.n_tx, cfg.n_rx
+        per_re = 8.0 * (t * t * r + t ** 3 + t * r)
+        flops = cfg.n_symbols * cfg.n_subcarriers * per_re
+        return pool.BlockCycles(
+            te_cycles=0.0,
+            pe_cycles=pool.pe_cycles(flops, ipc=0.59),
+            dma_cycles=pool.dma_cycles(
+                _grid_bytes(cfg, cfg.n_rx) + _grid_bytes(cfg, cfg.n_tx)
+            ),
+        )
+
+    return RxStage("mmse_detect", "PE", apply, cycles)
+
+
+def demod_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem) -> RxStage:
+    def apply(state):
+        state["llr"] = modem.demod_llr(state["x_hat"], state["nv_eff"])
+        return state
+
+    def cycles():
+        lvl = 2 ** (modem.bits_per_symbol // 2)
+        flops = (cfg.n_symbols * cfg.n_subcarriers * cfg.n_tx
+                 * lvl * 8.0)
+        return pool.BlockCycles(
+            te_cycles=0.0,
+            pe_cycles=pool.pe_cycles(flops, ipc=0.6),
+            dma_cycles=pool.dma_cycles(
+                _grid_bytes(cfg, cfg.n_tx * modem.bits_per_symbol // 2)
+            ),
+        )
+
+    return RxStage("llr_demod", "PE", apply, cycles)
+
+
+def decode_stage(scenario: LinkScenario, *, max_iters: int = 12,
+                 alpha: float = 0.8) -> RxStage:
+    """CRC + LDPC decode of the slot's transport blocks.  HARQ state rides
+    in the slot: ``rv`` (B,) and ``prior_llr`` (B, C, n_mother), when
+    present, pick each slot's RV window and accumulate the prior."""
+    code = scenario.code
+    if code is None:
+        raise ValueError(f"{scenario.name} has no channel code")
+    n_cw = coding.codewords_per_slot(scenario)
+
+    def apply(state):
+        state.update(
+            coding.decode_blocks(
+                scenario, state["llr"], max_iters=max_iters, alpha=alpha,
+                rv=state.get("rv"), prior_llr=state.get("prior_llr"),
+            )
+        )
+        return state
+
+    def cycles():
+        n_edges = sum(len(e) for e in code.layers())
+        iters_budget = max_iters / 2.0
+        sweep_flops = n_cw * iters_budget * n_edges * code.z * 8.0
+        syndrome_flops = n_cw * iters_budget * n_edges * code.z * 2.0
+        crc_macs = n_cw * code.k_info * code.crc_bits
+        return pool.BlockCycles(
+            te_cycles=pool.te_cycles(crc_macs, utilization=0.67),
+            pe_cycles=pool.pe_cycles(sweep_flops + syndrome_flops, ipc=0.7),
+            dma_cycles=pool.dma_cycles(
+                n_cw * code.n_mother * 4.0 + n_cw * code.k / 8.0
+            ),
+        )
+
+    return RxStage("ldpc_decode", "PE", apply, cycles)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline builders
+# ---------------------------------------------------------------------------
+
+def build_classical(scenario: LinkScenario, *, mmse_smooth: bool = True,
+                    fused: bool = False, sic: bool = False,
+                    precision: Optional[str] = None,
+                    device: DeviceLike = None, **_) -> ReceiverPipeline:
+    """CFFT -> LS CHE [-> Wiener CHE] -> MIMO-MMSE detect -> LLR demod
+    [-> CRC+LDPC decode].
+
+    ``fused=True`` serves LS CHE and detect+demap through the hand-written
+    kernels of :mod:`repro_torch.kernels.rx_fused`; the decode stage runs
+    the LDPC kernel either way.  ``sic=True`` and the quantized precisions
+    raise: they are not ported yet.
+    """
+    p = quant.require_unquantized(precision)
+    if sic:
+        raise NotImplementedError(
+            "build_classical(sic=True) is not ported yet (ROADMAP queue 1, "
+            "item 9: SIC and interference serving)"
+        )
+    dev = resolve_device(device)
+    cfg, modem = scenario.grid, scenario.modem
+    stages = [cfft_stage(cfg), ls_che_stage(cfg, fused=fused, device=dev)]
+    if mmse_smooth:
+        stages.append(mmse_che_stage(cfg))
+    if fused:
+        stages.append(detect_stage(cfg, fused=True, modem=modem))
+    else:
+        stages += [detect_stage(cfg), demod_stage(cfg, modem)]
+    if scenario.code is not None:
+        stages.append(decode_stage(scenario))
+    tag = "+fused" if fused else ""
+    return ReceiverPipeline(
+        f"classical{tag}/{scenario.name}", stages, scenario, precision=p,
+        device=dev,
+    )
+
+
+PIPELINE_BUILDERS: dict = {
+    "classical": build_classical,
+}
+
+
+def build_pipeline(kind: str, scenario: LinkScenario,
+                   **kw) -> ReceiverPipeline:
+    if kind not in PIPELINE_BUILDERS:
+        raise KeyError(
+            f"unknown receiver {kind!r}; have {sorted(PIPELINE_BUILDERS)} "
+            "(the neural receivers wait for ROADMAP queue 1, item 11)"
+        )
+    return PIPELINE_BUILDERS[kind](scenario, **kw)

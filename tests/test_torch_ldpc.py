@@ -1,0 +1,134 @@
+"""Port vs reference: the layered min-sum LDPC decoder.
+
+The plain twin (what ``ldpc_decode`` runs on a CPU tensor) is held to the
+reference's jnp path and to its per-codeword numpy oracle, for both
+registered codes at three operating points: every codeword converging at
+once, a typical waterfall point, and one where nothing converges and the
+decoder runs to ``max_iters``.  Hard bits and per-codeword iteration counts
+must be equal.  Posteriors: identical to the numpy oracle, and within
+1e-4 of the jnp path (XLA contracts multiply-adds on the CPU, so the jnp
+posterior differs from both by a few ulps).  The CUDA kernel itself is
+checked against the twin on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ldpc as ref_ldpc
+from repro.kernels import ref
+from repro.phy import coding as ref_coding
+from repro_torch.kernels import ldpc
+from repro_torch.phy import coding
+
+# (rate, snr_db, regime): BPSK-over-AWGN channel LLRs of random codewords
+_POINTS = [
+    ("r12", 14.0, "entry"), ("r12", 2.0, "typical"), ("r12", -6.0, "never"),
+    ("r34", 14.0, "entry"), ("r34", 5.5, "typical"), ("r34", -6.0, "never"),
+]
+
+
+_N_MAX = 16  # codewords per draw at most: one encoder compile per code
+
+
+@functools.lru_cache(maxsize=None)
+def _transmit(rate: str):
+    """The reference's encode + RV0 rate matching of ``_N_MAX`` codewords,
+    jitted (one compile instead of an eager compile per op and shape)."""
+    code = ref_coding.make_code(rate)
+    return jax.jit(lambda bits: ref_coding.rate_match(
+        code, ref_coding.encode(code, bits)))
+
+
+def _llrs(rate: str, n: int, snr_db: float, seed: int) -> np.ndarray:
+    """(n, n_mother) float32 LLRs (log P(1)/P(0)) of random codewords sent
+    at RV0, punctured tail zero, drawn from ``seed``."""
+    code = ref_coding.make_code(rate)
+    rng = np.random.default_rng(seed)
+    bits = np.zeros((_N_MAX, code.k), np.int32)
+    bits[:n] = rng.integers(0, 2, (n, code.k))
+    tx = np.asarray(_transmit(rate)(jnp.asarray(bits)))[:n]
+    s2 = 10.0 ** (-snr_db / 10.0)
+    y = (2 * tx - 1) + np.sqrt(s2) * rng.standard_normal(tx.shape)
+    llr = (2.0 * y / s2).astype(np.float32)
+    pad = np.zeros((n, code.n_mother - code.e_bits), np.float32)
+    return np.concatenate([llr, pad], axis=1)
+
+
+def _twin(llr: np.ndarray, rate: str, max_iters: int = 12):
+    post, iters = ldpc.ldpc_decode(torch.from_numpy(llr),
+                                   coding.make_code(rate),
+                                   max_iters=max_iters)
+    return post.numpy(), iters.numpy()
+
+
+@pytest.fixture(scope="module")
+def jnp_runs():
+    """Per rate: one decode of all three operating points' codewords
+    (16 each, stacked) by the twin and by the jnp path, so the reference's
+    decode loop compiles once per code."""
+    out = {}
+    for rate in ("r12", "r34"):
+        llr = np.concatenate([_llrs(rate, 16, snr, seed=3)
+                              for r, snr, _ in _POINTS if r == rate])
+        post_r, iters_r = ref_ldpc.ldpc_decode_jnp(
+            jnp.asarray(llr), ref_coding.make_code(rate))
+        out[rate] = (_twin(llr, rate),
+                     (np.asarray(post_r), np.asarray(iters_r)))
+    return out
+
+
+@pytest.mark.parametrize("rate,snr_db,regime", _POINTS)
+def test_twin_matches_jnp_path(jnp_runs, rate, snr_db, regime):
+    i = [p for p in _POINTS if p[0] == rate].index((rate, snr_db, regime))
+    rows = slice(16 * i, 16 * (i + 1))
+    (post, iters), (post_r, iters_r) = jnp_runs[rate]
+    post, iters = post[rows], iters[rows]
+    post_r, iters_r = post_r[rows], iters_r[rows]
+    assert np.array_equal(iters, iters_r)
+    assert np.array_equal(post > 0, post_r > 0)
+    np.testing.assert_allclose(post, post_r, rtol=0, atol=1e-4)
+    if regime == "entry":
+        assert iters.max() <= (0 if rate == "r12" else 1)
+    elif regime == "never":
+        assert (iters == 12).all()
+    else:
+        assert 0 < iters.min() and iters.max() <= 12
+        assert len(np.unique(iters)) > 2
+
+
+@pytest.mark.parametrize("rate,snr_db,regime", _POINTS)
+def test_twin_matches_numpy_oracle_exactly(rate, snr_db, regime):
+    llr = _llrs(rate, 6, snr_db, seed=5)
+    post, iters = _twin(llr, rate)
+    post_o, iters_o = ref.ldpc_decode_ref(llr, ref_coding.make_code(rate))
+    assert np.array_equal(iters, np.asarray(iters_o))
+    assert np.array_equal(post, np.asarray(post_o))
+
+
+def test_twin_matches_pallas_interpret():
+    llr = _llrs("r12", 4, 3.5, seed=7)
+    post, iters = _twin(llr, "r12")
+    post_p, iters_p = ref_ldpc.ldpc_decode_pallas(
+        jnp.asarray(llr), ref_coding.make_code("r12"), interpret=True)
+    assert np.array_equal(iters, np.asarray(iters_p))
+    assert np.array_equal(post > 0, np.asarray(post_p) > 0)
+    np.testing.assert_allclose(post, np.asarray(post_p), rtol=0, atol=1e-4)
+
+
+def test_max_iters_and_cuda_contract():
+    llr = _llrs("r12", 6, -6.0, seed=9)
+    _, iters = _twin(llr, "r12", max_iters=3)
+    assert (iters == 3).all()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ldpc.ldpc_decode(torch.from_numpy(llr), coding.make_code("r12"),
+                         precision="int8")
+    # the kernel takes one warp lane per lifted row: z == 32 only
+    with pytest.raises(ValueError, match="z == 32"):
+        ldpc.ldpc_decode_cuda(torch.zeros(1, 24 * 16),
+                              coding.make_code("r12", z=16))
+

@@ -1,0 +1,140 @@
+"""Port vs reference: the fused classical-receiver kernels' plain twins.
+
+``ls_che`` and ``mmse_detect_demap`` on a CPU tensor run their plain
+PyTorch twins; here those are held to the reference's jnp twins (its
+numerical reference off-TPU) and, at one small shape each, to the Pallas
+kernels in interpret mode, on the same inputs drawn with numpy.
+
+Tolerances: LS CHE is one small complex GEMM in fp32, rtol 1e-5 / atol
+1e-6.  Detect+demap runs a division-heavy elimination whose fp32 rounding
+differs where XLA contracts multiply-adds: x_hat and nv_eff rtol 1e-4 /
+atol 1e-5; LLR values rtol 1e-3 / atol 1e-5 of the largest |LLR| (the
+max-log distances, ``scale`` and the ``max(ne*norm, 1e-6)`` division are
+held by value, not only by sign), and LLR signs agree on at least 99.9% of
+bits (borderline LLRs near zero may flip).  The CUDA kernels are checked
+against these twins on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import rx_fused as ref_rx
+from repro.phy import ofdm as ref_ofdm
+from repro_torch.kernels import rx_fused
+from repro_torch.phy import ofdm
+
+_SHAPES = [(1, 1), (2, 2), (4, 4), (8, 4)]
+_MODEMS = ["qpsk", "qam16", "qam64", "qam256"]
+_N_SC = 64
+_PSYM = (2, 11)
+
+
+def _cgauss(rng, shape) -> np.ndarray:
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            / np.sqrt(2.0)).astype(np.complex64)
+
+
+def _detect_inputs(n_rx, n_tx, modem_name, seed, b=1, n_sc=_N_SC,
+                   snr_db=22.0):
+    """y = H x + n on a (b, 14, n_sc) grid with H flat in time."""
+    rng = np.random.default_rng(seed)
+    modem = ref_ofdm.make_modem(modem_name)
+    h = _cgauss(rng, (b, n_sc, n_rx, n_tx))
+    bits = rng.integers(0, 2, (b, 14, n_sc, n_tx, modem.bits_per_symbol))
+    x = np.asarray(modem.mod(jnp.asarray(bits)))
+    nv = np.float32(n_tx * 10.0 ** (-snr_db / 10.0))
+    y = (np.einsum("bsrt,bmst->bmsr", h, x)
+         + np.sqrt(nv) * _cgauss(rng, (b, 14, n_sc, n_rx))).astype(
+             np.complex64)
+    return y, h, nv
+
+
+def _port_detect(y, h, nv, modem_name):
+    out = rx_fused.mmse_detect_demap(
+        torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
+        ofdm.make_modem(modem_name))
+    return [o.numpy() for o in out]
+
+
+def _assert_detect_close(got, want):
+    x, nve, llr = got
+    xr, nver, llrr = (np.asarray(a) for a in want)
+    np.testing.assert_allclose(x, xr, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(nve, nver, rtol=1e-4, atol=1e-5)
+    assert llr.shape == llrr.shape
+    np.testing.assert_allclose(llr, llrr, rtol=1e-3,
+                               atol=1e-5 * float(np.abs(llrr).max()))
+    assert np.mean(np.sign(llr) == np.sign(llrr)) >= 0.999
+
+
+@pytest.mark.parametrize("modem_name", _MODEMS)
+@pytest.mark.parametrize("n_rx,n_tx", _SHAPES)
+def test_detect_demap_twin_matches_jnp(n_rx, n_tx, modem_name):
+    y, h, nv = _detect_inputs(n_rx, n_tx, modem_name, seed=n_rx * 10 + n_tx)
+    want = ref_rx.mmse_detect_demap_jnp(
+        jnp.asarray(y), jnp.asarray(h), jnp.float32(nv),
+        ref_ofdm.make_modem(modem_name))
+    _assert_detect_close(_port_detect(y, h, nv, modem_name), want)
+
+
+def test_detect_demap_twin_matches_pallas_interpret():
+    y, h, nv = _detect_inputs(2, 2, "qam16", seed=5, b=1)
+    want = ref_rx.mmse_detect_demap_pallas(
+        jnp.asarray(y), jnp.asarray(h), jnp.float32(nv),
+        ref_ofdm.make_modem("qam16"), interpret=True)
+    _assert_detect_close(_port_detect(y, h, nv, "qam16"), want)
+
+
+def _ls_inputs(n_tx, n_rx, seed, b=2, n_sc=_N_SC):
+    rng = np.random.default_rng(seed)
+    y = _cgauss(rng, (b, 14, n_sc, n_rx))
+    g = ref_ofdm.GridConfig(n_subcarriers=n_sc, fft_size=n_sc, n_tx=n_tx,
+                            n_rx=n_rx)
+    seq = np.asarray(ref_ofdm.pilot_sequence(g))
+    op = rx_fused.make_ls_interp_operator(n_sc, n_tx, g.pilot_stride, seq)
+    return y, op, g.pilot_stride
+
+
+@pytest.mark.parametrize("n_rx,n_tx", _SHAPES)
+def test_ls_che_twin_matches_jnp(n_rx, n_tx):
+    y, op, stride = _ls_inputs(n_tx, n_rx, seed=n_rx + 7 * n_tx, n_sc=256)
+    got = rx_fused.ls_che(torch.from_numpy(y), _PSYM, stride,
+                          torch.from_numpy(op)).numpy()
+    want = np.asarray(ref_rx.ls_che_jnp(jnp.asarray(y), _PSYM, stride,
+                                        jnp.asarray(op)))
+    assert got.shape == want.shape == (2, 256, n_rx, n_tx)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_ls_che_twin_matches_pallas_interpret():
+    y, op, stride = _ls_inputs(2, 2, seed=3)
+    got = rx_fused.ls_che(torch.from_numpy(y), _PSYM, stride,
+                          torch.from_numpy(op)).numpy()
+    want = np.asarray(ref_rx.ls_che_pallas(
+        jnp.asarray(y), _PSYM, stride, jnp.asarray(op), block_rows=2,
+        interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    y, h, nv = _detect_inputs(1, 1, "qpsk", seed=1, b=1)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        rx_fused.mmse_detect_demap(torch.from_numpy(y), torch.from_numpy(h),
+                                   torch.tensor(nv), ofdm.make_modem("qpsk"),
+                                   precision="fp8")
+    # a CPU tensor never reaches a kernel launch: the CUDA entry checks
+    # device, dtype and layout before anything else
+    with pytest.raises(ValueError, match="CUDA"):
+        rx_fused.mmse_detect_demap_cuda(
+            torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
+            ofdm.make_modem("qpsk"))
+    with pytest.raises(ValueError, match="no instance"):
+        rx_fused.mmse_detect_demap_cuda(
+            torch.zeros(1, 14, 8, 3, dtype=torch.complex64),
+            torch.zeros(1, 8, 3, 3, dtype=torch.complex64),
+            torch.tensor(0.1), ofdm.make_modem("qpsk"))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        rx_fused.sic_detect_demap()
+

@@ -1,0 +1,141 @@
+"""Port vs reference: the static, trace-time builders must give identical
+arrays (protograph, CRC matrix, interpolation operator, pilot sequence
+and masks, data-RE order), the scenario and ladder registries must agree
+field for field, and the port must import neither JAX nor the reference
+package."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from repro.kernels import rx_fused as ref_rx
+from repro.phy import coding as ref_coding
+from repro.phy import ofdm as ref_ofdm
+from repro.phy import scenarios as ref_scn
+from repro_torch.kernels import rx_fused
+from repro_torch.phy import coding, ofdm, scenarios
+
+_GRIDS = sorted({ref_scn.get_scenario(n).grid
+                 for n in scenarios.scenario_names()}, key=repr)
+
+
+def _port_grid(g):
+    return ofdm.GridConfig(**{f: getattr(g, f) for f in (
+        "n_subcarriers", "n_symbols", "pilot_stride", "pilot_symbols",
+        "n_tx", "n_rx", "fft_size", "n_taps", "delay_spread")})
+
+
+@pytest.mark.parametrize("rate", ["r12", "r34"])
+def test_code_protograph_identical(rate):
+    a, b = ref_coding.make_code(rate), coding.make_code(rate)
+    assert a.info_edges == b.info_edges
+    assert a.layers() == b.layers()
+    assert (a.name, a.z, a.k_b, a.m_b, a.p_tx_b, a.k, a.n_mother,
+            a.e_bits) == (b.name, b.z, b.k_b, b.m_b, b.p_tx_b, b.k,
+                          b.n_mother, b.e_bits)
+
+
+@pytest.mark.parametrize("k_info", [368, 176, 40])
+def test_crc_matrix_identical(k_info):
+    a, b = ref_coding.crc_matrix(k_info), coding.crc_matrix(k_info)
+    assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("grid", _GRIDS, ids=lambda g: f"{g.n_tx}x{g.n_rx}")
+def test_pilots_masks_and_operator_identical(grid):
+    pg = _port_grid(grid)
+    seq_ref = np.asarray(ref_ofdm.pilot_sequence(grid))
+    seq = ofdm.pilot_sequence_np(pg)
+    assert seq.dtype == seq_ref.dtype and seq.tobytes() == seq_ref.tobytes()
+    m_ref = ref_ofdm.link_pilot_masks_np(grid)
+    assert m_ref.tobytes() == ofdm.link_pilot_masks_np(pg).tobytes()
+    op_ref = np.asarray(ref_rx.make_ls_interp_operator(
+        grid.n_subcarriers, grid.n_tx, grid.pilot_stride, seq_ref))
+    op = rx_fused.make_ls_interp_operator(
+        pg.n_subcarriers, pg.n_tx, pg.pilot_stride, seq)
+    assert op.dtype == op_ref.dtype and op.tobytes() == op_ref.tobytes()
+    sym_ref, sc_ref = (np.asarray(a) for a in ref_coding._data_re_index(grid))
+    sym, sc = coding._data_re_index(pg)
+    assert np.array_equal(sym, sym_ref) and np.array_equal(sc, sc_ref)
+
+
+def test_scenario_and_ladder_registries_agree():
+    # other test modules may register extra scenarios into the reference
+    # registry in this process, so the port's catalogue is compared name
+    # by name against it
+    assert len(scenarios.scenario_names()) == 17
+    assert set(scenarios.scenario_names()) <= set(ref_scn.scenario_names())
+    for name in scenarios.scenario_names():
+        a, b = ref_scn.get_scenario(name), scenarios.get_scenario(name)
+        for f in ("modulation", "snr_db", "doppler_rho", "interferer_db",
+                  "user_power_db", "description", "bits_per_slot",
+                  "data_bits_per_slot", "n_users"):
+            assert getattr(a, f) == getattr(b, f), (name, f)
+        assert _port_grid(a.grid) == b.grid
+        assert (a.code is None) == (b.code is None)
+        if a.code is not None:
+            assert a.code.name == b.code.name
+            assert a.code.info_edges == b.code.info_edges
+            assert (ref_coding.codewords_per_slot(a)
+                    == coding.codewords_per_slot(b))
+        ma, mb = a.modem, b.modem
+        assert (ma.name, ma.bits_per_symbol, ma.levels, ma.norm) == \
+            (mb.name, mb.bits_per_symbol, mb.levels, mb.norm)
+    assert scenarios.ladder_names() == [
+        "mimo2x2-coded", "siso-coded", "siso-coded-wide"]
+    for name in scenarios.ladder_names():
+        la, lb = ref_scn.get_ladder(name), scenarios.get_ladder(name)
+        assert la.rungs == lb.rungs
+        assert [la.efficiency(i) for i in range(len(la))] == \
+            [lb.efficiency(i) for i in range(len(lb))]
+
+
+_MODULES = [
+    "repro_torch", "repro_torch.device", "repro_torch.kernels.quant",
+    "repro_torch.kernels._build", "repro_torch.kernels.rx_fused",
+    "repro_torch.kernels.ldpc", "repro_torch.core.machine",
+    "repro_torch.core.pool", "repro_torch.analysis.costmodel",
+    "repro_torch.phy", "repro_torch.phy.ofdm", "repro_torch.phy.coding",
+    "repro_torch.phy.scenarios", "repro_torch.phy.classical",
+    "repro_torch.phy.link", "repro_torch.serve",
+    "repro_torch.serve.runtime", "repro_torch.serve.phy_engine",
+]
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_entry_points_default_to_cuda():
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.phy import link
+
+    scn = scenarios.get_scenario("siso-qpsk-r12-snr8")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            link.build_classical(scn, fused=True)
+    assert link.build_classical(scn, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="item 10"):
+        link.build_classical(scn, precision="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        link.build_classical(scn, sic=True, device="cpu")
