@@ -7,24 +7,36 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. Device: the card's name and ``nvidia-smi`` name / power limit; TF32 is
    switched off for matmuls and cuDNN so every fp32 product is full fp32.
-2. Build: ``nvcc`` compiles the three hand-written kernels from
+2. Build: ``nvcc`` compiles the five hand-written kernels from
    ``src/repro_torch/csrc`` (one process per source, in parallel).
-3. Kernel vs plain twin, on the card, at the main path's shapes:
+3. Kernel vs plain twin, on the card, at the main paths' shapes:
    ``ls_che`` (SISO and 2x2 grids), ``mmse_detect_demap`` (SISO-16QAM,
-   2x2-16QAM, 4x8-64QAM, SISO-256QAM) at batch 8, and ``ldpc_decode`` (r12
-   and r34, 216 codewords, at a converging and a non-converging SNR).
+   2x2-16QAM, 4x8-64QAM, SISO-256QAM) at batch 8, ``ldpc_decode`` (r12
+   and r34, 216 codewords, at a converging and a non-converging SNR),
+   ``te_gemm`` (every GEMM shape of DeepRx and CE-ViT at batch 8, every
+   epilogue, a bf16 and a ragged case) and ``mha`` (CE-ViT's
+   (32, 64, 16), (16, 256, 64) causal and not, bf16, ragged, D = 128).
    Each kernel's time per call (CUDA events around the wrapper, so launch
    overhead included) and device time (CUPTI), its plain twin's time, a
    library yardstick's where one PyTorch call computes the same thing,
-   and its bound (the larger of bytes at 3.35 TB/s and operations at
-   67 TFLOP/s fp32) are printed.
-4. Closed loop: ``SlotScheduler("siso-coded", fused)`` for 50 TTIs, then
-   ``"mimo2x2-coded"`` for 10, each with the kernels' launch counts zeroed
-   just before and read just after; every kernel must have launched, jobs
-   must be conserved exactly, and one served batch must decode on the
-   kernels exactly as it does on the plain twins (on the CPU).  Ten more
-   SISO ticks run under ``torch.profiler`` for the device's busy and idle
-   time and the split of device time by kernel.
+   and its bound (the larger of bytes at 3.35 TB/s and operations at the
+   peak for the operands' type: 67 TFLOP/s fp32, 989 TFLOP/s bf16) are
+   printed.
+4. Closed loops, each with the kernels' launch counts zeroed just before
+   and read just after, jobs conserved exactly, and every kernel of the
+   path launched: ``SlotScheduler("siso-coded", fused)`` for 50 TTIs and
+   ``"mimo2x2-coded"`` for 10 (the classical receiver: ``ls_che``, detect
+   + demap, LDPC), then the neural receivers on ``"siso-coded"`` for 20
+   TTIs each: ``receiver="cevit", options={"fused_rx": True}`` (TE GEMM,
+   MHA, detect + demap, LDPC) and ``receiver="deeprx"`` (TE GEMM, LDPC),
+   with the port's own seeded weights (untrained: BER ~0.5, nearly every
+   block NACKed).  One served batch of each path is compared with the
+   plain twins on the CPU: the classical one must decode identically, the
+   neural ones must agree in LLR signs (>= 99.9%), values (rtol 1e-3,
+   atol 1e-5 of the largest |LLR|) and CRC flags.  Ten more SISO
+   classical ticks and ten CE-ViT ticks run under ``torch.profiler`` for
+   the device's busy and idle time and the split of device time by
+   kernel.
 5. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +55,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 
 
 def check(cond: bool, msg: str) -> None:
@@ -139,12 +152,15 @@ def profile_ticks(sch, n_ticks: int) -> dict:
 # the device-side symbol of each ported kernel (for the CUPTI trace)
 KERNEL_SYMBOLS = {"ls_che": "ls_che_kernel",
                   "mmse_detect_demap": "detect_demap_kernel",
-                  "ldpc_decode": "ldpc_minsum_kernel"}
+                  "ldpc_decode": "ldpc_minsum_kernel",
+                  "te_gemm": "te_gemm_kernel",
+                  "mha": "mha_kernel"}
 
 
-def bound(bytes_moved: float, flops: float) -> tuple:
+def bound(bytes_moved: float, flops: float,
+          peak_flops: float = FP32_FLOPS) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -323,17 +339,175 @@ def check_ldpc(dev) -> list:
     return cases
 
 
+def _tolerance(dtype) -> tuple:
+    """(rtol, text): fp32 sums run in another order than the twin's
+    cuBLAS call; a bf16 output may differ by one rounding step."""
+    import torch
+
+    if dtype == torch.float32:
+        return 1e-4, "rtol 1e-4, atol 1e-5 * max|twin|"
+    return 2.0 ** -7, "rtol 2^-7 (one bf16 rounding step), atol 1e-5 * max|twin|"
+
+
+def _hold(name: str, got, want, dtype) -> float:
+    import torch
+
+    rtol, _ = _tolerance(dtype)
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=rtol,
+                        atol=1e-5 * float(want.abs().max()))
+    check(ok, f"{name} disagrees with its twin (max err {err})")
+    return err
+
+
+# (label, M, K, N, epilogue, bias, dtype name): every GEMM of DeepRx and
+# CE-ViT at batch 8 on the SISO grid (M = 8 * 14 * 256 and 8 * 64 rows),
+# then the other epilogues, a bf16 and a ragged case.  The first row is
+# the main path's reported shape.
+TE_GEMM_CASES = (
+    ("deeprx block conv2", 28672, 288, 32, "none", True, "float32"),
+    ("deeprx conv_in", 28672, 54, 32, "relu", True, "float32"),
+    ("deeprx block conv1", 28672, 288, 32, "relu", True, "float32"),
+    ("deeprx conv_out qpsk", 28672, 32, 2, "none", True, "float32"),
+    ("deeprx conv_out 16qam", 28672, 32, 4, "none", True, "float32"),
+    ("cevit embed", 512, 16, 64, "none", False, "float32"),
+    ("cevit wqkv", 512, 64, 192, "none", False, "float32"),
+    ("cevit wo", 512, 64, 64, "none", False, "float32"),
+    ("cevit w1", 512, 64, 128, "none", True, "float32"),
+    ("cevit w2", 512, 128, 64, "none", True, "float32"),
+    ("cevit head", 512, 64, 8, "none", False, "float32"),
+    ("silu", 512, 64, 128, "silu", True, "float32"),
+    ("softmax", 512, 64, 64, "softmax", True, "float32"),
+    ("softmax wide row", 300, 40, 200, "softmax", False, "float32"),
+    ("ragged", 777, 100, 33, "relu", True, "float32"),
+    ("deeprx block conv1 bf16", 28672, 288, 32, "relu", True, "bfloat16"),
+)
+
+
+def check_te_gemm(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import te_gemm
+
+    cases = []
+    for label, m, k, n, epi, has_bias, dt in TE_GEMM_CASES:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(m + 7 * k + 13 * n)
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(k, n, generator=gen, device=dev)
+             / math.sqrt(k)).to(dtype)
+        b = ((0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+             if has_bias else None)
+        got = te_gemm.te_gemm(x, w, b, epilogue=epi)
+        want = te_gemm.te_gemm_torch(x, w, b, epilogue=epi)
+        torch.cuda.synchronize()
+        err = _hold(f"te_gemm[{label}]", got, want, dtype)
+        item = x.element_size()
+        nbytes = item * (m * k + k * n + m * n + (n if has_bias else 0))
+        flops = 2.0 * m * n * k + (m * n if has_bias else 0)
+        bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
+                        else BF16_FLOPS)
+        library = None
+        if epi == "none":  # one library call computes the same function
+            library = time_ms((lambda: torch.addmm(b, x, w)) if has_bias
+                              else (lambda: torch.mm(x, w)))
+        cases.append(dict(
+            shape=f"{label} ({m}x{k})@({k}x{n}) {epi}"
+                  f"{' +bias' if has_bias else ''} {dt}",
+            max_abs_err=err, tolerance=_tolerance(dtype)[1],
+            ms=time_ms(lambda: te_gemm.te_gemm(x, w, b, epilogue=epi)),
+            device_us=device_us(
+                lambda: te_gemm.te_gemm(x, w, b, epilogue=epi),
+                KERNEL_SYMBOLS["te_gemm"]),
+            plain_ms=time_ms(
+                lambda: te_gemm.te_gemm_torch(x, w, b, epilogue=epi)),
+            library_ms=library, bound_ms=bms, bound_by=by,
+        ))
+    return cases
+
+
+# (BH, Sq, Sk, D, causal, dtype name); the first row is CE-ViT's
+# attention at batch 8 (8 * 4 heads, 64 tokens of 16 dims)
+MHA_CASES = (
+    (32, 64, 64, 16, False, "float32"),
+    (16, 256, 256, 64, False, "float32"),
+    (16, 256, 256, 64, True, "float32"),
+    (16, 256, 256, 64, False, "bfloat16"),
+    (8, 200, 200, 128, True, "float32"),
+    (4, 70, 130, 32, False, "float32"),
+)
+
+
+def check_mha(dev) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mha
+
+    cases = []
+    for bh, sq, sk, d, causal, dt in MHA_CASES:
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(bh * sq + d)
+        q = torch.randn(bh, sq, d, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(bh, sk, d, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        label = (f"({bh}, {sq}, {sk}, {d}) "
+                 f"{'causal' if causal else 'full'} {dt}")
+        got = mha.mha(q, k, v, causal=causal)
+        want = mha.mha_torch(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = _hold(f"mha[{label}]", got, want, dtype)
+        # the (query, key) pairs this mask keeps: 2 * D operations each
+        # for q.k and for p.v, plus about 5 for the online softmax
+        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+                 else sq * sk)
+        flops = bh * pairs * (4.0 * d + 5.0)
+        nbytes = q.element_size() * bh * d * (2 * sq + 2 * sk)
+        bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
+                        else BF16_FLOPS)
+        cases.append(dict(
+            shape=label, max_abs_err=err, tolerance=_tolerance(dtype)[1],
+            ms=time_ms(lambda: mha.mha(q, k, v, causal=causal)),
+            device_us=device_us(lambda: mha.mha(q, k, v, causal=causal),
+                                KERNEL_SYMBOLS["mha"]),
+            plain_ms=time_ms(lambda: mha.mha_torch(q, k, v, causal=causal)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)),
+            bound_ms=bms, bound_by=by,
+        ))
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the closed loop through the kernels
 # ---------------------------------------------------------------------------
 
-def drive(ladder: str, n_ticks: int, dev) -> tuple:
+# each path: (label, ladder, receiver, options, TTIs, the kernels it runs)
+PATHS = (
+    ("siso-coded classical", "siso-coded", "classical", {"fused": True}, 50,
+     ("ls_che", "mmse_detect_demap", "ldpc_decode")),
+    ("mimo2x2-coded classical", "mimo2x2-coded", "classical",
+     {"fused": True}, 10, ("ls_che", "mmse_detect_demap", "ldpc_decode")),
+    ("siso-coded cevit", "siso-coded", "cevit", {"fused_rx": True}, 20,
+     ("te_gemm", "mha", "mmse_detect_demap", "ldpc_decode")),
+    ("siso-coded deeprx", "siso-coded", "deeprx", {}, 20,
+     ("te_gemm", "ldpc_decode")),
+)
+
+
+def drive(ladder: str, n_ticks: int, dev, receiver: str = "classical",
+          options=None) -> tuple:
     """One closed-loop run with the launch counts zeroed just before it and
     read just after; returns (scheduler, report, launches)."""
     from repro_torch.kernels import _build
     from repro_torch.serve import SlotScheduler
 
-    sch = SlotScheduler(ladder, options={"fused": True}, n_users=8,
+    sch = SlotScheduler(ladder, receiver=receiver,
+                        options={"fused": True} if options is None
+                        else options, n_users=8,
                         batch_size=8, arrival_rate=0.8, max_retx=2, seed=0,
                         device=dev)
     _build.reset_launches()
@@ -355,12 +529,11 @@ def check_conservation(sch, rep) -> None:
         check(v is not None and math.isfinite(v), f"report {f}={v}")
 
 
-def check_batch_against_twins(sch, dev) -> dict:
-    """Serve one fresh batch of the lowest rung on the kernels and the same
-    batch on the plain twins (CPU): outputs finite, decode identical."""
+def _served_batch(sch, dev) -> tuple:
+    """One fresh batch of the lowest rung served on the kernels: (the
+    batch on the CPU, the served state, the rung)."""
     import torch
 
-    from repro_torch.phy import link
     from repro_torch.serve import runtime
 
     scn = sch.rungs[0]
@@ -369,12 +542,53 @@ def check_batch_against_twins(sch, dev) -> dict:
     batch = runtime.stack_slots(slots)
     got = sch.runners[0].pipeline.run(batch)
     torch.cuda.synchronize()
-    for k in ("h_hat", "x_hat", "nv_eff", "llr", "cw_llr"):
+    keys = [k for k in ("h_hat", "x_hat", "nv_eff", "llr", "cw_llr")
+            if k in got]
+    for k in keys:
         check(bool(torch.isfinite(torch.view_as_real(got[k])
                                   if got[k].is_complex() else got[k])
                    .all()), f"non-finite {k}")
     cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
            for k, v in batch.items()}
+    return cpu, got, scn
+
+
+def check_neural_batch_against_twins(sch, dev, receiver: str,
+                                     options: dict) -> dict:
+    """A served batch of a neural receiver against its plain twins on the
+    CPU with the same weights: LLR signs >= 99.9%, values within rtol 1e-3
+    and atol 1e-5 * max|LLR|, CRC flags equal."""
+    import torch
+
+    from repro_torch.common.params import tree_map
+    from repro_torch.phy import link
+
+    cpu, got, scn = _served_batch(sch, dev)
+    weights = tree_map(lambda t: t.cpu(), sch.runners[0].pipeline.params)
+    want = link.build_pipeline(receiver, scn, params=weights, device="cpu",
+                               **options).run(cpu)
+    llr, llr_t = got["llr"].cpu(), want["llr"]
+    agree = float(((llr > 0) == (llr_t > 0)).float().mean())
+    check(agree >= 0.999, f"served {receiver} batch: LLR sign agreement "
+          f"{agree}")
+    err = float((llr - llr_t).abs().max())
+    check(torch.allclose(llr, llr_t, rtol=1e-3,
+                         atol=1e-5 * float(llr_t.abs().max())),
+          f"served {receiver} batch: LLRs disagree (max err {err})")
+    check(torch.equal(got["crc_ok"].cpu(), want["crc_ok"]),
+          f"served {receiver} batch: CRC flags differ")
+    return {"llr_sign_agree": agree, "llr_max_abs_err": err,
+            "bler": float((~got["crc_ok"]).float().mean())}
+
+
+def check_batch_against_twins(sch, dev) -> dict:
+    """Serve one fresh batch of the lowest rung on the kernels and the same
+    batch on the plain twins (CPU): outputs finite, decode identical."""
+    import torch
+
+    from repro_torch.phy import link
+
+    cpu, got, scn = _served_batch(sch, dev)
     want = link.build_classical(scn, fused=True, device="cpu").run(cpu)
     for k in ("crc_ok", "info_bits_hat", "decode_iters"):
         check(torch.equal(got[k].cpu(), want[k]),
@@ -412,7 +626,9 @@ def main() -> int:
     results = {}
     for name, fn in (("ls_che", check_ls_che),
                      ("mmse_detect_demap", check_detect_demap),
-                     ("ldpc_decode", check_ldpc)):
+                     ("ldpc_decode", check_ldpc),
+                     ("te_gemm", check_te_gemm),
+                     ("mha", check_mha)):
         results[name] = fn(dev)
         for c in results[name]:
             lib = ("-" if c["library_ms"] is None
@@ -426,43 +642,50 @@ def main() -> int:
                   f"max_abs_err={c['max_abs_err']:.3g} "
                   f"(tolerance: {c['tolerance']})", flush=True)
 
-    sch, rep, launches = drive("siso-coded", 50, dev)
-    print(f"main path siso-coded: launches {launches}, steady tick "
-          f"{rep.steady_tick_s * 1e3:.3f} ms, first tick "
-          f"{rep.first_tick_s * 1e3:.3f} ms", flush=True)
-    print(rep.summary(), flush=True)
-    check_conservation(sch, rep)
-    for k in results:
-        check(launches.get(k, 0) > 0, f"{k} never launched on the main path")
-    served = check_batch_against_twins(sch, dev)
-    print(f"served batch vs twins: {served}", flush=True)
-    prof = profile_ticks(sch, 10)
-    print(f"profiled siso-coded ticks: {json.dumps(prof)}", flush=True)
-
-    sch2, rep2, launches2 = drive("mimo2x2-coded", 10, dev)
-    print(f"path mimo2x2-coded: launches {launches2}, steady tick "
-          f"{rep2.steady_tick_s * 1e3:.3f} ms, first tick "
-          f"{rep2.first_tick_s * 1e3:.3f} ms", flush=True)
-    print(rep2.summary(), flush=True)
-    check_conservation(sch2, rep2)
-    for k in results:
-        check(launches2.get(k, 0) > 0, f"{k} never launched on mimo2x2")
+    by_path = {}
+    for label, ladder, receiver, options, n_ticks, needs in PATHS:
+        sch, rep, launches = drive(ladder, n_ticks, dev, receiver, options)
+        by_path[label] = launches
+        print(f"path {label}: launches {launches}, steady tick "
+              f"{rep.steady_tick_s * 1e3:.3f} ms, first tick "
+              f"{rep.first_tick_s * 1e3:.3f} ms", flush=True)
+        print(rep.summary(), flush=True)
+        check_conservation(sch, rep)
+        for k in needs:
+            check(launches.get(k, 0) > 0, f"{k} never launched on {label}")
+        if receiver != "classical":
+            served = check_neural_batch_against_twins(sch, dev, receiver,
+                                                      options)
+            print(f"served {label} batch vs twins: {served}", flush=True)
+        elif ladder == "siso-coded":
+            served = check_batch_against_twins(sch, dev)
+            print(f"served batch vs twins: {served}", flush=True)
+        if receiver == "cevit" or (receiver, ladder) == ("classical",
+                                                         "siso-coded"):
+            prof = profile_ticks(sch, 10)
+            print(f"profiled {label} ticks: {json.dumps(prof)}", flush=True)
 
     sources = {"ls_che": "ls_che.cu", "mmse_detect_demap": "detect_demap.cu",
-               "ldpc_decode": "ldpc_minsum.cu"}
+               "ldpc_decode": "ldpc_minsum.cu", "te_gemm": "te_gemm.cu",
+               "mha": "mha.cu"}
     replaces = {
         "ls_che": "src/repro/kernels/rx_fused.py:587",
         "mmse_detect_demap": "src/repro/kernels/rx_fused.py:389",
         "ldpc_decode": "src/repro/kernels/ldpc.py:304",
+        "te_gemm": "src/repro/kernels/te_gemm.py:123",
+        "mha": "src/repro/kernels/mha.py:64",
     }
     kernels = []
     for name, cases in results.items():
-        head = cases[0]  # the main path's shape (SISO grid / r12)
+        head = cases[0]  # the main path's shape
+        first = next(label for label, *_, needs in PATHS if name in needs)
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/csrc/{sources[name]}",
-            replaces=replaces[name], launches=launches[name],
-            launches_mimo2x2=launches2[name],
+            replaces=replaces[name], launches=by_path[first][name],
+            launches_path=first,
+            launches_by_path={label: n.get(name, 0)
+                              for label, n in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],

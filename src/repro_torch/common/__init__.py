@@ -1,0 +1,1 @@
+"""common of the PyTorch/CUDA port (see the package docstring)."""

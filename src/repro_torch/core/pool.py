@@ -1,6 +1,7 @@
 """TensorPool cycle model (port of the arithmetic of
 :mod:`repro.core.pool`): the paper's engine constants and the per-engine
-cycle estimators the receiver stages report their TTI budget with.  The
+cycle estimators the receiver stages report their TTI budget with
+(including :func:`mha_block_cycles`, which prices CE-ViT's layers).  The
 reference module's execution plans run Pallas kernels; only the pure
 arithmetic is needed here."""
 from __future__ import annotations
@@ -63,3 +64,15 @@ def pe_elem_cycles(n_elems: float, kind: str) -> float:
 
 def dma_cycles(bytes_moved: float, bw_bytes_per_cycle: float = 1024) -> float:
     return bytes_moved / bw_bytes_per_cycle
+
+
+def mha_block_cycles(heads: int, s: int, d: int, dtype_bytes: int = 2
+                     ) -> BlockCycles:
+    """One transformer attention block over ``s`` tokens of width ``d``."""
+    qkv_macs = 4.0 * s * d * d  # Q,K,V,O projections
+    attn_macs = heads * 2.0 * s * s * (d / heads)
+    return BlockCycles(
+        te_cycles=te_cycles(qkv_macs + attn_macs),
+        pe_cycles=pe_elem_cycles(heads * s * s, "softmax"),
+        dma_cycles=dma_cycles(dtype_bytes * 4 * s * d),
+    )

@@ -1,5 +1,6 @@
-"""Receiver-pipeline subsystem (port of :mod:`repro.phy.link`, classical
-receivers only; the neural builders wait for ROADMAP queue 1, item 11).
+"""Receiver-pipeline subsystem (port of :mod:`repro.phy.link`): the
+classical receiver and the two neural ones (DeepRx, CE-ViT), which serve
+their network through the TE GEMM and flash-MHA kernels.
 
 A :class:`ReceiverPipeline` is a chain of :class:`RxStage`\\ s threading a
 slot dict through eager PyTorch (no CUDA graphs yet).  Each stage names the
@@ -7,8 +8,8 @@ TensorPool engine that does its work and carries the reference's cycle
 estimator, so TTI and energy reports are the reference's numbers.
 
 Pipelines hold their static operators (interpolation operator, pilot
-sequence and masks, data-RE indices) on the device they were built for;
-``device=None`` means CUDA.
+sequence and masks, data-RE indices) and the neural receivers' weights on
+the device they were built for; ``device=None`` means CUDA.
 """
 from __future__ import annotations
 
@@ -18,10 +19,11 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.common import params as _params
 from repro_torch.core import pool
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import quant, rx_fused
-from repro_torch.phy import classical, coding, ofdm
+from repro_torch.phy import classical, coding, models, ofdm
 from repro_torch.phy.scenarios import LinkScenario
 
 _C16 = 4  # bytes per complex64 element when streamed as 2 x fp16
@@ -53,11 +55,12 @@ class ReceiverPipeline:
     """
 
     def __init__(self, name: str, stages: list, scenario: LinkScenario,
-                 precision: str = "fp32",
+                 params=None, precision: str = "fp32",
                  device: DeviceLike = None):
         self.name = name
         self.stages = tuple(stages)
         self.scenario = scenario
+        self.params = params  # the neural receivers' weights, else None
         self.precision = quant.require_unquantized(precision)
         self.device = resolve_device(device)
 
@@ -381,6 +384,105 @@ def decode_stage(scenario: LinkScenario, *, max_iters: int = 12,
     return RxStage("ldpc_decode", "PE", apply, cycles)
 
 
+# -- neural stages ----------------------------------------------------------
+
+def deeprx_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem, params,
+                 dcfg: models.DeepRxConfig,
+                 device: DeviceLike = None) -> RxStage:
+    """The DeepRx conv receiver: grid features -> LLRs (B, n_sym, n_sc,
+    n_tx, bits)."""
+    dev = resolve_device(device)
+    union = torch.any(ofdm.link_pilot_masks(cfg, dev), dim=0)
+    pm_plane = union[None, :, :, None].to(torch.float32)
+    nb = modem.bits_per_symbol
+
+    def apply(state):
+        y = state["y"]  # (B, n_sym, n_sc, n_rx)
+        b, n_sym, n_sc, _ = y.shape
+        h_ls = state["h_ls"].reshape(b, 1, n_sc, -1).expand(
+            b, n_sym, n_sc, -1)  # (n_rx, n_tx) flattened, n_tx fastest
+        pm = pm_plane.expand(b, n_sym, n_sc, 1)
+        nv = state["noise_var"].to(torch.float32).reshape(1, 1, 1, 1).expand(
+            b, n_sym, n_sc, 1)
+        feats = torch.cat(
+            [y.real, y.imag, h_ls.real, h_ls.imag, pm, nv], dim=-1,
+        ).to(torch.float32)
+        llr = models.deeprx_apply(params, dcfg, feats)
+        state["llr"] = llr.reshape(b, n_sym, n_sc, cfg.n_tx, nb)
+        return state
+
+    def cycles():
+        grid = cfg.n_symbols * cfg.n_subcarriers
+        c = dcfg.channels
+        macs = grid * (9.0 * dcfg.in_features * c
+                       + dcfg.blocks * 2 * 9.0 * c * c
+                       + c * dcfg.bits_per_re)
+        relu_elems = grid * c * (1 + 2 * dcfg.blocks)
+        pbytes = 2 * _params.count_params(params)  # priced at fp16
+        return pool.BlockCycles(
+            te_cycles=pool.te_cycles(macs, utilization=0.67),
+            pe_cycles=pool.pe_elem_cycles(relu_elems, "relu"),
+            dma_cycles=pool.dma_cycles(
+                pbytes + _grid_bytes(cfg, dcfg.in_features)
+                + _grid_bytes(cfg, dcfg.bits_per_re)
+            ),
+        )
+
+    return RxStage("deeprx", "TE", apply, cycles)
+
+
+def cevit_che_stage(cfg: ofdm.GridConfig, params, mcfg: models.CEViTConfig,
+                    device: DeviceLike = None) -> RxStage:
+    """CE-ViT channel estimation: each (rx, tx) pair's LS estimate over
+    the subcarriers -> the refined ``h_hat`` (B, n_sc, n_rx, n_tx)."""
+    dev = resolve_device(device)
+    comb_tx = torch.any(ofdm.link_pilot_masks(cfg, dev), dim=1)  # (n_tx, n_sc)
+    pair_flags = comb_tx.to(torch.float32).repeat(cfg.n_rx, 1)  # n_tx fastest
+
+    def apply(state):
+        h_ls = state["h_ls"]  # (B, n_sc, n_rx, n_tx)
+        b, n_sc, n_rx, n_tx = h_ls.shape
+        pairs = torch.movedim(h_ls, 1, -1).reshape(b * n_rx * n_tx, n_sc)
+        flags = pair_flags.repeat(b, 1)  # (B*n_rx*n_tx, n_sc)
+        nv = state["noise_var"].to(torch.float32).reshape(1, 1).expand(
+            pairs.shape)
+        feats = torch.stack([pairs.real, pairs.imag, flags, nv], dim=-1)
+        h_hat = models.cevit_apply(params, mcfg, feats)
+        state["h_hat"] = torch.movedim(h_hat.reshape(b, n_rx, n_tx, n_sc),
+                                       -1, 1)
+        return state
+
+    def cycles():
+        n_tok = cfg.n_subcarriers // mcfg.patch
+        pairs = cfg.n_rx * cfg.n_tx
+        per_layer = pool.mha_block_cycles(mcfg.heads, n_tok, mcfg.d_model)
+        mlp_macs = 2.0 * n_tok * mcfg.d_model * mcfg.d_ff
+        pin = mcfg.patch * mcfg.in_features
+        embed_macs = n_tok * pin * mcfg.d_model
+        head_macs = n_tok * mcfg.d_model * mcfg.patch * 2
+        ln_elems = mcfg.layers * 2 * n_tok * mcfg.d_model
+        gelu_elems = mcfg.layers * n_tok * mcfg.d_ff
+        one_pair = _sum_cycles(
+            [per_layer] * mcfg.layers
+            + [pool.BlockCycles(
+                te_cycles=pool.te_cycles(
+                    mcfg.layers * mlp_macs + embed_macs + head_macs,
+                    utilization=0.67,
+                ),
+                pe_cycles=(pool.pe_elem_cycles(ln_elems, "layernorm")
+                           + pool.pe_elem_cycles(gelu_elems, "relu")),
+                dma_cycles=pool.dma_cycles(2 * cfg.n_subcarriers * _C16),
+            )]
+        )
+        return pool.BlockCycles(
+            te_cycles=pairs * one_pair.te_cycles,
+            pe_cycles=pairs * one_pair.pe_cycles,
+            dma_cycles=pairs * one_pair.dma_cycles,
+        )
+
+    return RxStage("cevit_che", "TE", apply, cycles)
+
+
 # ---------------------------------------------------------------------------
 # Pipeline builders
 # ---------------------------------------------------------------------------
@@ -421,8 +523,89 @@ def build_classical(scenario: LinkScenario, *, mmse_smooth: bool = True,
     )
 
 
+def _neural_params(params, schema, seed: int, dev: torch.device):
+    """The caller's weights (checked against the schema) or the port's own
+    initialisation on ``dev``, drawn from ``seed``."""
+    if params is None:
+        return _params.init_params(schema, ofdm.make_generator(seed, dev))
+    _params.check_shapes(schema, params)
+    return params
+
+
+def build_deeprx(scenario: LinkScenario, *, params=None, channels: int = 32,
+                 blocks: int = 2, seed: int = 0,
+                 precision: Optional[str] = None, device: DeviceLike = None,
+                 **_) -> ReceiverPipeline:
+    """CFFT -> LS CHE -> DeepRx conv receiver (grid features -> LLRs)
+    [-> CRC+LDPC decode].
+
+    ``params=None`` draws the port's own weights from ``seed`` (the
+    reference's distribution, not its numbers: carry its arrays across
+    with :func:`models.deeprx_params_from_numpy` for those).  The network
+    always runs through the TE GEMM kernel on the card; the reference's
+    ``fused`` switch (a TPU tiling fallback) is accepted and ignored.
+    Quantized precisions raise (not ported)."""
+    p = quant.require_unquantized(precision)
+    dev = resolve_device(device)
+    cfg, modem = scenario.grid, scenario.modem
+    dcfg = models.DeepRxConfig(
+        channels=channels, blocks=blocks,
+        bits_per_re=cfg.n_tx * modem.bits_per_symbol,
+        in_features=2 * cfg.n_rx + 2 * cfg.n_rx * cfg.n_tx + 2,
+    )
+    params = _neural_params(params, models.deeprx_schema(dcfg), seed, dev)
+    stages = [
+        cfft_stage(cfg), ls_che_stage(cfg, device=dev),
+        deeprx_stage(cfg, modem, params, dcfg, device=dev),
+    ]
+    if scenario.code is not None:
+        stages.append(decode_stage(scenario))
+    return ReceiverPipeline(
+        f"deeprx/{scenario.name}", stages, scenario, params=params,
+        precision=p, device=dev,
+    )
+
+
+def build_cevit(scenario: LinkScenario, *, params=None, d_model: int = 64,
+                heads: int = 4, layers: int = 2, d_ff: int = 128,
+                patch: int = 4, fused_rx: bool = False,
+                seed: int = 0, precision: Optional[str] = None,
+                device: DeviceLike = None, **_) -> ReceiverPipeline:
+    """CFFT -> LS CHE -> CE-ViT CHE -> MIMO-MMSE detect -> LLR demod
+    [-> CRC+LDPC decode].
+
+    The network always runs through the TE GEMM and flash-MHA kernels on
+    the card (the reference's ``fused`` switch is accepted and ignored, as
+    in :func:`build_deeprx`); ``fused_rx`` serves the detect+demap tail
+    through the fused detect+demap kernel.  ``params`` and ``seed`` as in
+    :func:`build_deeprx`.  Quantized precisions raise (not ported)."""
+    p = quant.require_unquantized(precision)
+    dev = resolve_device(device)
+    cfg, modem = scenario.grid, scenario.modem
+    mcfg = models.CEViTConfig(
+        d_model=d_model, heads=heads, layers=layers, d_ff=d_ff, patch=patch
+    )
+    params = _neural_params(params, models.cevit_schema(mcfg), seed, dev)
+    stages = [
+        cfft_stage(cfg), ls_che_stage(cfg, device=dev),
+        cevit_che_stage(cfg, params, mcfg, device=dev),
+    ]
+    if fused_rx:
+        stages.append(detect_stage(cfg, fused=True, modem=modem))
+    else:
+        stages += [detect_stage(cfg), demod_stage(cfg, modem)]
+    if scenario.code is not None:
+        stages.append(decode_stage(scenario))
+    return ReceiverPipeline(
+        f"cevit/{scenario.name}", stages, scenario, params=params,
+        precision=p, device=dev,
+    )
+
+
 PIPELINE_BUILDERS: dict = {
     "classical": build_classical,
+    "deeprx": build_deeprx,
+    "cevit": build_cevit,
 }
 
 
@@ -430,7 +613,6 @@ def build_pipeline(kind: str, scenario: LinkScenario,
                    **kw) -> ReceiverPipeline:
     if kind not in PIPELINE_BUILDERS:
         raise KeyError(
-            f"unknown receiver {kind!r}; have {sorted(PIPELINE_BUILDERS)} "
-            "(the neural receivers wait for ROADMAP queue 1, item 11)"
+            f"unknown receiver {kind!r}; have {sorted(PIPELINE_BUILDERS)}"
         )
     return PIPELINE_BUILDERS[kind](scenario, **kw)

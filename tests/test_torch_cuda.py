@@ -12,8 +12,9 @@ import math
 import pytest
 import torch
 
-from repro_torch.kernels import _build, ldpc, rx_fused
-from repro_torch.phy import coding, ofdm, scenarios
+from repro_torch.common.params import tree_map
+from repro_torch.kernels import _build, ldpc, mha, rx_fused, te_gemm
+from repro_torch.phy import coding, link, ofdm, scenarios
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +82,100 @@ def test_wrappers_reject_bad_inputs_on_card(dev):
     with pytest.raises(ValueError, match="operator"):
         rx_fused.ls_che(y, (2, 11), 4, torch.zeros(
             1, 32, 256, dtype=torch.complex64, device=dev))
+
+
+_BF16_RTOL = 2.0 ** -7  # one rounding step of bf16's 8-bit significand
+
+
+def _close(got, want, rtol):
+    """fp32: rtol 1e-4 (sums in another order than cuBLAS's), bf16: one
+    rounding step; atol 1e-5 of the largest |want| either way."""
+    want = want.to(torch.float32)
+    atol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got.to(torch.float32), want, rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("m,k,n,epilogue,bias,dtype", [
+    (28672, 54, 32, "relu", True, torch.float32),     # DeepRx conv_in
+    (28672, 288, 32, "none", True, torch.float32),    # DeepRx block conv
+    (28672, 32, 2, "none", True, torch.float32),      # DeepRx conv_out
+    (512, 64, 192, "none", False, torch.float32),     # CE-ViT wqkv
+    (512, 128, 64, "none", True, torch.float32),      # CE-ViT w2
+    (512, 64, 128, "silu", True, torch.float32),
+    (512, 64, 64, "softmax", True, torch.float32),
+    (300, 40, 200, "softmax", False, torch.float32),  # the 16 x 256 tile
+    (777, 100, 33, "relu", True, torch.float32),      # ragged everywhere
+    (28672, 288, 32, "relu", True, torch.bfloat16),
+    (512, 64, 64, "softmax", True, torch.bfloat16),
+])
+def test_te_gemm_kernel_matches_twin(dev, m, k, n, epilogue, bias, dtype):
+    gen = ofdm.make_generator(m + k + n, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype) \
+        if bias else None
+    n0 = _build.launches["te_gemm"]
+    got = te_gemm.te_gemm(x, w, b, epilogue=epilogue)
+    assert _build.launches["te_gemm"] == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    want = te_gemm.te_gemm_torch(x, w, b, epilogue=epilogue)
+    _close(got, want, 1e-4 if dtype == torch.float32 else _BF16_RTOL)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,dtype", [
+    (32, 64, 64, 16, False, torch.float32),   # CE-ViT
+    (16, 256, 256, 64, False, torch.float32),
+    (16, 256, 256, 64, True, torch.float32),
+    (8, 200, 200, 128, True, torch.float32),  # ragged query and key tiles
+    (4, 70, 130, 32, False, torch.float32),
+    (16, 256, 256, 64, False, torch.bfloat16),
+])
+def test_mha_kernel_matches_twin(dev, bh, sq, sk, d, causal, dtype):
+    gen = ofdm.make_generator(bh + sq + d, dev)
+    q = torch.randn(bh, sq, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(bh, sk, d, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    n0 = _build.launches["mha"]
+    got = mha.mha(q, k, v, causal=causal)
+    assert _build.launches["mha"] == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (bh, sq, d)
+    _close(got, mha.mha_torch(q, k, v, causal=causal),
+           1e-4 if dtype == torch.float32 else _BF16_RTOL)
+
+
+def test_neural_wrappers_reject_bad_inputs_on_card(dev):
+    x = torch.zeros(4, 8, device=dev)
+    with pytest.raises(ValueError, match="one block"):
+        te_gemm.te_gemm(x, torch.zeros(8, 300, device=dev),
+                        epilogue="softmax")
+    with pytest.raises(TypeError):
+        te_gemm.te_gemm(x.double(), torch.zeros(8, 3, device=dev,
+                                                dtype=torch.float64))
+    with pytest.raises(ValueError, match="bias"):
+        te_gemm.te_gemm(x, torch.zeros(8, 3, device=dev),
+                        torch.zeros(4, device=dev))
+    q = torch.zeros(2, 8, 24, device=dev)
+    with pytest.raises(ValueError, match="D=24"):
+        mha.mha(q, q, q)
+
+
+@pytest.mark.parametrize("kind", ["deeprx", "cevit"])
+def test_neural_pipeline_on_card_matches_twins(dev, kind):
+    scn = scenarios.get_scenario("siso-qam16-r12-snr15")
+    rx = link.build_pipeline(kind, scn, device=dev, fused_rx=True)
+    slot = coding.make_coded_slot(ofdm.make_generator(3, dev), scn, 2)
+    _build.reset_launches()
+    got = rx.run(slot)
+    assert _build.launches["te_gemm"] > 0
+    assert (_build.launches["mha"] > 0) == (kind == "cevit")
+    cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
+    twin = link.build_pipeline(
+        kind, scn, device="cpu", fused_rx=True,
+        params=tree_map(cpu, rx.params))
+    want = twin.run({k: cpu(v) for k, v in slot.items()})
+    llr, llr_t = got["llr"].cpu(), want["llr"]
+    assert float(((llr > 0) == (llr_t > 0)).float().mean()) >= 0.999
+    torch.testing.assert_close(llr, llr_t, rtol=1e-3,
+                               atol=1e-5 * float(llr_t.abs().max()))
+    assert torch.equal(got["crc_ok"].cpu(), want["crc_ok"])

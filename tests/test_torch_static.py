@@ -96,7 +96,10 @@ def test_scenario_and_ladder_registries_agree():
 _MODULES = [
     "repro_torch", "repro_torch.device", "repro_torch.kernels.quant",
     "repro_torch.kernels._build", "repro_torch.kernels.rx_fused",
-    "repro_torch.kernels.ldpc", "repro_torch.core.machine",
+    "repro_torch.kernels.ldpc", "repro_torch.kernels.te_gemm",
+    "repro_torch.kernels.mha", "repro_torch.common",
+    "repro_torch.common.params", "repro_torch.phy.models",
+    "repro_torch.core.machine",
     "repro_torch.core.pool", "repro_torch.analysis.costmodel",
     "repro_torch.phy", "repro_torch.phy.ofdm", "repro_torch.phy.coding",
     "repro_torch.phy.scenarios", "repro_torch.phy.classical",
@@ -139,3 +142,21 @@ def test_entry_points_default_to_cuda():
         link.build_classical(scn, precision="int8", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         link.build_classical(scn, sic=True, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["deeprx", "cevit"])
+def test_neural_builders_default_to_cuda(kind):
+    import torch
+
+    from repro_torch.phy import link
+
+    scn = scenarios.get_scenario("siso-qam16-r12-snr15")
+    build = link.PIPELINE_BUILDERS[kind]
+    if torch.cuda.is_available():
+        assert build(scn).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(scn)
+    assert build(scn, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build(scn, precision="int8", device="cpu")
