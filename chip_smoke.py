@@ -7,15 +7,19 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. Device: the card's name and ``nvidia-smi`` name / power limit; TF32 is
    switched off for matmuls and cuDNN so every fp32 product is full fp32.
-2. Build: ``nvcc`` compiles the five hand-written kernels from
-   ``src/repro_torch/csrc`` (one process per source, in parallel).
+2. Build: ``nvcc`` compiles the seven hand-written kernels, five
+   sources, from ``src/repro_torch/csrc`` (one process per source, in
+   parallel).
 3. Kernel vs plain twin, on the card, at the main paths' shapes:
    ``ls_che`` (SISO and 2x2 grids), ``mmse_detect_demap`` (SISO-16QAM,
-   2x2-16QAM, 4x8-64QAM, SISO-256QAM) at batch 8, ``ldpc_decode`` (r12
-   and r34, 216 codewords, at a converging and a non-converging SNR),
-   ``te_gemm`` (every GEMM shape of DeepRx and CE-ViT at batch 8, every
-   epilogue, a bf16 and a ragged case) and ``mha`` (CE-ViT's
-   (32, 64, 16), (16, 256, 64) causal and not, bf16, ragged, D = 128).
+   2x2-16QAM, 4x8-64QAM, SISO-256QAM) at batch 8, ``sic_detect_demap``
+   (the MU-MIMO 4x4-16QAM grid, 2x2-16QAM, 4x8-64QAM) at batch 8,
+   ``ldpc_decode`` and the int8 ``ldpc_decode_q`` (r12 and r34, 216
+   codewords, at a converging and a non-converging SNR; int8 also at a
+   saturating one), ``te_gemm`` (every GEMM shape of DeepRx and CE-ViT at
+   batch 8, every epilogue, a bf16 and a ragged case) and ``mha``
+   (CE-ViT's (32, 64, 16), (16, 256, 64) causal and not, bf16, ragged,
+   D = 128).
    Each kernel's time per call (CUDA events around the wrapper, so launch
    overhead included) and device time (CUPTI), its plain twin's time, a
    library yardstick's where one PyTorch call computes the same thing,
@@ -30,11 +34,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    TTIs each: ``receiver="cevit", options={"fused_rx": True}`` (TE GEMM,
    MHA, detect + demap, LDPC) and ``receiver="deeprx"`` (TE GEMM, LDPC),
    with the port's own seeded weights (untrained: BER ~0.5, nearly every
-   block NACKed).  One served batch of each path is compared with the
-   plain twins on the CPU: the classical one must decode identically, the
-   neural ones must agree in LLR signs (>= 99.9%), values (rtol 1e-3,
-   atol 1e-5 of the largest |LLR|) and CRC flags.  Ten more SISO
-   classical ticks and ten CE-ViT ticks run under ``torch.profiler`` for
+   block NACKed); then the MU-MIMO SIC receiver,
+   ``"mimo4x4-qam16-mu-snr18"`` with ``{"fused": True, "sic": True}`` for
+   10 TTIs (``ls_che``, SIC, LDPC), and the int8 datapath, ``"siso-coded"``
+   with ``{"fused": True, "precision": "int8"}`` for 20 (``ls_che``,
+   detect + demap, the int8 LDPC, and the fp32 LDPC not once).  One
+   served batch of each path is compared with the plain twins on the CPU:
+   the classical ones must decode identically (CRC flags, payloads,
+   iteration counts), the neural ones must agree in LLR signs (>= 99.9%),
+   values (rtol 1e-3, atol 1e-5 of the largest |LLR|) and CRC flags.  The
+   CRC pass rate of one MU batch through the SIC and the joint-LMMSE
+   receivers is printed, not gated.  Ten more ticks of the SISO
+   classical, CE-ViT, SIC and int8 paths run under ``torch.profiler`` for
    the device's busy and idle time and the split of device time by
    kernel.
 5. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
@@ -149,10 +160,29 @@ def profile_ticks(sch, n_ticks: int) -> dict:
     }
 
 
+# per-case fields printed besides the times, where a check records them
+EXTRA_FIELDS = ("bit_exact", "joint_device_us", "max_abs_code", "iters_hist")
+
+# each ported kernel: its source and the TPU kernel it replaces
+KERNELS = {
+    "ls_che": ("ls_che.cu", "src/repro/kernels/rx_fused.py:587"),
+    "mmse_detect_demap": ("detect_demap.cu",
+                          "src/repro/kernels/rx_fused.py:389"),
+    "sic_detect_demap": ("detect_demap.cu",
+                         "src/repro/kernels/rx_fused.py:404"),
+    "ldpc_decode": ("ldpc_minsum.cu", "src/repro/kernels/ldpc.py:304"),
+    "ldpc_decode_q": ("ldpc_minsum.cu",
+                      "src/repro/kernels/ldpc.py:304"),
+    "te_gemm": ("te_gemm.cu", "src/repro/kernels/te_gemm.py:123"),
+    "mha": ("mha.cu", "src/repro/kernels/mha.py:64"),
+}
+
 # the device-side symbol of each ported kernel (for the CUPTI trace)
 KERNEL_SYMBOLS = {"ls_che": "ls_che_kernel",
                   "mmse_detect_demap": "detect_demap_kernel",
+                  "sic_detect_demap": "sic_demap_kernel",
                   "ldpc_decode": "ldpc_minsum_kernel",
+                  "ldpc_decode_q": "ldpc_minsum_q_kernel",
                   "te_gemm": "te_gemm_kernel",
                   "mha": "mha_kernel"}
 
@@ -282,6 +312,79 @@ def check_detect_demap(dev) -> list:
     return cases
 
 
+def _sic_flops(n_rx: int, n_tx: int, nb: int) -> float:
+    """fp32 operations per RE of SIC, the reference's count
+    (``sic_demap_stage``): each stage's shrinking Gram + solve + rhs, one
+    stream demapped per stage, and the hard-remodulated cancellation."""
+    solve = sum(8.0 * (m * m * n_rx + m ** 3 + m * n_rx)
+                for m in range(1, n_tx + 1))
+    return solve + n_tx * 2 ** nb * 8.0 + (n_tx - 1) * 8.0 * n_rx
+
+
+def _sic_decisions(x_hat, modem):
+    """Each stream's nearest level index per axis: the decisions SIC's
+    stages subtract."""
+    import torch
+
+    lv = torch.tensor(modem.levels, device=x_hat.device)
+    parts = torch.stack([x_hat.real, x_hat.imag], -1) * math.sqrt(modem.norm)
+    return torch.argmin((parts[..., None] - lv) ** 2, dim=-1)
+
+
+def check_sic(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import rx_fused
+    from repro_torch.phy import ofdm, scenarios
+
+    cases = []
+    for name in ("mimo4x4-qam16-mu-snr18", "mimo2x2-qam16-r12-snr17",
+                 "mimo4x8-qam64-snr24"):
+        scn = scenarios.get_scenario(name)
+        slot = scn.make_batch(ofdm.make_generator(2, dev), 8)
+        y = _grid_y(slot)
+        h = slot["h"][:, 0].contiguous()
+        args = (y, h, slot["noise_var"], scn.modem)
+        got = rx_fused.sic_detect_demap(*args)
+        want = rx_fused.sic_detect_demap_torch(*args)
+        torch.cuda.synchronize()
+        # one differing decision would change every later stage of its RE
+        check(torch.equal(_sic_decisions(got[0], scn.modem),
+                          _sic_decisions(want[0], scn.modem)),
+              f"sic[{name}] cancellation decisions differ from the twin's")
+        for a, b_, what, tol in zip(got, want, ("x_hat", "nv_eff", "llr"),
+                                    (1e-4, 1e-4, 1e-5)):
+            check(torch.allclose(a, b_, rtol=tol, atol=1e-5),
+                  f"sic[{name}] {what} disagrees with its twin")
+        check(torch.equal(torch.sign(got[2]), torch.sign(want[2])),
+              f"sic[{name}] LLR signs differ from the twin's")
+        exact = all(torch.equal(a, b_) for a, b_ in zip(got, want))
+        err = max(float((a - b_).abs().max()) for a, b_ in zip(got, want))
+        b, n_sym, n_sc, n_rx = y.shape
+        n_tx = h.shape[-1]
+        nb = scn.modem.bits_per_symbol // 2
+        n_re = b * n_sym * n_sc
+        nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4
+                  + n_re * n_tx * (8 + 4 + 4 * 2 * nb))
+        bms, by = bound(nbytes, n_re * _sic_flops(n_rx, n_tx, nb))
+        cases.append(dict(
+            shape=f"{name} B=8", max_abs_err=err, bit_exact=exact,
+            tolerance="decisions and LLR signs equal; x_hat, nv_eff rtol "
+                      "1e-4 atol 1e-5; LLR rtol 1e-5 atol 1e-5",
+            ms=time_ms(lambda: rx_fused.sic_detect_demap(*args)),
+            device_us=device_us(lambda: rx_fused.sic_detect_demap(*args),
+                                KERNEL_SYMBOLS["sic_detect_demap"]),
+            plain_ms=time_ms(lambda: rx_fused.sic_detect_demap_torch(*args),
+                             reps=10),
+            library_ms=None, bound_ms=bms, bound_by=by,
+            # the joint receiver's kernel on the same inputs, for scale
+            joint_device_us=device_us(
+                lambda: rx_fused.mmse_detect_demap(*args),
+                KERNEL_SYMBOLS["mmse_detect_demap"]),
+        ))
+    return cases
+
+
 def _code_llrs(code, n_cw: int, snr_db: float, dev):
     """(n_cw, n_mother) BPSK-over-AWGN channel LLRs of random codewords."""
     import torch
@@ -334,6 +437,54 @@ def check_ldpc(dev) -> list:
                                     KERNEL_SYMBOLS["ldpc_decode"]),
                 plain_ms=time_ms(lambda: ldpc.ldpc_decode_torch(llr, code),
                                  reps=20, warmup=1),
+                library_ms=None, bound_ms=bms, bound_by=by,
+            ))
+    return cases
+
+
+def check_ldpc_q(dev) -> list:
+    """The int8 decoder against its twin, bit for bit, at a converging,
+    a non-converging and a saturating point (LLRs x 8: channel codes clip
+    at +-127 and check messages saturate; a column of degree d bounds the
+    posterior at 127 * (1 + d) codes, under the 12-bit clip)."""
+    import torch
+
+    from repro_torch.kernels import ldpc, quant
+    from repro_torch.phy import coding
+
+    cases = []
+    for rate, points in (("r12", ((3.0, 1.0), (-6.0, 1.0), (3.0, 8.0))),
+                         ("r34", ((6.0, 1.0), (-6.0, 1.0)))):
+        code = coding.make_code(rate)
+        n_edges = sum(len(e) for e in code.layers())
+        for snr, gain in points:
+            llr = (_code_llrs(code, 216, snr, dev) * gain).contiguous()
+            run = lambda: ldpc.ldpc_decode(llr, code, precision="int8")
+            post, iters = run()
+            post_t, iters_t = ldpc.ldpc_decode_torch(llr, code,
+                                                     precision="int8")
+            torch.cuda.synchronize()
+            label = f"{rate} {snr:+.0f}dB{' x8' if gain != 1 else ''}"
+            check(torch.equal(iters, iters_t),
+                  f"ldpc int8[{label}] iteration counts differ")
+            check(torch.equal(post, post_t),
+                  f"ldpc int8[{label}] posteriors differ")
+            it = iters.long()
+            # integer ops as row 4's fp32 count, priced at the fp32 rate
+            ops = float(((it * 10 + (it + 1) * 2) * n_edges * code.z).sum())
+            nbytes = 2 * llr.numel() * 4 + iters.numel() * 4
+            bms, by = bound(nbytes, ops)
+            codes = (post / quant.llr_scale()).round().abs().max()
+            cases.append(dict(
+                shape=f"{label} 216cw int8", max_abs_err=float(
+                    (post - post_t).abs().max()), bit_exact=True,
+                tolerance="posteriors and iteration counts exact",
+                max_abs_code=int(codes),
+                iters_hist=torch.bincount(it, minlength=13).tolist(),
+                ms=time_ms(run),
+                device_us=device_us(run, KERNEL_SYMBOLS["ldpc_decode_q"]),
+                plain_ms=time_ms(lambda: ldpc.ldpc_decode_torch(
+                    llr, code, precision="int8"), reps=10, warmup=1),
                 library_ms=None, bound_ms=bms, bound_by=by,
             ))
     return cases
@@ -495,7 +646,17 @@ PATHS = (
      ("te_gemm", "mha", "mmse_detect_demap", "ldpc_decode")),
     ("siso-coded deeprx", "siso-coded", "deeprx", {}, 20,
      ("te_gemm", "ldpc_decode")),
+    ("mimo4x4-mu classical+sic", "mimo4x4-qam16-mu-snr18", "classical",
+     {"fused": True, "sic": True}, 10,
+     ("ls_che", "sic_detect_demap", "ldpc_decode")),
+    ("siso-coded classical int8", "siso-coded", "classical",
+     {"fused": True, "precision": "int8"}, 20,
+     ("ls_che", "mmse_detect_demap", "ldpc_decode_q")),
 )
+# kernels a path must not launch at all
+FORBIDDEN = {"siso-coded classical int8": ("ldpc_decode",)}
+PROFILED = ("siso-coded classical", "siso-coded cevit",
+            "mimo4x4-mu classical+sic", "siso-coded classical int8")
 
 
 def drive(ladder: str, n_ticks: int, dev, receiver: str = "classical",
@@ -529,17 +690,22 @@ def check_conservation(sch, rep) -> None:
         check(v is not None and math.isfinite(v), f"report {f}={v}")
 
 
+def _fresh_batch(scn, dev) -> dict:
+    """Eight fresh first-transmission slots of ``scn`` on ``dev``."""
+    from repro_torch.serve import runtime
+
+    factory = runtime.TorchSlotFactory(dev)
+    return runtime.stack_slots([factory(100 + i, scn, 1, rv=0)
+                                for i in range(8)])
+
+
 def _served_batch(sch, dev) -> tuple:
     """One fresh batch of the lowest rung served on the kernels: (the
     batch on the CPU, the served state, the rung)."""
     import torch
 
-    from repro_torch.serve import runtime
-
     scn = sch.rungs[0]
-    factory = runtime.TorchSlotFactory(dev)
-    slots = [factory(100 + i, scn, 1, rv=0) for i in range(8)]
-    batch = runtime.stack_slots(slots)
+    batch = _fresh_batch(scn, dev)
     got = sch.runners[0].pipeline.run(batch)
     torch.cuda.synchronize()
     keys = [k for k in ("h_hat", "x_hat", "nv_eff", "llr", "cw_llr")
@@ -581,7 +747,7 @@ def check_neural_batch_against_twins(sch, dev, receiver: str,
             "bler": float((~got["crc_ok"]).float().mean())}
 
 
-def check_batch_against_twins(sch, dev) -> dict:
+def check_batch_against_twins(sch, dev, options: dict) -> dict:
     """Serve one fresh batch of the lowest rung on the kernels and the same
     batch on the plain twins (CPU): outputs finite, decode identical."""
     import torch
@@ -589,7 +755,7 @@ def check_batch_against_twins(sch, dev) -> dict:
     from repro_torch.phy import link
 
     cpu, got, scn = _served_batch(sch, dev)
-    want = link.build_classical(scn, fused=True, device="cpu").run(cpu)
+    want = link.build_classical(scn, device="cpu", **options).run(cpu)
     for k in ("crc_ok", "info_bits_hat", "decode_iters"):
         check(torch.equal(got[k].cpu(), want[k]),
               f"served batch: {k} differs between kernels and twins")
@@ -597,6 +763,22 @@ def check_batch_against_twins(sch, dev) -> dict:
     check(flips <= 2, f"served batch: {flips} LLR hard-bit flips")
     return {"llr_flips": flips,
             "bler": float((~got["crc_ok"]).float().mean())}
+
+
+def sic_vs_lmmse(sch, dev) -> dict:
+    """CRC pass rate of one fresh MU batch through the SIC and the
+    joint-LMMSE fused receivers (printed, not gated)."""
+    import torch
+
+    from repro_torch.phy import link
+
+    scn = sch.rungs[0]
+    batch = _fresh_batch(scn, dev)
+    sic = sch.runners[0].pipeline.run(batch)
+    joint = link.build_classical(scn, fused=True, device=dev).run(batch)
+    torch.cuda.synchronize()
+    return {"sic_crc_pass": float(sic["crc_ok"].float().mean()),
+            "lmmse_crc_pass": float(joint["crc_ok"].float().mean())}
 
 
 def main() -> int:
@@ -620,13 +802,16 @@ def main() -> int:
           flush=True)
 
     build_s = _build.build_all()
-    print(f"build: {len(_build.SOURCES)} kernels in {build_s:.1f}s "
-          f"({', '.join(_build.SOURCES)})", flush=True)
+    print(f"build: {len(KERNELS)} kernels from {len(_build.SOURCES)} "
+          f"sources in {build_s:.1f}s ({', '.join(_build.SOURCES)})",
+          flush=True)
 
     results = {}
     for name, fn in (("ls_che", check_ls_che),
                      ("mmse_detect_demap", check_detect_demap),
+                     ("sic_detect_demap", check_sic),
                      ("ldpc_decode", check_ldpc),
+                     ("ldpc_decode_q", check_ldpc_q),
                      ("te_gemm", check_te_gemm),
                      ("mha", check_mha)):
         results[name] = fn(dev)
@@ -640,7 +825,9 @@ def main() -> int:
                   f"plain_ms={c['plain_ms']:.4f} library_ms={lib} "
                   f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) "
                   f"max_abs_err={c['max_abs_err']:.3g} "
-                  f"(tolerance: {c['tolerance']})", flush=True)
+                  f"(tolerance: {c['tolerance']})"
+                  + "".join(f" {k}={c[k]}" for k in EXTRA_FIELDS if k in c),
+                  flush=True)
 
     by_path = {}
     for label, ladder, receiver, options, n_ticks, needs in PATHS:
@@ -653,36 +840,31 @@ def main() -> int:
         check_conservation(sch, rep)
         for k in needs:
             check(launches.get(k, 0) > 0, f"{k} never launched on {label}")
+        for k in FORBIDDEN.get(label, ()):
+            check(launches.get(k, 0) == 0,
+                  f"{k} launched {launches.get(k)} times on {label}")
         if receiver != "classical":
             served = check_neural_batch_against_twins(sch, dev, receiver,
                                                       options)
-            print(f"served {label} batch vs twins: {served}", flush=True)
-        elif ladder == "siso-coded":
-            served = check_batch_against_twins(sch, dev)
-            print(f"served batch vs twins: {served}", flush=True)
-        if receiver == "cevit" or (receiver, ladder) == ("classical",
-                                                         "siso-coded"):
+        else:
+            served = check_batch_against_twins(sch, dev, options)
+        print(f"served {label} batch vs twins: {served}", flush=True)
+        if options.get("sic"):
+            print(f"one MU batch, SIC vs joint LMMSE (not gated): "
+                  f"{sic_vs_lmmse(sch, dev)}", flush=True)
+        if label in PROFILED:
             prof = profile_ticks(sch, 10)
             print(f"profiled {label} ticks: {json.dumps(prof)}", flush=True)
 
-    sources = {"ls_che": "ls_che.cu", "mmse_detect_demap": "detect_demap.cu",
-               "ldpc_decode": "ldpc_minsum.cu", "te_gemm": "te_gemm.cu",
-               "mha": "mha.cu"}
-    replaces = {
-        "ls_che": "src/repro/kernels/rx_fused.py:587",
-        "mmse_detect_demap": "src/repro/kernels/rx_fused.py:389",
-        "ldpc_decode": "src/repro/kernels/ldpc.py:304",
-        "te_gemm": "src/repro/kernels/te_gemm.py:123",
-        "mha": "src/repro/kernels/mha.py:64",
-    }
     kernels = []
     for name, cases in results.items():
         head = cases[0]  # the main path's shape
         first = next(label for label, *_, needs in PATHS if name in needs)
+        source, replaces = KERNELS[name]
         kernels.append(dict(
             name=name, route="cuda",
-            source=f"src/repro_torch/csrc/{sources[name]}",
-            replaces=replaces[name], launches=by_path[first][name],
+            source=f"src/repro_torch/csrc/{source}",
+            replaces=replaces, launches=by_path[first][name],
             launches_path=first,
             launches_by_path={label: n.get(name, 0)
                               for label, n in by_path.items()},

@@ -27,6 +27,20 @@
 // alpha*par*sg*mag and t + upd round, so hard bits and iteration counts
 // match the plain twin exactly.  Internally v = log P(0)/P(1): the
 // boundary negates, as _to_lanes / _from_lanes do.
+//
+// ldpc_minsum_q_kernel, below, replaces the int8 datapath of the same
+// Pallas kernel (ldpc_decode_pallas(precision="int8"|"fp8") over
+// _decode_core_q / _layered_iteration_q): channel LLRs quantized onto the
+// int8 grid with a true float32 division and round-half-to-even
+// (__fdiv_rn + rintf, clipped at +-127), int8-saturated check messages,
+// the damping (mag * round(alpha*256)) >> 8 applied to the magnitude
+// before the sign, a posterior saturating at +-2047, the syndrome on the
+// integer state, and the dequantized posterior v * step.  Same bound and
+// the same design as the fp32 kernel: one warp per codeword, CSR schedule,
+// state in shared memory (int32 lanes, 4 bytes a value as in fp32; int16
+// posterior plus int8 messages would halve it), per-codeword early exit.
+// Integer arithmetic is exact, so posteriors and iteration counts equal
+// the plain twin's bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
@@ -37,7 +51,8 @@ constexpr int CW_PER_BLOCK = 4;  // warps, hence codewords, per block
 constexpr size_t SMEM_LIMIT = 48 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ bool syndrome_ok(const float* v, int lane,
+template <typename T>
+__device__ __forceinline__ bool syndrome_ok(const T* v, int lane,
                                             const int* layer_off,
                                             const int* edge_col,
                                             const int* edge_shift,
@@ -47,7 +62,7 @@ __device__ __forceinline__ bool syndrome_ok(const float* v, int lane,
     int p = 0;
     for (int e = layer_off[l]; e < layer_off[l + 1]; ++e) {
       const int pos = edge_col[e] * Z + (lane + edge_shift[e]) % Z;
-      p ^= v[pos] < 0.f ? 1 : 0;
+      p ^= v[pos] < T(0) ? 1 : 0;
     }
     bad |= p;
   }
@@ -126,6 +141,87 @@ __global__ void ldpc_minsum_kernel(const float* __restrict__ llr,
   if (lane == 0) iters_out[cw] = it;
 }
 
+constexpr int SAT_V = 2047;    // 12-bit posterior
+constexpr int INT_INF = 32767;  // second-min sentinel, as the reference's
+
+__global__ void ldpc_minsum_q_kernel(const float* __restrict__ llr,
+                                     float* __restrict__ post,
+                                     int* __restrict__ iters_out,
+                                     const int* __restrict__ layer_off,
+                                     const int* __restrict__ edge_col,
+                                     const int* __restrict__ edge_shift,
+                                     int n_cw, int n_b, int n_layers,
+                                     int n_edges, int max_iters,
+                                     int alpha_q8, float step) {
+  extern __shared__ int smem_i[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int cw = blockIdx.x * CW_PER_BLOCK + warp;
+  if (cw >= n_cw) return;
+  int* v = smem_i + (size_t)warp * (n_b + n_edges) * Z;
+  int* c2v = v + n_b * Z;
+
+  const float* in = llr + (size_t)cw * n_b * Z;
+  for (int c = 0; c < n_b; ++c) {
+    const float q = rintf(__fdiv_rn(-in[c * Z + lane], step));
+    v[c * Z + lane] = (int)fminf(fmaxf(q, -127.f), 127.f);
+  }
+  for (int e = 0; e < n_edges; ++e) c2v[e * Z + lane] = 0;
+  __syncwarp();
+
+  int it = 0;
+  bool done =
+      syndrome_ok(v, lane, layer_off, edge_col, edge_shift, n_layers);
+  while (!done && it < max_iters) {
+    for (int l = 0; l < n_layers; ++l) {
+      const int e0 = layer_off[l];
+      const int deg = layer_off[l + 1] - e0;
+      int t[MAX_DEG];
+      int pos[MAX_DEG];
+      int m1 = INT_INF, m2 = INT_INF;
+      int amin = 0;
+      int neg = 0;
+#pragma unroll
+      for (int k = 0; k < MAX_DEG; ++k) {
+        if (k < deg) {
+          pos[k] = edge_col[e0 + k] * Z + (lane + edge_shift[e0 + k]) % Z;
+          t[k] = v[pos[k]] - c2v[(e0 + k) * Z + lane];
+          const int a = abs(t[k]);
+          if (a < m1) {
+            m2 = m1;
+            m1 = a;
+            amin = k;
+          } else if (a < m2) {
+            m2 = a;
+          }
+          neg ^= t[k] < 0 ? 1 : 0;
+        }
+      }
+      // the damped magnitudes, once per layer: (mag * alpha_q8) >> 8 of a
+      // magnitude >= 0, saturated at 127 (sat8 of +-x is +-min(x, 127))
+      const int d1 = min((m1 * alpha_q8) >> 8, 127);
+      const int d2 = min((m2 * alpha_q8) >> 8, 127);
+#pragma unroll
+      for (int k = 0; k < MAX_DEG; ++k) {
+        if (k < deg) {
+          const int mag = k == amin ? d2 : d1;
+          const int upd = (neg ^ (t[k] < 0 ? 1 : 0)) ? -mag : mag;
+          v[pos[k]] = min(max(t[k] + upd, -SAT_V), SAT_V);
+          c2v[(e0 + k) * Z + lane] = upd;
+        }
+      }
+      __syncwarp();
+    }
+    ++it;
+    done = syndrome_ok(v, lane, layer_off, edge_col, edge_shift, n_layers);
+  }
+
+  float* out = post + (size_t)cw * n_b * Z;
+  for (int c = 0; c < n_b; ++c)
+    out[c * Z + lane] = -__fmul_rn((float)v[c * Z + lane], step);
+  if (lane == 0) iters_out[cw] = it;
+}
+
 }  // namespace
 
 // llr, post (n_cw, n_b * 32) float in the log P(1)/P(0) convention;
@@ -148,5 +244,27 @@ extern "C" int ldpc_minsum_launch(const float* llr, float* post, int* iters,
                        (cudaStream_t)stream>>>(
       llr, post, iters, layer_off, edge_col, edge_shift, n_cw, n_b,
       n_layers, n_edges, max_iters, alpha);
+  return (int)cudaGetLastError();
+}
+
+// The int8 datapath, same arguments and layouts as ldpc_minsum_launch;
+// alpha_q8 = round(alpha * 256), step = the LLR units of one int8 code.
+extern "C" int ldpc_minsum_q_launch(const float* llr, float* post,
+                                    int* iters, const int* layer_off,
+                                    const int* edge_col,
+                                    const int* edge_shift, int n_cw,
+                                    int n_b, int n_layers, int n_edges,
+                                    int max_deg, int max_iters, int alpha_q8,
+                                    float step, void* stream) {
+  const size_t smem =
+      sizeof(int) * (size_t)CW_PER_BLOCK * (n_b + n_edges) * Z;
+  if (max_deg > MAX_DEG || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  if (n_cw == 0) return 0;
+  const int blocks = (n_cw + CW_PER_BLOCK - 1) / CW_PER_BLOCK;
+  ldpc_minsum_q_kernel<<<blocks, CW_PER_BLOCK * 32, smem,
+                         (cudaStream_t)stream>>>(
+      llr, post, iters, layer_off, edge_col, edge_shift, n_cw, n_b,
+      n_layers, n_edges, max_iters, alpha_q8, step);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Batched layered normalized-min-sum LDPC decoder (port of
-:mod:`repro.kernels.ldpc`, fp32).
+:mod:`repro.kernels.ldpc`): fp32, and the saturating int8 datapath.
 
 Per layer of the quasi-cyclic code: variable-to-check messages ``t`` (the
 posterior minus the layer's previous check message), min / second-min
@@ -11,8 +11,15 @@ exit) and the per-codeword iteration count is an output.
 :func:`ldpc_decode` runs the plain PyTorch twin (:func:`ldpc_decode_torch`,
 the reference core's arithmetic) only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches ``csrc/ldpc_minsum.cu`` (one warp
-per codeword, z == 32) or raises.  The int8 saturating decoder is not
-ported yet (ROADMAP queue 1, item 10).
+per codeword, z == 32) or raises.
+
+``precision="int8"|"fp8"`` selects the integer datapath (the same for both
+1-byte policies): channel LLRs quantized onto the int8 grid
+(``round(v / llr_scale())``, half to even, clipped at +-127), int8 check
+messages, a 12-bit posterior saturating at +-``_SAT_V``, the fixed-point
+damping ``(mag * round(alpha*256)) >> 8``, and a dequantized posterior.
+Its twin is :func:`_decode_core_q`; its kernel ``ldpc_minsum_q_kernel`` in
+the same source.
 """
 from __future__ import annotations
 
@@ -75,11 +82,11 @@ def _layered_iteration(v: torch.Tensor, c2v: tuple, layers: tuple,
     return v, tuple(new_c2v)
 
 
-def _decode_core(v0: torch.Tensor, layers: tuple, max_iters: int,
-                 alpha: float):
-    """Iterate to convergence.  v0 (n_b, z, B) -> (posterior, iters (B,)).
-    A converged codeword's state and messages freeze (identical numerics
-    to stopping it); the loop ends when all have converged."""
+def _iterate(v0: torch.Tensor, layers: tuple, max_iters: int, sweep):
+    """Iterate ``sweep(v, c2v)`` to convergence from ``v0`` (n_b, z, B);
+    returns (posterior, iters (B,)).  A converged codeword's state and
+    messages freeze (identical numerics to stopping it); the loop ends
+    when all have converged."""
     c2v = tuple(
         torch.zeros((len(e),) + v0.shape[1:], dtype=v0.dtype,
                     device=v0.device)
@@ -90,7 +97,7 @@ def _decode_core(v0: torch.Tensor, layers: tuple, max_iters: int,
     iters = torch.zeros(v0.shape[-1], dtype=torch.int32, device=v0.device)
     it = 0
     while it < max_iters and not bool(torch.all(done)):
-        vn, c2vn = _layered_iteration(v, c2v, layers, alpha)
+        vn, c2vn = sweep(v, c2v)
         keep = done[None, None, :]
         v = torch.where(keep, v, vn)
         c2v = tuple(torch.where(keep, a, b) for a, b in zip(c2v, c2vn))
@@ -98,6 +105,79 @@ def _decode_core(v0: torch.Tensor, layers: tuple, max_iters: int,
         done = torch.logical_or(done, _syndrome_ok(v, layers))
         it += 1
     return v, iters
+
+
+def _decode_core(v0: torch.Tensor, layers: tuple, max_iters: int,
+                 alpha: float):
+    """fp32 decode: v0 (n_b, z, B) -> (posterior, iters (B,))."""
+    return _iterate(v0, layers, max_iters,
+                    lambda v, c2v: _layered_iteration(v, c2v, layers, alpha))
+
+
+# ---------------------------------------------------------------------------
+# plain twin of the int8 datapath
+# ---------------------------------------------------------------------------
+
+_INT_INF = 32767  # second-min sentinel
+# posterior saturation: check messages stay on the int8 grid, the variable
+# state gets 12 bits (an int8 accumulator saturates on the first extrinsic
+# add at the registered operating points)
+_SAT_V = 2047
+
+
+def _layered_iteration_q(v: torch.Tensor, c2v: tuple, layers: tuple,
+                         alpha: float):
+    """One layered sweep in saturating integer arithmetic (int32 lanes):
+    exact min / second-min / sign product, the damping
+    ``scale_q8(mag, alpha)`` applied to the magnitude before the sign,
+    int8-saturated messages and a posterior clipped at +-``_SAT_V``."""
+    v = v.clone()
+    new_c2v = []
+    for li, edges in enumerate(layers):
+        t = torch.stack(
+            [torch.roll(v[c], -s, dims=0) for c, s in edges]
+        ) - c2v[li]  # (E, z, B): |t| <= _SAT_V + 127
+        at = torch.abs(t)
+        sg = torch.where(t < 0, -1, 1).to(torch.int32)
+        m1 = torch.amin(at, dim=0, keepdim=True)
+        amin = torch.argmin(at, dim=0)  # first index on ties
+        is_min = (
+            torch.arange(len(edges), device=v.device)[:, None, None]
+            == amin[None]
+        )
+        m2 = torch.amin(torch.where(is_min, _INT_INF, at), dim=0,
+                        keepdim=True)
+        mag = torch.where(is_min, m2, m1)
+        par = torch.prod(sg, dim=0, keepdim=True, dtype=torch.int32)
+        upd = quant.sat8(par * sg * quant.scale_q8(mag, alpha))
+        vn = torch.clamp(t + upd, -_SAT_V, _SAT_V)
+        for e, (c, s) in enumerate(edges):
+            v[c] = torch.roll(vn[e], s, dims=0)
+        new_c2v.append(upd)
+    return v, tuple(new_c2v)
+
+
+def _decode_core_q(v0: torch.Tensor, layers: tuple, max_iters: int,
+                   alpha: float, step: float):
+    """Int8 twin of :func:`_decode_core`: quantize the fp32 channel lanes
+    onto the int8 grid (``step`` LLR units per code; a true float32
+    division, half to even), iterate in saturating integers, dequantize
+    the posterior."""
+    vq0 = torch.clamp(
+        torch.round(quant.true_div(v0.to(torch.float32), step)), -127, 127
+    ).to(torch.int32)
+    vq, iters = _iterate(
+        vq0, layers, max_iters,
+        lambda v, c2v: _layered_iteration_q(v, c2v, layers, alpha))
+    return vq.to(torch.float32) * step, iters
+
+
+def _core_for(precision: Optional[str]):
+    """The decode core of a precision policy: fp32 lanes in and out either
+    way; int8 and fp8 select the saturating integer state."""
+    if not quant.is_quantized(precision):
+        return _decode_core
+    return functools.partial(_decode_core_q, step=quant.llr_scale())
 
 
 def _to_lanes(llr: torch.Tensor, n_b: int, z: int) -> torch.Tensor:
@@ -114,9 +194,10 @@ def _from_lanes(v: torch.Tensor) -> torch.Tensor:
 
 def ldpc_decode_torch(llr: torch.Tensor, code, *,
                       max_iters: int = DEFAULT_MAX_ITERS,
-                      alpha: float = DEFAULT_ALPHA):
+                      alpha: float = DEFAULT_ALPHA,
+                      precision: Optional[str] = None):
     """llr (B, n_mother) -> (posterior LLRs (B, n_mother), iters (B,))."""
-    v, iters = _decode_core(
+    v, iters = _core_for(precision)(
         _to_lanes(llr, code.n_b, code.z), code.layers(), max_iters, alpha
     )
     return _from_lanes(v), iters
@@ -140,19 +221,27 @@ def _schedule(code, device: torch.device):
     return as_t(off), as_t(cols), as_t(shifts), max(map(len, layers))
 
 
-def _ldpc_lib():
-    fn = _build.library("ldpc_minsum").ldpc_minsum_launch
+def _ldpc_lib(quantized: bool):
+    lib = _build.library("ldpc_minsum")
+    if quantized:
+        fn = lib.ldpc_minsum_q_launch
+        scalars = [ctypes.c_int] * 7 + [ctypes.c_float]
+    else:
+        fn = lib.ldpc_minsum_launch
+        scalars = [ctypes.c_int] * 6 + [ctypes.c_float]
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
-            [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + scalars + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def ldpc_decode_cuda(llr: torch.Tensor, code, *,
                      max_iters: int = DEFAULT_MAX_ITERS,
-                     alpha: float = DEFAULT_ALPHA):
-    """Launch ``csrc/ldpc_minsum.cu``: one warp per codeword."""
+                     alpha: float = DEFAULT_ALPHA,
+                     precision: Optional[str] = None):
+    """Launch ``csrc/ldpc_minsum.cu``, one warp per codeword:
+    ``ldpc_minsum_kernel`` for fp32, ``ldpc_minsum_q_kernel`` for the
+    int8 datapath (``precision="int8"|"fp8"``)."""
     if code.z != 32:
         raise ValueError(f"ldpc_minsum kernel needs z == 32 (one warp lane "
                          f"per lifted row), got z={code.z}")
@@ -161,6 +250,7 @@ def ldpc_decode_cuda(llr: torch.Tensor, code, *,
     _build.require_cuda("ldpc_minsum", llr=(llr, torch.float32))
     off, cols, shifts, max_deg = _schedule(code, llr.device)
     n_edges = int(cols.numel())
+    # fp32 or int32 state: 4 bytes a value either way
     per_block = _CW_PER_BLOCK * (code.n_b + n_edges) * code.z * 4
     if per_block > _SMEM_LIMIT:
         raise ValueError(f"{code.name}: {per_block} B of decoder state per "
@@ -169,13 +259,18 @@ def ldpc_decode_cuda(llr: torch.Tensor, code, *,
     n_cw = llr.shape[0]
     post = torch.empty_like(llr)
     iters = torch.empty(n_cw, dtype=torch.int32, device=llr.device)
-    err = _ldpc_lib()(
+    quantized = quant.is_quantized(precision)
+    if quantized:
+        scalars = (int(max_iters), quant.q8_factor(alpha),
+                   float(quant.llr_scale()))
+    else:
+        scalars = (int(max_iters), float(alpha))
+    err = _ldpc_lib(quantized)(
         llr.data_ptr(), post.data_ptr(), iters.data_ptr(), off.data_ptr(),
         cols.data_ptr(), shifts.data_ptr(), n_cw, code.n_b, code.m_b,
-        n_edges, max_deg, int(max_iters), float(alpha),
-        _build.stream_of(llr),
+        n_edges, max_deg, *scalars, _build.stream_of(llr),
     )
-    _build.launches["ldpc_decode"] += 1
+    _build.launches["ldpc_decode_q" if quantized else "ldpc_decode"] += 1
     _build.check(err, "ldpc_minsum")
     return post, iters
 
@@ -187,10 +282,11 @@ def ldpc_decode(llr: torch.Tensor, code, *,
     """Layered normalized-min-sum decode of ``llr`` (B, n_mother) in the
     log P(1)/P(0) convention (zero = punctured).  Returns (posterior LLRs,
     per-codeword iteration counts); hard decisions are ``posterior > 0``.
+    ``precision="int8"|"fp8"`` runs the saturating integer datapath.
     The CUDA kernel on a CUDA tensor, the plain twin on a CPU tensor."""
-    quant.require_unquantized(precision)
+    precision = quant.resolve_precision(precision)
     if llr.device.type == "cpu":
         return ldpc_decode_torch(llr, code, max_iters=max_iters,
-                                 alpha=alpha)
+                                 alpha=alpha, precision=precision)
     return ldpc_decode_cuda(llr.contiguous(), code, max_iters=max_iters,
-                            alpha=alpha)
+                            alpha=alpha, precision=precision)

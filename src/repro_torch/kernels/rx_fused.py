@@ -7,12 +7,18 @@
 * ``mmse_detect_demap``: per RE the regularized Gram, an in-register
   unpivoted Gauss solve of the augmented system [H^H y | G], unbiasing and
   max-log LLRs, with no Gram / equalized-symbol grid in memory.  On a CUDA
-  tensor: ``csrc/detect_demap.cu``.
+  tensor: ``detect_demap_kernel`` of ``csrc/detect_demap.cu``.
+* ``sic_detect_demap``: successive interference cancellation, the MU-MIMO
+  near-far receiver.  Stage ``k`` runs the same solve over the streams
+  ``k..n_tx-1`` not cancelled yet, keeps stream ``k``'s estimate and LLRs,
+  hard-remodulates it and subtracts its contribution from the residual.
+  On a CUDA tensor: ``sic_demap_kernel`` of the same source.
 
 Each wrapper runs its plain PyTorch twin (``*_torch``, the same arithmetic
 in the same order) only because the tensor it was given lies on the CPU;
-on a CUDA tensor it launches the hand-written kernel or raises.  SIC
-(``sic_detect_demap``) is not ported yet (ROADMAP queue 1, item 9).
+on a CUDA tensor it launches the hand-written kernel or raises.
+``precision="int8"|"fp8"`` rounds the LLRs onto the fixed int8 grid of
+:mod:`repro_torch.kernels.quant` after the kernel, as the reference does.
 """
 from __future__ import annotations
 
@@ -126,24 +132,66 @@ def _detect_demap_core(yr, yi, hr, hi, nv, levels: Sequence[float],
     return xr, xi, nve, llr
 
 
-def mmse_detect_demap_torch(y, h, noise_var, modem):
-    """Plain PyTorch twin of the fused detect+demap kernel.
+def _hard_axis(comp, levels: Sequence[float], scale: float):
+    """Nearest per-axis constellation level of ``comp`` (unit-power
+    domain): the hard re-modulation of one SIC stage.  Levels in the
+    modem's order, a strict ``<`` (the first level wins a tie), and a true
+    division by ``scale`` on every device."""
+    v = comp * scale
+    best = levels[0] + 0.0 * v
+    best_d = (v - levels[0]) ** 2
+    for lv in levels[1:]:
+        d = (v - lv) ** 2
+        best = torch.where(d < best_d, lv, best)
+        best_d = torch.minimum(d, best_d)
+    return quant.true_div(best, scale)
 
-    y (B, n_sym, n_sc, n_rx) complex, h (B, n_sc, n_rx, n_tx) complex (flat
-    in time), noise_var 0-d -> (x_hat (B, n_sym, n_sc, n_tx) complex64,
-    nv_eff (B, n_sym, n_sc, n_tx), llr (B, n_sym, n_sc, n_tx, 2*nb)).
-    """
+
+def _sic_core(yr, yi, hr, hi, nv, levels: Sequence[float], norm: float,
+              nb: int):
+    """Successive interference cancellation over :func:`_detect_demap_core`:
+    stage ``k`` solves the suffix system over streams ``k..n_tx-1``, keeps
+    stream ``k``'s unbiased estimate and LLRs, hard-remodulates it and
+    subtracts ``h[:, k] * x_k`` (the original column) from the residual.
+    Streams cancel in index order.  Same return contract as
+    :func:`_detect_demap_core`."""
+    n_rx, n_tx = len(yr), len(hr[0])
+    scale = float(np.sqrt(norm))
+    yr, yi = list(yr), list(yi)
+    xr_o, xi_o, nve_o, llr_o = [], [], [], []
+    for k in range(n_tx):
+        sub_hr = [[hr[r][t] for t in range(k, n_tx)] for r in range(n_rx)]
+        sub_hi = [[hi[r][t] for t in range(k, n_tx)] for r in range(n_rx)]
+        xr, xi, nve, llr = _detect_demap_core(
+            yr, yi, sub_hr, sub_hi, nv, levels, norm, nb
+        )
+        xr_o.append(xr[0])
+        xi_o.append(xi[0])
+        nve_o.append(nve[0])
+        llr_o.append(llr[0])
+        if k < n_tx - 1:
+            hxr = _hard_axis(xr[0], levels, scale)
+            hxi = _hard_axis(xi[0], levels, scale)
+            for r in range(n_rx):
+                cr, ci = _cmul(hr[r][k], hi[r][k], hxr, hxi)
+                yr[r] = yr[r] - cr
+                yi[r] = yi[r] - ci
+    return xr_o, xi_o, nve_o, llr_o
+
+
+def _demap_torch(core, y, h, noise_var, modem):
+    """Whole-grid form of a fused demap core (``h`` broadcast over the
+    symbol axis, never materialized per symbol)."""
     n_rx, n_tx = y.shape[-1], h.shape[-1]
     nb = modem.bits_per_symbol // 2
     f32 = lambda v: v.to(torch.float32)
     yr = [f32(y[..., r].real) for r in range(n_rx)]
     yi = [f32(y[..., r].imag) for r in range(n_rx)]
-    # h broadcasts over the symbol axis
     hr = [[f32(h[:, None, :, r, t].real) for t in range(n_tx)]
           for r in range(n_rx)]
     hi = [[f32(h[:, None, :, r, t].imag) for t in range(n_tx)]
           for r in range(n_rx)]
-    xr, xi, nve, llr = _detect_demap_core(
+    xr, xi, nve, llr = core(
         yr, yi, hr, hi, noise_var, modem.levels, modem.norm, nb
     )
     shape = y.shape[:-1]
@@ -159,6 +207,22 @@ def mmse_detect_demap_torch(y, h, noise_var, modem):
     return x_hat, nv_eff, llr_out
 
 
+def mmse_detect_demap_torch(y, h, noise_var, modem):
+    """Plain PyTorch twin of the fused detect+demap kernel.
+
+    y (B, n_sym, n_sc, n_rx) complex, h (B, n_sc, n_rx, n_tx) complex (flat
+    in time), noise_var 0-d -> (x_hat (B, n_sym, n_sc, n_tx) complex64,
+    nv_eff (B, n_sym, n_sc, n_tx), llr (B, n_sym, n_sc, n_tx, 2*nb)).
+    """
+    return _demap_torch(_detect_demap_core, y, h, noise_var, modem)
+
+
+def sic_detect_demap_torch(y, h, noise_var, modem):
+    """Plain PyTorch twin of the fused SIC detect+demap kernel; the
+    contract of :func:`mmse_detect_demap_torch`, per original stream."""
+    return _demap_torch(_sic_core, y, h, noise_var, modem)
+
+
 # ---------------------------------------------------------------------------
 # fused equalize -> demap: CUDA kernel
 # ---------------------------------------------------------------------------
@@ -171,8 +235,8 @@ def _levels_on(levels: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(levels, dtype=torch.float32, device=device)
 
 
-def _demap_lib():
-    fn = _build.library("detect_demap").detect_demap_launch
+def _demap_lib(entry: str):
+    fn = getattr(_build.library("detect_demap"), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + \
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -180,14 +244,14 @@ def _demap_lib():
     return fn
 
 
-def mmse_detect_demap_cuda(y, h, noise_var, modem):
-    """Launch ``csrc/detect_demap.cu``: one thread per RE."""
+def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
+    """Launch ``entry`` of ``csrc/detect_demap.cu``: one thread per RE."""
     b, n_sym, n_sc, n_rx = y.shape
     n_tx = h.shape[-1]
     nb = modem.bits_per_symbol // 2
     if (n_rx, n_tx) not in _DEMAP_SHAPES or not 1 <= nb <= 4:
         raise ValueError(
-            f"detect_demap kernel has no instance for n_rx={n_rx}, "
+            f"detect_demap kernels have no instance for n_rx={n_rx}, "
             f"n_tx={n_tx}, {nb} bits per axis; instances: {_DEMAP_SHAPES} "
             "x 1..4 bits"
         )
@@ -205,33 +269,69 @@ def mmse_detect_demap_cuda(y, h, noise_var, modem):
                          device=y.device)
     llr = torch.empty((b, n_sym, n_sc, n_tx, 2 * nb), dtype=torch.float32,
                       device=y.device)
-    fn = _demap_lib()
-    err = fn(y.data_ptr(), h.data_ptr(), noise_var.data_ptr(), lv.data_ptr(),
-             float(modem.norm), float(np.sqrt(modem.norm)),
-             x_hat.data_ptr(), nv_eff.data_ptr(), llr.data_ptr(),
-             b, n_sym, n_sc, n_rx, n_tx, nb, _build.stream_of(y))
-    _build.launches["mmse_detect_demap"] += 1
-    _build.check(err, "detect_demap")
+    err = _demap_lib(entry)(
+        y.data_ptr(), h.data_ptr(), noise_var.data_ptr(), lv.data_ptr(),
+        float(modem.norm), float(np.sqrt(modem.norm)), x_hat.data_ptr(),
+        nv_eff.data_ptr(), llr.data_ptr(), b, n_sym, n_sc, n_rx, n_tx, nb,
+        _build.stream_of(y))
+    _build.launches[counter] += 1
+    _build.check(err, entry)
     return x_hat, nv_eff, llr
+
+
+def mmse_detect_demap_cuda(y, h, noise_var, modem):
+    """Launch ``detect_demap_kernel``: one thread per RE."""
+    return _demap_cuda("detect_demap_launch", "mmse_detect_demap", y, h,
+                       noise_var, modem)
+
+
+def sic_detect_demap_cuda(y, h, noise_var, modem):
+    """Launch ``sic_demap_kernel``: one thread per RE, every cancellation
+    stage in registers."""
+    return _demap_cuda("sic_demap_launch", "sic_detect_demap", y, h,
+                       noise_var, modem)
+
+
+def _dispatch(twin, kernel, y, h, noise_var, modem, precision):
+    """The twin on a CPU tensor, the kernel (on contiguous operands) on a
+    CUDA one; quantized precisions round the LLRs onto the int8 grid."""
+    if y.device.type == "cpu":
+        out = twin(y, h, noise_var, modem)
+    else:
+        out = kernel(y.contiguous(), h.contiguous(), noise_var, modem)
+    if not quant.is_quantized(precision):
+        return out
+    x_hat, nv_eff, llr = out
+    return x_hat, nv_eff, quant.fake_quant_llr(llr, precision)
 
 
 def mmse_detect_demap(y, h, noise_var, modem, *,
                       precision: Optional[str] = None):
-    """Fused MMSE equalize -> demap: the CUDA kernel on a CUDA tensor (laid
-    out contiguously first), the plain twin on a CPU tensor.  Quantized
-    precisions raise (not ported)."""
-    quant.require_unquantized(precision)
-    if y.device.type == "cpu":
-        return mmse_detect_demap_torch(y, h, noise_var, modem)
-    return mmse_detect_demap_cuda(y.contiguous(), h.contiguous(), noise_var,
-                                  modem)
+    """Fused MMSE equalize -> demap: the CUDA kernel on a CUDA tensor, the
+    plain twin on a CPU tensor.  ``precision="int8"|"fp8"`` returns LLRs
+    rounded onto the fixed int8 grid (still float32, so the chain keeps
+    its shapes and dtypes); :func:`mmse_detect_demap_int8` gives the raw
+    (codes, scale) pair."""
+    return _dispatch(mmse_detect_demap_torch, mmse_detect_demap_cuda, y, h,
+                     noise_var, modem, precision)
 
 
-def sic_detect_demap(*_args, **_kw):
-    raise NotImplementedError(
-        "fused SIC detect+demap is not ported yet (ROADMAP queue 1, item 9: "
-        "SIC and interference serving)"
-    )
+def sic_detect_demap(y, h, noise_var, modem, *,
+                     precision: Optional[str] = None):
+    """Fused SIC equalize -> demap, dispatched and quantized as
+    :func:`mmse_detect_demap`."""
+    return _dispatch(sic_detect_demap_torch, sic_detect_demap_cuda, y, h,
+                     noise_var, modem, precision)
+
+
+def mmse_detect_demap_int8(y, h, noise_var, modem, *,
+                           llr_clip: float = quant.LLR_CLIP):
+    """Quantized-LLR demap: (x_hat, nv_eff, llr_q int8, scale).
+    ``dequantize_llr(llr_q, scale)`` is what the ``precision="int8"`` path
+    of :func:`mmse_detect_demap` feeds the decoder."""
+    x_hat, nv_eff, llr = mmse_detect_demap(y, h, noise_var, modem)
+    llr_q, scale = quant.quantize_llr(llr, clip=llr_clip)
+    return x_hat, nv_eff, llr_q, scale
 
 
 # ---------------------------------------------------------------------------

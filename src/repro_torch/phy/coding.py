@@ -351,9 +351,11 @@ def coded_llrs(scenario, llr: torch.Tensor) -> torch.Tensor:
 
 def decode_blocks(scenario, llr: torch.Tensor, *, max_iters: int = 12,
                   alpha: float = 0.8, rv=None,
-                  prior_llr: Optional[torch.Tensor] = None) -> dict:
+                  prior_llr: Optional[torch.Tensor] = None,
+                  precision: Optional[str] = None) -> dict:
     """Receive-side coding chain on a detector state's LLRs: de-rate-match
-    (+ HARQ prior), layered min-sum decode, CRC check.
+    (+ HARQ prior), layered min-sum decode (the saturating int8 datapath
+    for ``precision="int8"|"fp8"``), CRC check.
 
     Returns ``info_bits_hat`` (B, C, k_info), ``crc_ok`` (B, C),
     ``decode_iters`` (B, C) and ``cw_llr`` (B, C, n_mother), the combined
@@ -367,6 +369,7 @@ def decode_blocks(scenario, llr: torch.Tensor, *, max_iters: int = 12,
     b, c, n = cw_llr.shape
     post, iters = ldpc.ldpc_decode(
         cw_llr.reshape(b * c, n), code, max_iters=max_iters, alpha=alpha,
+        precision=precision,
     )
     hard = (post[:, : code.k] > 0).to(torch.int32)
     ok = crc_check(hard, code.crc_bits)

@@ -1,6 +1,9 @@
 """Receiver-pipeline subsystem (port of :mod:`repro.phy.link`): the
-classical receiver and the two neural ones (DeepRx, CE-ViT), which serve
-their network through the TE GEMM and flash-MHA kernels.
+classical receiver (joint MMSE or SIC) and the two neural ones (DeepRx,
+CE-ViT), which serve their network through the TE GEMM and flash-MHA
+kernels.  Every ``build_*`` takes a precision policy: ``int8``/``fp8`` serve
+the LLR plane on the fixed int8 grid and decode on the saturating int8
+datapath.
 
 A :class:`ReceiverPipeline` is a chain of :class:`RxStage`\\ s threading a
 slot dict through eager PyTorch (no CUDA graphs yet).  Each stage names the
@@ -61,7 +64,9 @@ class ReceiverPipeline:
         self.stages = tuple(stages)
         self.scenario = scenario
         self.params = params  # the neural receivers' weights, else None
-        self.precision = quant.require_unquantized(precision)
+        # numeric policy of the served datapath; the energy model prices
+        # TE MACs and operand traffic at it
+        self.precision = quant.resolve_precision(precision)
         self.device = resolve_device(device)
 
     def run(self, slot: dict) -> dict:
@@ -263,13 +268,16 @@ def _broadcast_h(h_est, n_sym):
     )
 
 
-def detect_demap_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem) -> RxStage:
-    """Fused equalize -> demap (:func:`rx_fused.mmse_detect_demap`)."""
+def detect_demap_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem,
+                       precision: Optional[str] = None) -> RxStage:
+    """Fused equalize -> demap (:func:`rx_fused.mmse_detect_demap`);
+    quantized precisions emit LLRs on the int8 grid."""
 
     def apply(state):
         h_est = state.get("h_hat", state.get("h_ls"))
         x_hat, nv_eff, llr = rx_fused.mmse_detect_demap(
             state["y"], h_est, state["noise_var"], modem,
+            precision=precision,
         )
         state["x_hat"], state["nv_eff"], state["llr"] = x_hat, nv_eff, llr
         return state
@@ -292,15 +300,56 @@ def detect_demap_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem) -> RxStage:
     return RxStage("detect_demap_fused", "PE", apply, cycles)
 
 
+def sic_demap_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem,
+                    precision: Optional[str] = None) -> RxStage:
+    """Fused SIC equalize -> demap (:func:`rx_fused.sic_detect_demap`),
+    the MU-MIMO near-far receiver: ``n_tx`` cancellation stages, each a
+    shrinking solve over the streams not cancelled yet, a hard
+    re-modulation and a residual subtraction, in index order (the MU-MIMO
+    scenarios register their users strongest-first).  ``precision`` as in
+    :func:`detect_demap_stage`."""
+
+    def apply(state):
+        h_est = state.get("h_hat", state.get("h_ls"))
+        x_hat, nv_eff, llr = rx_fused.sic_detect_demap(
+            state["y"], h_est, state["noise_var"], modem,
+            precision=precision,
+        )
+        state["x_hat"], state["nv_eff"], state["llr"] = x_hat, nv_eff, llr
+        return state
+
+    def cycles():
+        t, r = cfg.n_tx, cfg.n_rx
+        lvl = 2 ** (modem.bits_per_symbol // 2)
+        # shrinking gram+solve+rhs per stage (sizes t..1), one stream
+        # demapped per stage, plus the hard-remod cancellation
+        solve = sum(8.0 * (m * m * r + m ** 3 + m * r)
+                    for m in range(1, t + 1))
+        per_re = solve + t * lvl * 8.0 + (t - 1) * 8.0 * r
+        flops = cfg.n_symbols * cfg.n_subcarriers * per_re
+        return pool.BlockCycles(
+            te_cycles=0.0,
+            pe_cycles=pool.pe_cycles(flops, ipc=0.8),
+            dma_cycles=pool.dma_cycles(
+                _grid_bytes(cfg, cfg.n_rx)
+                + cfg.n_subcarriers * cfg.n_rx * cfg.n_tx * _C16
+                + _grid_bytes(cfg, cfg.n_tx * modem.bits_per_symbol // 2)
+            ),
+        )
+
+    return RxStage("sic_demap_fused", "PE", apply, cycles)
+
+
 def detect_stage(cfg: ofdm.GridConfig, fused: bool = False,
-                 modem: Optional[ofdm.Modem] = None) -> RxStage:
+                 modem: Optional[ofdm.Modem] = None,
+                 precision: Optional[str] = None) -> RxStage:
     """MIMO-MMSE detection; ``fused=True`` (requires ``modem``) returns
     the combined :func:`detect_demap_stage`, so builders then skip
     :func:`demod_stage`."""
     if fused:
         if modem is None:
             raise ValueError("fused detect+demap needs the modem")
-        return detect_demap_stage(cfg, modem)
+        return detect_demap_stage(cfg, modem, precision=precision)
 
     def apply(state):
         h_est = state.get("h_hat", state.get("h_ls"))
@@ -328,9 +377,13 @@ def detect_stage(cfg: ofdm.GridConfig, fused: bool = False,
     return RxStage("mmse_detect", "PE", apply, cycles)
 
 
-def demod_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem) -> RxStage:
+def demod_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem,
+                precision: Optional[str] = None) -> RxStage:
     def apply(state):
-        state["llr"] = modem.demod_llr(state["x_hat"], state["nv_eff"])
+        llr = modem.demod_llr(state["x_hat"], state["nv_eff"])
+        if quant.is_quantized(precision):
+            llr = quant.fake_quant_llr(llr, precision)
+        state["llr"] = llr
         return state
 
     def cycles():
@@ -349,10 +402,12 @@ def demod_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem) -> RxStage:
 
 
 def decode_stage(scenario: LinkScenario, *, max_iters: int = 12,
-                 alpha: float = 0.8) -> RxStage:
-    """CRC + LDPC decode of the slot's transport blocks.  HARQ state rides
-    in the slot: ``rv`` (B,) and ``prior_llr`` (B, C, n_mother), when
-    present, pick each slot's RV window and accumulate the prior."""
+                 alpha: float = 0.8,
+                 precision: Optional[str] = None) -> RxStage:
+    """CRC + LDPC decode of the slot's transport blocks (the saturating
+    int8 decoder for ``precision="int8"|"fp8"``).  HARQ state rides in the
+    slot: ``rv`` (B,) and ``prior_llr`` (B, C, n_mother), when present,
+    pick each slot's RV window and accumulate the prior."""
     code = scenario.code
     if code is None:
         raise ValueError(f"{scenario.name} has no channel code")
@@ -363,6 +418,7 @@ def decode_stage(scenario: LinkScenario, *, max_iters: int = 12,
             coding.decode_blocks(
                 scenario, state["llr"], max_iters=max_iters, alpha=alpha,
                 rv=state.get("rv"), prior_llr=state.get("prior_llr"),
+                precision=precision,
             )
         )
         return state
@@ -382,6 +438,21 @@ def decode_stage(scenario: LinkScenario, *, max_iters: int = 12,
         )
 
     return RxStage("ldpc_decode", "PE", apply, cycles)
+
+
+def llr_quant_stage(precision: str) -> RxStage:
+    """Round-trip the LLR plane through the precision's grid
+    (:func:`quant.fake_quant_llr`), after receivers that emit LLRs directly
+    (DeepRx), so the decoder sees the grid a quantized demapper would hand
+    it.  Elementwise work with no cost model of its own, as in the
+    reference."""
+    p = quant.resolve_precision(precision)
+
+    def apply(state):
+        state["llr"] = quant.fake_quant_llr(state["llr"], p)
+        return state
+
+    return RxStage(f"llr_quant@{p}", "PE", apply, None)
 
 
 # -- neural stages ----------------------------------------------------------
@@ -487,6 +558,10 @@ def cevit_che_stage(cfg: ofdm.GridConfig, params, mcfg: models.CEViTConfig,
 # Pipeline builders
 # ---------------------------------------------------------------------------
 
+def _precision_tag(precision: str) -> str:
+    return f"@{precision}" if quant.is_quantized(precision) else ""
+
+
 def build_classical(scenario: LinkScenario, *, mmse_smooth: bool = True,
                     fused: bool = False, sic: bool = False,
                     precision: Optional[str] = None,
@@ -496,30 +571,31 @@ def build_classical(scenario: LinkScenario, *, mmse_smooth: bool = True,
 
     ``fused=True`` serves LS CHE and detect+demap through the hand-written
     kernels of :mod:`repro_torch.kernels.rx_fused`; the decode stage runs
-    the LDPC kernel either way.  ``sic=True`` and the quantized precisions
-    raise: they are not ported yet.
+    the LDPC kernel either way.  ``sic=True`` replaces the joint detect +
+    demap with the fused SIC stage (:func:`sic_demap_stage`), the MU-MIMO
+    near-far receiver; SIC is always fused, and ``fused`` then controls
+    only LS CHE.  ``precision="int8"|"fp8"`` serves the LLR plane on the
+    int8 grid and decodes on the saturating int8 datapath.
     """
-    p = quant.require_unquantized(precision)
-    if sic:
-        raise NotImplementedError(
-            "build_classical(sic=True) is not ported yet (ROADMAP queue 1, "
-            "item 9: SIC and interference serving)"
-        )
+    p = quant.resolve_precision(precision)
     dev = resolve_device(device)
     cfg, modem = scenario.grid, scenario.modem
     stages = [cfft_stage(cfg), ls_che_stage(cfg, fused=fused, device=dev)]
     if mmse_smooth:
         stages.append(mmse_che_stage(cfg))
-    if fused:
-        stages.append(detect_stage(cfg, fused=True, modem=modem))
+    if sic:
+        stages.append(sic_demap_stage(cfg, modem, precision=p))
+    elif fused:
+        stages.append(detect_stage(cfg, fused=True, modem=modem,
+                                   precision=p))
     else:
-        stages += [detect_stage(cfg), demod_stage(cfg, modem)]
+        stages += [detect_stage(cfg), demod_stage(cfg, modem, precision=p)]
     if scenario.code is not None:
-        stages.append(decode_stage(scenario))
-    tag = "+fused" if fused else ""
+        stages.append(decode_stage(scenario, precision=p))
+    tag = ("+sic" if sic else "") + ("+fused" if fused else "")
     return ReceiverPipeline(
-        f"classical{tag}/{scenario.name}", stages, scenario, precision=p,
-        device=dev,
+        f"classical{tag}{_precision_tag(p)}/{scenario.name}", stages,
+        scenario, precision=p, device=dev,
     )
 
 
@@ -544,8 +620,10 @@ def build_deeprx(scenario: LinkScenario, *, params=None, channels: int = 32,
     with :func:`models.deeprx_params_from_numpy` for those).  The network
     always runs through the TE GEMM kernel on the card; the reference's
     ``fused`` switch (a TPU tiling fallback) is accepted and ignored.
-    Quantized precisions raise (not ported)."""
-    p = quant.require_unquantized(precision)
+    Quantized precisions round the network's output LLR plane onto the
+    int8 grid (``llr_quant_stage``; the network stays fp32) and decode on
+    the int8 datapath."""
+    p = quant.resolve_precision(precision)
     dev = resolve_device(device)
     cfg, modem = scenario.grid, scenario.modem
     dcfg = models.DeepRxConfig(
@@ -558,11 +636,13 @@ def build_deeprx(scenario: LinkScenario, *, params=None, channels: int = 32,
         cfft_stage(cfg), ls_che_stage(cfg, device=dev),
         deeprx_stage(cfg, modem, params, dcfg, device=dev),
     ]
+    if quant.is_quantized(p):
+        stages.append(llr_quant_stage(p))
     if scenario.code is not None:
-        stages.append(decode_stage(scenario))
+        stages.append(decode_stage(scenario, precision=p))
     return ReceiverPipeline(
-        f"deeprx/{scenario.name}", stages, scenario, params=params,
-        precision=p, device=dev,
+        f"deeprx{_precision_tag(p)}/{scenario.name}", stages, scenario,
+        params=params, precision=p, device=dev,
     )
 
 
@@ -578,8 +658,9 @@ def build_cevit(scenario: LinkScenario, *, params=None, d_model: int = 64,
     the card (the reference's ``fused`` switch is accepted and ignored, as
     in :func:`build_deeprx`); ``fused_rx`` serves the detect+demap tail
     through the fused detect+demap kernel.  ``params`` and ``seed`` as in
-    :func:`build_deeprx`.  Quantized precisions raise (not ported)."""
-    p = quant.require_unquantized(precision)
+    :func:`build_deeprx`.  Quantized precisions serve the detect+demap
+    tail's LLRs on the int8 grid and decode on the int8 datapath."""
+    p = quant.resolve_precision(precision)
     dev = resolve_device(device)
     cfg, modem = scenario.grid, scenario.modem
     mcfg = models.CEViTConfig(
@@ -591,14 +672,15 @@ def build_cevit(scenario: LinkScenario, *, params=None, d_model: int = 64,
         cevit_che_stage(cfg, params, mcfg, device=dev),
     ]
     if fused_rx:
-        stages.append(detect_stage(cfg, fused=True, modem=modem))
+        stages.append(detect_stage(cfg, fused=True, modem=modem,
+                                   precision=p))
     else:
-        stages += [detect_stage(cfg), demod_stage(cfg, modem)]
+        stages += [detect_stage(cfg), demod_stage(cfg, modem, precision=p)]
     if scenario.code is not None:
-        stages.append(decode_stage(scenario))
+        stages.append(decode_stage(scenario, precision=p))
     return ReceiverPipeline(
-        f"cevit/{scenario.name}", stages, scenario, params=params,
-        precision=p, device=dev,
+        f"cevit{_precision_tag(p)}/{scenario.name}", stages, scenario,
+        params=params, precision=p, device=dev,
     )
 
 

@@ -179,3 +179,110 @@ def test_neural_pipeline_on_card_matches_twins(dev, kind):
     torch.testing.assert_close(llr, llr_t, rtol=1e-3,
                                atol=1e-5 * float(llr_t.abs().max()))
     assert torch.equal(got["crc_ok"].cpu(), want["crc_ok"])
+
+
+# ---------------------------------------------------------------------------
+# SIC detect+demap and the int8 decoder
+# ---------------------------------------------------------------------------
+
+def _sic_case(name, dev, batch):
+    """(y, h, noise_var, modem) of ``batch`` slots of a registered grid."""
+    scn = scenarios.get_scenario(name)
+    slot = scn.make_batch(ofdm.make_generator(6, dev), batch)
+    y = torch.fft.fft(slot["y_time"], dim=2).contiguous()
+    return y, slot["h"][:, 0].contiguous(), slot["noise_var"], scn.modem
+
+
+def _hard(x_hat, modem):
+    """Each stream's nearest level index per axis (SIC's decisions)."""
+    lv = torch.tensor(modem.levels, device=x_hat.device)
+    parts = torch.stack([x_hat.real, x_hat.imag], -1) * math.sqrt(modem.norm)
+    return torch.argmin((parts[..., None] - lv) ** 2, dim=-1)
+
+
+def _assert_sic_matches_twin(out, out_t, modem):
+    """Built with -fmad=false, the kernel rounds where the twin does, so
+    its cancellation decisions must all agree; values within the CUDA
+    detect tolerances (LLRs rtol 1e-5, atol 1e-5), LLR signs equal."""
+    (x, nve, llr), (x_t, nve_t, llr_t) = out, out_t
+    assert torch.equal(_hard(x, modem), _hard(x_t, modem))
+    torch.testing.assert_close(x, x_t, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(nve, nve_t, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(llr, llr_t, rtol=1e-5, atol=1e-5)
+    assert torch.equal(torch.sign(llr), torch.sign(llr_t))
+
+
+@pytest.mark.parametrize("name", ["mimo4x4-qam16-mu-snr18",
+                                  "mimo2x2-qam16-r12-snr17",
+                                  "mimo4x8-qam64-snr24"])
+def test_sic_kernel_matches_twin(dev, name):
+    y, h, nv, modem = _sic_case(name, dev, 8)
+    n0 = _build.launches["sic_detect_demap"]
+    out = rx_fused.sic_detect_demap(y, h, nv, modem)
+    assert _build.launches["sic_detect_demap"] == n0 + 1
+    _assert_sic_matches_twin(out, rx_fused.sic_detect_demap_torch(
+        y, h, nv, modem), modem)
+
+
+def test_sic_kernel_ragged_batch(dev):
+    # 3 x 14 x 100 REs: the last block of 128 threads is partly idle
+    gen = ofdm.make_generator(8, dev)
+    cg = lambda *s: torch.complex(torch.randn(*s, generator=gen, device=dev),
+                                  torch.randn(*s, generator=gen, device=dev))
+    y, h = cg(3, 14, 100, 4), cg(3, 100, 4, 4)
+    nv = torch.tensor(0.05, device=dev)
+    modem = ofdm.make_modem("qam16")
+    _assert_sic_matches_twin(rx_fused.sic_detect_demap(y, h, nv, modem),
+                             rx_fused.sic_detect_demap_torch(y, h, nv, modem),
+                             modem)
+
+
+def _code_llrs(rate, n_cw, snr_db, dev, seed=7):
+    code = coding.make_code(rate)
+    gen = ofdm.make_generator(seed, dev)
+    bits = torch.randint(0, 2, (n_cw, code.k), generator=gen, device=dev)
+    tx = coding.rate_match(code, coding.encode(code, bits)).float()
+    s2 = 10.0 ** (-snr_db / 10.0)
+    y = (2 * tx - 1) + math.sqrt(s2) * torch.randn(tx.shape, generator=gen,
+                                                   device=dev)
+    return code, coding.derate_match(code, 2.0 * y / s2).contiguous()
+
+
+@pytest.mark.parametrize("rate,snr_db,gain,n_cw", [
+    ("r12", 3.0, 1.0, 216), ("r12", -6.0, 1.0, 216), ("r34", 6.0, 1.0, 216),
+    ("r34", -6.0, 1.0, 216), ("r12", 3.0, 8.0, 216),  # saturating
+    ("r34", 6.0, 1.0, 5),  # a ragged last block of codewords
+])
+def test_int8_ldpc_kernel_matches_twin_exactly(dev, rate, snr_db, gain,
+                                               n_cw):
+    code, llr = _code_llrs(rate, n_cw, snr_db, dev)
+    llr = llr * gain
+    before = dict(_build.launches)
+    post, iters = ldpc.ldpc_decode(llr, code, precision="int8")
+    assert _build.launches["ldpc_decode_q"] == \
+        before.get("ldpc_decode_q", 0) + 1
+    assert _build.launches["ldpc_decode"] == before.get("ldpc_decode", 0)
+    post_t, iters_t = ldpc.ldpc_decode_torch(llr, code, precision="int8")
+    assert torch.equal(iters, iters_t)
+    assert torch.equal(post, post_t)
+
+
+@pytest.mark.parametrize("name,kw,kernels", [
+    ("mimo4x4-qam16-mu-snr18", dict(fused=True, sic=True),
+     ("ls_che", "sic_detect_demap", "ldpc_decode")),
+    ("siso-qam16-r12-snr15", dict(fused=True, precision="int8"),
+     ("ls_che", "mmse_detect_demap", "ldpc_decode_q")),
+])
+def test_sic_and_int8_pipelines_on_card_match_twins(dev, name, kw, kernels):
+    scn = scenarios.get_scenario(name)
+    rx = link.build_classical(scn, device=dev, **kw)
+    slot = coding.make_coded_slot(ofdm.make_generator(3, dev), scn, 2)
+    _build.reset_launches()
+    got = rx.run(slot)
+    assert {k for k, n in _build.launches.items() if n > 0} == set(kernels)
+    cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
+    want = link.build_classical(scn, device="cpu", **kw).run(
+        {k: cpu(v) for k, v in slot.items()})
+    for k in ("crc_ok", "info_bits_hat", "decode_iters"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert int(((got["llr"].cpu() > 0) != (want["llr"] > 0)).sum()) <= 2

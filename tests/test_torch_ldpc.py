@@ -10,6 +10,12 @@ must be equal.  Posteriors: identical to the numpy oracle, and within
 posterior differs from both by a few ulps).  The CUDA kernel itself is
 checked against the twin on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``).
+
+The int8 datapath (``precision="int8"|"fp8"``) is integer arithmetic after
+the entry quantization, so its twin must equal the reference's jnp path
+and its Pallas kernel (interpret mode) bit for bit: posteriors and
+iteration counts, at the same operating points and at a saturating one
+(channel LLRs far beyond the +-20 clip).
 """
 import functools
 
@@ -124,11 +130,104 @@ def test_max_iters_and_cuda_contract():
     llr = _llrs("r12", 6, -6.0, seed=9)
     _, iters = _twin(llr, "r12", max_iters=3)
     assert (iters == 3).all()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ldpc.ldpc_decode(torch.from_numpy(llr), coding.make_code("r12"),
-                         precision="int8")
+    # the quantized precisions run the int8 twin on a CPU tensor
+    _, iters = ldpc.ldpc_decode(torch.from_numpy(llr),
+                                coding.make_code("r12"), max_iters=3,
+                                precision="int8")
+    assert (iters == 3).all()
     # the kernel takes one warp lane per lifted row: z == 32 only
     with pytest.raises(ValueError, match="z == 32"):
         ldpc.ldpc_decode_cuda(torch.zeros(1, 24 * 16),
                               coding.make_code("r12", z=16))
 
+
+
+# ---------------------------------------------------------------------------
+# the int8 datapath
+# ---------------------------------------------------------------------------
+
+def _twin_q(llr: np.ndarray, rate: str, precision: str = "int8"):
+    post, iters = ldpc.ldpc_decode(torch.from_numpy(llr),
+                                   coding.make_code(rate),
+                                   precision=precision)
+    return post.numpy(), iters.numpy()
+
+
+@pytest.fixture(scope="module")
+def jnp_runs_q():
+    """Per rate: the three operating points (16 codewords each) and a
+    saturating copy of the waterfall point (LLRs x 8, far beyond the
+    clip), decoded at int8 by the twin and by the jnp path in one call."""
+    out = {}
+    for rate in ("r12", "r34"):
+        pts = [_llrs(rate, 16, snr, seed=4) for r, snr, _ in _POINTS
+               if r == rate]
+        llr = np.concatenate(pts + [8.0 * pts[1]])
+        post_r, iters_r = ref_ldpc.ldpc_decode_jnp(
+            jnp.asarray(llr), ref_coding.make_code(rate), precision="int8")
+        out[rate] = (llr, _twin_q(llr, rate),
+                     (np.asarray(post_r), np.asarray(iters_r)))
+    return out
+
+
+@pytest.mark.parametrize("rate", ["r12", "r34"])
+@pytest.mark.parametrize("regime", ["entry", "typical", "never",
+                                    "saturating"])
+def test_int8_twin_matches_jnp_path_exactly(jnp_runs_q, rate, regime):
+    i = ["entry", "typical", "never", "saturating"].index(regime)
+    rows = slice(16 * i, 16 * (i + 1))
+    llr, (post, iters), (post_r, iters_r) = jnp_runs_q[rate]
+    assert np.array_equal(iters[rows], iters_r[rows])
+    assert np.array_equal(post[rows], post_r[rows])
+    step = np.float32(20.0 / 127.0)
+    if regime == "never":
+        assert (iters[rows] == 12).all()
+    if regime == "saturating":
+        # channel codes clip at +-127 and check messages saturate at the
+        # int8 range; the posterior of a column of degree d stays within
+        # 127 * (1 + d) codes, under the 12-bit clip at +-2047
+        assert np.abs(llr[rows]).max() > 20.0 * 4
+        codes = np.rint(post[rows] / step)
+        assert np.abs(codes).max() > 127
+        assert np.abs(codes).max() <= 2047
+
+
+def test_int8_and_fp8_share_one_datapath():
+    llr = _llrs("r34", 8, 5.5, seed=6)
+    post, iters = _twin_q(llr, "r34", "int8")
+    post8, iters8 = _twin_q(llr, "r34", "fp8")
+    assert np.array_equal(post, post8) and np.array_equal(iters, iters8)
+
+
+def test_int8_twin_matches_pallas_interpret_exactly():
+    llr = np.concatenate([_llrs("r12", 4, 3.5, seed=8),
+                          8.0 * _llrs("r12", 4, 3.5, seed=9)])
+    post, iters = _twin_q(llr, "r12")
+    post_p, iters_p = ref_ldpc.ldpc_decode_pallas(
+        jnp.asarray(llr), ref_coding.make_code("r12"), interpret=True,
+        precision="int8")
+    assert np.array_equal(iters, np.asarray(iters_p))
+    assert np.array_equal(post, np.asarray(post_p))
+
+
+def test_int8_sweep_saturates_like_reference():
+    """One layered sweep from integer states drawn across the whole
+    12-bit posterior range and the int8 message range: the posterior clip
+    at +-2047 and the message saturation match the reference's sweep (a
+    decode cannot reach the posterior clip from +-127 channel codes)."""
+    code = coding.make_code("r12")
+    rng = np.random.default_rng(10)
+    v = rng.integers(-2047, 2048, (code.n_b, code.z, 8), dtype=np.int32)
+    c2v = tuple(rng.integers(-127, 128, (len(e), code.z, 8), dtype=np.int32)
+                for e in code.layers())
+    got_v, got_c = ldpc._layered_iteration_q(
+        torch.from_numpy(v), tuple(map(torch.from_numpy, c2v)),
+        code.layers(), ldpc.DEFAULT_ALPHA)
+    want_v, want_c = ref_ldpc._layered_iteration_q(
+        jnp.asarray(v), tuple(map(jnp.asarray, c2v)),
+        ref_coding.make_code("r12").layers(), ref_ldpc.DEFAULT_ALPHA)
+    assert np.array_equal(got_v.numpy(), np.asarray(want_v))
+    assert np.abs(got_v.numpy()).max() == 2047
+    for g, w in zip(got_c, want_c):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+        assert np.abs(g.numpy()).max() == 127

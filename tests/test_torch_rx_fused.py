@@ -120,10 +120,13 @@ def test_ls_che_twin_matches_pallas_interpret():
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     y, h, nv = _detect_inputs(1, 1, "qpsk", seed=1, b=1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        rx_fused.mmse_detect_demap(torch.from_numpy(y), torch.from_numpy(h),
-                                   torch.tensor(nv), ofdm.make_modem("qpsk"),
-                                   precision="fp8")
+    # a quantized precision runs on the CPU and returns LLRs on the grid
+    *_, llr = rx_fused.mmse_detect_demap(
+        torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
+        ofdm.make_modem("qpsk"), precision="fp8")
+    codes = llr.numpy() / np.float32(20.0 / 127.0)
+    np.testing.assert_allclose(codes, np.rint(codes), atol=1e-3)
+    assert np.abs(codes).max() <= 127 + 1e-3
     # a CPU tensor never reaches a kernel launch: the CUDA entry checks
     # device, dtype and layout before anything else
     with pytest.raises(ValueError, match="CUDA"):
@@ -135,6 +138,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             torch.zeros(1, 14, 8, 3, dtype=torch.complex64),
             torch.zeros(1, 8, 3, 3, dtype=torch.complex64),
             torch.tensor(0.1), ofdm.make_modem("qpsk"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rx_fused.sic_detect_demap()
+    # SIC runs its plain twin on a CPU tensor, and its CUDA entry refuses
+    # CPU tensors like the joint one's
+    out = rx_fused.sic_detect_demap(torch.from_numpy(y), torch.from_numpy(h),
+                                    torch.tensor(nv), ofdm.make_modem("qpsk"))
+    assert [tuple(o.shape) for o in out] == [
+        (1, 14, _N_SC, 1), (1, 14, _N_SC, 1), (1, 14, _N_SC, 1, 2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        rx_fused.sic_detect_demap_cuda(
+            torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
+            ofdm.make_modem("qpsk"))
 

@@ -138,10 +138,15 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             link.build_classical(scn, fused=True)
     assert link.build_classical(scn, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        link.build_classical(scn, precision="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        link.build_classical(scn, sic=True, device="cpu")
+    # the quantized precisions and SIC build and run on the CPU
+    slot = coding.make_coded_slot(ofdm.make_generator(0, "cpu"), scn, 1)
+    for kw, name in (
+            (dict(precision="int8"), "classical@int8/siso-qpsk-r12-snr8"),
+            (dict(sic=True), "classical+sic/siso-qpsk-r12-snr8")):
+        rx = link.build_classical(scn, device="cpu", **kw)
+        assert rx.name == name and rx.device.type == "cpu"
+        assert tuple(rx.run(slot)["crc_ok"].shape) == \
+            (1, coding.codewords_per_slot(scn))
 
 
 @pytest.mark.parametrize("kind", ["deeprx", "cevit"])
@@ -158,5 +163,5 @@ def test_neural_builders_default_to_cuda(kind):
         with pytest.raises(RuntimeError, match="CUDA"):
             build(scn)
     assert build(scn, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build(scn, precision="int8", device="cpu")
+    rx = build(scn, precision="int8", device="cpu")
+    assert rx.name == f"{kind}@int8/{scn.name}" and rx.precision == "int8"
