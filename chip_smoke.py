@@ -7,7 +7,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 
 1. Device: the card's name and ``nvidia-smi`` name / power limit; TF32 is
    switched off for matmuls and cuDNN so every fp32 product is full fp32.
-2. Build: ``nvcc`` compiles the seven hand-written kernels, five
+2. Build: ``nvcc`` compiles the eleven hand-written kernels, nine
    sources, from ``src/repro_torch/csrc`` (one process per source, in
    parallel).
 3. Kernel vs plain twin, on the card, at the main paths' shapes:
@@ -17,15 +17,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``ldpc_decode`` and the int8 ``ldpc_decode_q`` (r12 and r34, 216
    codewords, at a converging and a non-converging SNR; int8 also at a
    saturating one), ``te_gemm`` (every GEMM shape of DeepRx and CE-ViT at
-   batch 8, every epilogue, a bf16 and a ragged case) and ``mha``
+   batch 8, every epilogue, a bf16 and a ragged case), ``mha``
    (CE-ViT's (32, 64, 16), (16, 256, 64) causal and not, bf16, ragged,
-   D = 128).
+   D = 128), ``te_gemm_quant`` (256^3 and DeepRx's block conv at int8 and
+   fp8, every epilogue, a ragged and a bf16-output case; the int8 product
+   with epilogue none or relu bit for bit), ``mha_quant`` ((4, 256, 64)
+   causal and CE-ViT's (32, 64, 16) at int8 and fp8, D = 128, ragged, a
+   bf16 output), ``fc_softmax`` (the paper's 512^3 FC block, the
+   reference's test shapes, a ragged row, bf16) and ``dwconv_block`` (the
+   paper's 32 x 16 x 512 -> 512 block, the reference's test shapes,
+   ragged C and F, bf16).
    Each kernel's time per call (CUDA events around the wrapper, so launch
    overhead included) and device time (CUPTI), its plain twin's time, a
    library yardstick's where one PyTorch call computes the same thing,
    and its bound (the larger of bytes at 3.35 TB/s and operations at the
-   peak for the operands' type: 67 TFLOP/s fp32, 989 TFLOP/s bf16) are
-   printed.
+   peak for the operands' type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 1,979
+   TOP/s int8 / fp8) are printed.
 4. Closed loops, each with the kernels' launch counts zeroed just before
    and read just after, jobs conserved exactly, and every kernel of the
    path launched: ``SlotScheduler("siso-coded", fused)`` for 50 TTIs and
@@ -48,7 +55,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    classical, CE-ViT, SIC and int8 paths run under ``torch.profiler`` for
    the device's busy and idle time and the split of device time by
    kernel.
-5. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
+5. The blocks path, with the launch counts zeroed just before and read
+   just after: the paper's three AI-PHY compute blocks (Fig. 10) at full
+   width, each through its sequential plan (separate ops; the FC GEMM on
+   ``te_gemm``) and its concurrent plan (the fused kernel) of
+   ``repro_torch.core.pool``: FC + softmax x (512, 512) @ (512, 512),
+   the depthwise-separable block x (1, 34, 18, 512) -> 512, MHA
+   (4, 128, 128) causal; then the quantized kernel-ops entry point at
+   int8 and fp8: ``ops.te_gemm_quant`` at 256^3 and DeepRx's block conv
+   (28,672 x 288 -> 32), ``ops.mha_quant`` at (4, 256, 64) causal and
+   CE-ViT's (32, 64, 16) full.  The two plans of each block must agree
+   within the reference's gates and with the plain twins, every
+   quantized op with its twin (the int8 GEMM bit for bit), and each of
+   ``fc_softmax``, ``dwconv_block``, ``mha``, ``te_gemm``,
+   ``te_gemm_quant`` and ``mha_quant`` must have launched.  The H100's
+   Fig. 10, each block's sequential and concurrent time, is printed, not
+   gated.
+6. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 and prints no result.
@@ -67,6 +90,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+Q8_OPS = 1979e12  # H100 SXM dense int8 / fp8 tensor cores
 
 
 def check(cond: bool, msg: str) -> None:
@@ -161,7 +185,8 @@ def profile_ticks(sch, n_ticks: int) -> dict:
 
 
 # per-case fields printed besides the times, where a check records them
-EXTRA_FIELDS = ("bit_exact", "joint_device_us", "max_abs_code", "iters_hist")
+EXTRA_FIELDS = ("bit_exact", "joint_device_us", "max_abs_code", "iters_hist",
+                "library_call")
 
 # each ported kernel: its source and the TPU kernel it replaces
 KERNELS = {
@@ -175,6 +200,12 @@ KERNELS = {
                       "src/repro/kernels/ldpc.py:304"),
     "te_gemm": ("te_gemm.cu", "src/repro/kernels/te_gemm.py:123"),
     "mha": ("mha.cu", "src/repro/kernels/mha.py:64"),
+    "te_gemm_quant": ("te_gemm_quant.cu",
+                      "src/repro/kernels/te_gemm.py:230"),
+    "mha_quant": ("mha_quant.cu", "src/repro/kernels/mha.py:172"),
+    "fc_softmax": ("fc_softmax.cu", "src/repro/kernels/fc_softmax.py:43"),
+    "dwconv_block": ("dwconv_block.cu",
+                     "src/repro/kernels/dwconv_block.py:60"),
 }
 
 # the device-side symbol of each ported kernel (for the CUPTI trace)
@@ -184,7 +215,11 @@ KERNEL_SYMBOLS = {"ls_che": "ls_che_kernel",
                   "ldpc_decode": "ldpc_minsum_kernel",
                   "ldpc_decode_q": "ldpc_minsum_q_kernel",
                   "te_gemm": "te_gemm_kernel",
-                  "mha": "mha_kernel"}
+                  "mha": "mha_kernel",
+                  "te_gemm_quant": "te_gemm_quant_kernel",
+                  "mha_quant": "mha_quant_kernel",
+                  "fc_softmax": "fc_softmax_kernel",
+                  "dwconv_block": "dwconv_block_kernel"}
 
 
 def bound(bytes_moved: float, flops: float,
@@ -579,6 +614,14 @@ def check_te_gemm(dev) -> list:
     return cases
 
 
+def _attention_flops(bh: int, sq: int, sk: int, d: int,
+                     causal: bool) -> float:
+    """The (query, key) pairs the mask keeps: 2 * D operations each for
+    q.k and for p.v, plus about 5 for the online softmax."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    return bh * pairs * (4.0 * d + 5.0)
+
+
 # (BH, Sq, Sk, D, causal, dtype name); the first row is CE-ViT's
 # attention at batch 8 (8 * 4 heads, 64 tokens of 16 dims)
 MHA_CASES = (
@@ -611,11 +654,7 @@ def check_mha(dev) -> list:
         want = mha.mha_torch(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = _hold(f"mha[{label}]", got, want, dtype)
-        # the (query, key) pairs this mask keeps: 2 * D operations each
-        # for q.k and for p.v, plus about 5 for the online softmax
-        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
-                 else sq * sk)
-        flops = bh * pairs * (4.0 * d + 5.0)
+        flops = _attention_flops(bh, sq, sk, d, causal)
         nbytes = q.element_size() * bh * d * (2 * sq + 2 * sk)
         bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
                         else BF16_FLOPS)
@@ -627,6 +666,252 @@ def check_mha(dev) -> list:
             plain_ms=time_ms(lambda: mha.mha_torch(q, k, v, causal=causal)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal)),
+            bound_ms=bms, bound_by=by,
+        ))
+    return cases
+
+
+def _gen(dev, seed: int):
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _quant_library(xq, wq, xs, ws, has_bias: bool, epilogue: str):
+    """(fn, label) of one PyTorch call computing the same product, or
+    (None, None): ``torch._scaled_mm`` with row-wise scales for e4m3 with
+    no epilogue (its row-wise scaling writes bf16 or fp16 only, so the
+    output is rounded to bf16), ``torch._int_mm`` for the int8 product
+    alone."""
+    import torch
+
+    if has_bias or epilogue != "none":
+        return None, None
+    w_cm = wq.t().contiguous().t()  # column-major, as cuBLASLt takes it
+    if xq.dtype == torch.int8:
+        return (lambda: torch._int_mm(xq, w_cm),
+                "torch._int_mm (product only)")
+    return (lambda: torch._scaled_mm(xq, w_cm, scale_a=xs, scale_b=ws,
+                                     out_dtype=torch.bfloat16),
+            "torch._scaled_mm (row-wise scales, bf16 output)")
+
+
+# (label, M, K, N, epilogue, bias, precision, output dtype name); the
+# first row is the blocks path's reported shape
+TE_GEMM_QUANT_CASES = (
+    ("256^3", 256, 256, 256, "none", False, "int8", "float32"),
+    ("256^3", 256, 256, 256, "relu", True, "int8", "float32"),
+    ("256^3", 256, 256, 256, "softmax", False, "int8", "float32"),
+    ("256^3", 256, 256, 256, "none", False, "fp8", "float32"),
+    ("256^3", 256, 256, 256, "relu", True, "fp8", "float32"),
+    ("256^3", 256, 256, 256, "softmax", False, "fp8", "float32"),
+    ("deeprx block conv2", 28672, 288, 32, "none", False, "int8",
+     "float32"),
+    ("deeprx block conv2", 28672, 288, 32, "none", False, "fp8", "float32"),
+    ("deeprx block conv1", 28672, 288, 32, "relu", True, "int8", "float32"),
+    ("ragged silu", 777, 100, 33, "silu", True, "int8", "float32"),
+    ("bf16 out", 512, 64, 128, "relu", True, "fp8", "bfloat16"),
+)
+
+
+def check_te_gemm_quant(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import te_gemm
+
+    cases = []
+    for label, m, k, n, epi, has_bias, prec, odt in TE_GEMM_QUANT_CASES:
+        out_dtype = getattr(torch, odt)
+        gen = _gen(dev, m + 7 * k + 13 * n)
+        x = torch.randn(m, k, generator=gen, device=dev)
+        w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+        b = (0.1 * torch.randn(n, generator=gen, device=dev)
+             if has_bias else None)
+        codes = te_gemm.quantize_gemm_operands(x, w, prec)
+        run = lambda: te_gemm.te_gemm_quantized(*codes, b, epilogue=epi,
+                                                out_dtype=out_dtype)
+        twin = lambda: te_gemm.te_gemm_quantized_torch(
+            *codes, b, epilogue=epi, out_dtype=out_dtype)
+        got, want = run(), twin()
+        torch.cuda.synchronize()
+        name = f"te_gemm_quant[{label} {prec} {epi}]"
+        exact = bool(torch.equal(got, want))
+        if prec == "int8" and epi in ("none", "relu") \
+                and out_dtype == torch.float32:
+            check(exact, f"{name} is not bit-exact against its twin")
+            tol = "bit-exact (int32 product, the twin's dequant order)"
+            err = 0.0
+        else:
+            err = _hold(name, got, want, out_dtype)
+            tol = _tolerance(out_dtype)[1]
+        nbytes = (m * k + k * n + 4 * (m + n) + (4 * n if has_bias else 0)
+                  + m * n * got.element_size())
+        bms, by = bound(nbytes, 2.0 * m * n * k, Q8_OPS)
+        lib, lib_label = _quant_library(*codes, has_bias, epi)
+        cases.append(dict(
+            shape=f"{label} ({m}x{k})@({k}x{n}) {epi}"
+                  f"{' +bias' if has_bias else ''} {prec} -> {odt}",
+            max_abs_err=err, tolerance=tol, bit_exact=exact,
+            ms=time_ms(run),
+            device_us=device_us(run, KERNEL_SYMBOLS["te_gemm_quant"]),
+            plain_ms=time_ms(twin),
+            library_ms=None if lib is None else time_ms(lib),
+            library_call=lib_label, bound_ms=bms, bound_by=by,
+        ))
+    return cases
+
+
+# (BH, Sq, Sk, D, causal, precision, output dtype name); the first row is
+# the blocks path's reported shape
+MHA_QUANT_CASES = (
+    (4, 256, 256, 64, True, "int8", "float32"),
+    (4, 256, 256, 64, True, "fp8", "float32"),
+    (32, 64, 64, 16, False, "int8", "float32"),
+    (32, 64, 64, 16, False, "fp8", "float32"),
+    (8, 200, 200, 128, True, "int8", "float32"),
+    (4, 70, 130, 32, False, "fp8", "float32"),
+    (16, 256, 256, 64, False, "int8", "bfloat16"),
+)
+
+
+def check_mha_quant(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import mha
+
+    cases = []
+    for bh, sq, sk, d, causal, prec, odt in MHA_QUANT_CASES:
+        out_dtype = getattr(torch, odt)
+        gen = _gen(dev, bh * sq + d)
+        q = torch.randn(bh, sq, d, generator=gen, device=dev)
+        k, v = (torch.randn(bh, sk, d, generator=gen, device=dev)
+                for _ in range(2))
+        codes = mha.quantize_mha_operands(q, k, v, prec)
+        run = lambda: mha.mha_quantized(*codes, causal=causal,
+                                        out_dtype=out_dtype)
+        twin = lambda: mha.mha_quantized_torch(*codes, causal=causal,
+                                               out_dtype=out_dtype)
+        label = (f"({bh}, {sq}, {sk}, {d}) "
+                 f"{'causal' if causal else 'full'} {prec} -> {odt}")
+        got = run()
+        err = _hold(f"mha_quant[{label}]", got, twin(), out_dtype)
+        nbytes = (bh * d * (sq + 2 * sk) + 12 * bh
+                  + bh * sq * d * got.element_size())
+        bms, by = bound(nbytes, _attention_flops(bh, sq, sk, d, causal),
+                        Q8_OPS)
+        cases.append(dict(
+            shape=label, max_abs_err=err, tolerance=_tolerance(out_dtype)[1],
+            ms=time_ms(run),
+            device_us=device_us(run, KERNEL_SYMBOLS["mha_quant"]),
+            plain_ms=time_ms(twin), library_ms=None,
+            bound_ms=bms, bound_by=by,
+        ))
+    return cases
+
+
+# (label, M, K, N, bias, dtype name); the first row is the paper's FC
+# block, the blocks path's shape
+FC_SOFTMAX_CASES = (
+    ("paper FC block", 512, 512, 512, True, "float32"),
+    ("reference test", 256, 384, 512, True, "float32"),
+    ("reference test", 128, 128, 512, True, "float32"),
+    ("ragged", 37, 45, 333, True, "float32"),
+    ("no bias", 512, 512, 100, False, "float32"),
+    ("paper FC block bf16", 512, 512, 512, True, "bfloat16"),
+)
+
+
+def check_fc_softmax(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import fc_softmax
+
+    cases = []
+    for label, m, k, n, has_bias, dt in FC_SOFTMAX_CASES:
+        dtype = getattr(torch, dt)
+        gen = _gen(dev, m + 3 * k + 5 * n)
+        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(k, n, generator=gen, device=dev)
+             / math.sqrt(k)).to(dtype)
+        b = ((0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+             if has_bias else None)
+        run = lambda: fc_softmax.fc_softmax(x, w, b)
+        twin = lambda: fc_softmax.fc_softmax_torch(x, w, b)
+        err = _hold(f"fc_softmax[{label} {m}x{k}x{n} {dt}]", run(), twin(),
+                    dtype)
+        item = x.element_size()
+        nbytes = item * (m * k + k * n + m * n + (n if has_bias else 0))
+        flops = 2.0 * m * n * k + 5.0 * m * n
+        bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
+                        else BF16_FLOPS)
+        library = ((lambda: torch.softmax(torch.addmm(b, x, w), dim=-1))
+                   if has_bias else
+                   (lambda: torch.softmax(torch.mm(x, w), dim=-1)))
+        cases.append(dict(
+            shape=f"{label} ({m}x{k})@({k}x{n}){' +bias' if has_bias else ''}"
+                  f" {dt}", max_abs_err=err, tolerance=_tolerance(dtype)[1],
+            ms=time_ms(run),
+            device_us=device_us(run, KERNEL_SYMBOLS["fc_softmax"]),
+            plain_ms=time_ms(twin), library_ms=time_ms(library),
+            library_call="torch.softmax(torch.addmm(...)) (two calls)",
+            bound_ms=bms, bound_by=by,
+        ))
+    return cases
+
+
+def _dw_operands(dev, b: int, h: int, w: int, c: int, f: int, dtype):
+    import torch
+
+    gen = _gen(dev, b + h * w + c + f)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return (r(b, h + 2, w + 2, c).to(dtype), 0.2 * r(3, 3, c),
+            r(c, f) / math.sqrt(c), 1.0 + 0.1 * r(f), 0.1 * r(f))
+
+
+# (label, B, H, W, C, F, dtype name); the first row is the paper's block,
+# the blocks path's shape
+DWCONV_CASES = (
+    ("paper block", 1, 32, 16, 512, 512, "float32"),
+    ("reference test", 2, 16, 8, 128, 128, "float32"),
+    ("reference test", 2, 32, 16, 256, 128, "float32"),
+    ("ragged", 3, 5, 7, 70, 100, "float32"),
+    ("paper block bf16", 1, 32, 16, 512, 512, "bfloat16"),
+)
+
+
+def _dw_bytes_flops(x, b, h, w, c, f, out_item) -> tuple:
+    nbytes = (x.element_size() * x.numel() + 4 * (9 * c + c * f + 2 * f)
+              + out_item * b * h * w * f)
+    flops = b * h * w * (18.0 * c + 2.0 * c * f + 8.0 * f)
+    return nbytes, flops
+
+
+def check_dwconv_block(dev) -> list:
+    import torch
+
+    from repro_torch.kernels import dwconv_block
+
+    cases = []
+    for label, b, h, w, c, f, dt in DWCONV_CASES:
+        dtype = getattr(torch, dt)
+        args = _dw_operands(dev, b, h, w, c, f, dtype)
+        run = lambda: dwconv_block.dwconv_block(*args)
+        twin = lambda: dwconv_block.dwconv_block_torch(*args)
+        got = run()
+        err = _hold(f"dwconv_block[{label} {b}x{h}x{w}x{c}->{f} {dt}]", got,
+                    twin(), dtype)
+        check(bool((got >= 0).all()), f"dwconv_block[{label}] not ReLU'd")
+        nbytes, flops = _dw_bytes_flops(args[0], b, h, w, c, f,
+                                        got.element_size())
+        bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
+                        else BF16_FLOPS)
+        cases.append(dict(
+            shape=f"{label} B={b} {h}x{w}x{c} -> {f} {dt}", max_abs_err=err,
+            tolerance=_tolerance(dtype)[1], ms=time_ms(run),
+            device_us=device_us(run, KERNEL_SYMBOLS["dwconv_block"]),
+            plain_ms=time_ms(twin), library_ms=None,
             bound_ms=bms, bound_by=by,
         ))
     return cases
@@ -781,6 +1066,146 @@ def sic_vs_lmmse(sch, dev) -> dict:
             "lmmse_crc_pass": float(joint["crc_ok"].float().mean())}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the paper's compute blocks and the quantized ops
+# ---------------------------------------------------------------------------
+
+BLOCKS = "fig10 blocks + quantized ops"
+# the kernels the blocks path runs: the concurrent plans' fused kernels,
+# the FC sequential plan's GEMM, and the quantized ops
+BLOCKS_NEEDS = ("fc_softmax", "dwconv_block", "mha", "te_gemm",
+                "te_gemm_quant", "mha_quant")
+# each block: (label, plan name, reference gate between its two plans)
+FIG10 = (
+    ("FC + softmax (512x512)@(512x512)", "fc_softmax",
+     dict(rtol=2e-4, atol=1e-5)),
+    ("dwconv block (1, 34, 18, 512) -> 512", "dwconv",
+     dict(rtol=5e-4, atol=5e-4)),
+    ("MHA (4, 128, 128) causal", "mha", dict(rtol=2e-5, atol=2e-5)),
+)
+
+
+def _blocks_operands(dev) -> dict:
+    import torch
+
+    gen = _gen(dev, 10)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    return {
+        "fc_softmax": (r(512, 512), r(512, 512) / math.sqrt(512),
+                       0.1 * r(512)),
+        "dwconv": _dw_operands(dev, 1, 32, 16, 512, 512, torch.float32),
+        "mha": (r(4, 128, 128), r(4, 128, 128), r(4, 128, 128)),
+        # (x, w, bias): 256^3, and DeepRx's block conv as a quantized
+        # receiver would run it
+        "gemm": [(r(256, 256), r(256, 256) / 16.0, 0.1 * r(256)),
+                 (r(28672, 288), r(288, 32) / math.sqrt(288),
+                  0.1 * r(32))],
+        # (q, k, v, causal)
+        "attention": [(r(4, 256, 64), r(4, 256, 64), r(4, 256, 64), True),
+                      (r(32, 64, 16), r(32, 64, 16), r(32, 64, 16),
+                       False)],
+    }
+
+
+def drive_blocks(dev, ops_in: dict) -> tuple:
+    """The blocks path once, with the launch counts zeroed just before and
+    read just after: each block's two plans, then every quantized op at
+    int8 and fp8.  Returns (plan outputs, quantized outputs, launches)."""
+    import torch
+
+    from repro_torch.core import pool
+    from repro_torch.kernels import _build, ops
+
+    _build.reset_launches()
+    plans = {}
+    for _, block, _ in FIG10:
+        kw = {"causal": True} if block == "mha" else {}
+        plans[block] = tuple(getattr(pool, f"{block}_{plan}")(
+            *ops_in[block], **kw) for plan in ("sequential", "concurrent"))
+    quantized = []
+    for prec in ("int8", "fp8"):
+        for x, w, b in ops_in["gemm"]:
+            quantized.append((("gemm", prec, x, w, b),
+                              ops.te_gemm_quant(x, w, b, precision=prec)))
+        for q, k, v, causal in ops_in["attention"]:
+            quantized.append((("attention", prec, q, k, v, causal),
+                              ops.mha_quant(q, k, v, precision=prec,
+                                            causal=causal)))
+    torch.cuda.synchronize()
+    return plans, quantized, dict(_build.launches)
+
+
+def check_blocks(ops_in: dict, plans: dict, quantized: list) -> dict:
+    """Each block's plans agree within the reference's gate and with the
+    plain twins; each quantized op agrees with its twin (the int8 GEMM
+    bit for bit)."""
+    import torch
+
+    from repro_torch.kernels import dwconv_block, fc_softmax, mha, te_gemm
+
+    twins = {"fc_softmax": fc_softmax.fc_softmax_torch,
+             "dwconv": dwconv_block.dwconv_block_torch,
+             "mha": lambda q, k, v: mha.mha_torch(q, k, v, causal=True)}
+    errs = {}
+    for label, block, gate in FIG10:
+        seq, con = plans[block]
+        check(bool(torch.isfinite(con).all()), f"{label}: non-finite")
+        check(torch.allclose(seq, con, **gate),
+              f"{label}: sequential and concurrent plans disagree "
+              f"(max err {float((seq - con).abs().max())})")
+        errs[block] = _hold(label, con, twins[block](*ops_in[block]),
+                            torch.float32)
+    for (kind, prec, *args), got in quantized:
+        if kind == "gemm":
+            x, w, b = args
+            want = te_gemm.te_gemm_quant_torch(x, w, b, precision=prec)
+            if prec == "int8":
+                check(torch.equal(got, want), f"ops.te_gemm_quant int8 "
+                      f"{tuple(x.shape)}x{tuple(w.shape)} not bit-exact")
+            label = f"te_gemm_quant {prec} {tuple(x.shape)}@{tuple(w.shape)}"
+        else:
+            q, k, v, causal = args
+            want = mha.mha_quant_torch(q, k, v, precision=prec,
+                                       causal=causal)
+            label = f"mha_quant {prec} {tuple(q.shape)}"
+        errs[label] = _hold(label, got, want, torch.float32)
+    return errs
+
+
+def device_total_us(fn, reps: int = 20):
+    """Mean device microseconds per call of ``fn``, every kernel it
+    launches summed (CUPTI); None when the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    return sum(us for _, us in events) / reps if events else None
+
+
+def fig10(ops_in: dict) -> list:
+    """The H100's Fig. 10: each block's sequential and concurrent plan,
+    time per call (CUDA events) and device time (CUPTI, all kernels)."""
+    from repro_torch.core import pool
+
+    rows = []
+    for label, block, _ in FIG10:
+        kw = {"causal": True} if block == "mha" else {}
+        row = {"block": label}
+        for plan in ("sequential", "concurrent"):
+            fn = getattr(pool, f"{block}_{plan}")
+            call = lambda: fn(*ops_in[block], **kw)
+            row[f"{plan}_ms"] = time_ms(call)
+            row[f"{plan}_device_us"] = device_total_us(call)
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -813,7 +1238,11 @@ def main() -> int:
                      ("ldpc_decode", check_ldpc),
                      ("ldpc_decode_q", check_ldpc_q),
                      ("te_gemm", check_te_gemm),
-                     ("mha", check_mha)):
+                     ("mha", check_mha),
+                     ("te_gemm_quant", check_te_gemm_quant),
+                     ("mha_quant", check_mha_quant),
+                     ("fc_softmax", check_fc_softmax),
+                     ("dwconv_block", check_dwconv_block)):
         results[name] = fn(dev)
         for c in results[name]:
             lib = ("-" if c["library_ms"] is None
@@ -856,10 +1285,25 @@ def main() -> int:
             prof = profile_ticks(sch, 10)
             print(f"profiled {label} ticks: {json.dumps(prof)}", flush=True)
 
+    ops_in = _blocks_operands(dev)
+    plans, quantized, launches = drive_blocks(dev, ops_in)
+    by_path[BLOCKS] = launches
+    print(f"path {BLOCKS}: launches {launches}", flush=True)
+    for k in BLOCKS_NEEDS:
+        check(launches.get(k, 0) > 0, f"{k} never launched on {BLOCKS}")
+    print(f"{BLOCKS} vs twins, max abs err: "
+          f"{json.dumps(check_blocks(ops_in, plans, quantized))}",
+          flush=True)
+    for row in fig10(ops_in):
+        print(f"fig10 (not gated): {json.dumps(row)}", flush=True)
+
+    needs_by_path = {label: needs for label, *_, needs in PATHS}
+    needs_by_path[BLOCKS] = BLOCKS_NEEDS
     kernels = []
     for name, cases in results.items():
         head = cases[0]  # the main path's shape
-        first = next(label for label, *_, needs in PATHS if name in needs)
+        first = next(label for label, needs in needs_by_path.items()
+                     if name in needs)
         source, replaces = KERNELS[name]
         kernels.append(dict(
             name=name, route="cuda",

@@ -1,4 +1,9 @@
 """kernels of the PyTorch/CUDA port (see the package docstring): the
 fused classical-receiver kernels (:mod:`.rx_fused`), the LDPC decoder
-(:mod:`.ldpc`), the TE GEMM (:mod:`.te_gemm`) and flash attention
-(:mod:`.mha`), each a hand-written CUDA kernel beside its plain twin."""
+(:mod:`.ldpc`), the TE GEMM and its quantized form (:mod:`.te_gemm`),
+flash attention and its quantized form (:mod:`.mha`), fused FC + softmax
+(:mod:`.fc_softmax`) and the depthwise-separable conv block
+(:mod:`.dwconv_block`), each a hand-written CUDA kernel beside its plain
+twin.  :mod:`.ops` holds their public wrappers and :mod:`.ref` the plain
+oracles of the paper's compute blocks."""
+from repro_torch.kernels import ops, ref, rx_fused

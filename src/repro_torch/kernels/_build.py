@@ -31,14 +31,22 @@ NVCC_FLAGS = (
 )
 # per-source flags.  -fmad=false: no multiply-add contraction, so the
 # bit-exact kernels round every product and sum where their plain PyTorch
-# twins do; the GEMM and attention kernels claim no bit-exactness (their
-# sums run in another order than any library's) and keep FMA
+# twins do (the quantized GEMM's int8 path is exact: integer products,
+# then the twin's dequant multiplies and bias add one by one); the other
+# GEMM, attention and block kernels claim no bit-exactness (their sums
+# run in another order than any library's) and keep FMA.  Each source's
+# key is also the launch counter of its kernel, except detect_demap and
+# ldpc_minsum, which hold two kernels each.
 SOURCE_FLAGS = {
     "ls_che": ("-fmad=false",),
     "detect_demap": ("-fmad=false",),
     "ldpc_minsum": ("-fmad=false",),
     "te_gemm": (),
     "mha": (),
+    "te_gemm_quant": ("-fmad=false",),
+    "mha_quant": (),
+    "fc_softmax": (),
+    "dwconv_block": (),
 }
 SOURCES = tuple(SOURCE_FLAGS)
 

@@ -6,8 +6,15 @@ output in q's dtype.
 :func:`mha` runs the plain PyTorch twin (:func:`mha_torch`, the reference
 oracle's arithmetic) only because the tensor it was given lies on the CPU;
 on a CUDA tensor it launches ``csrc/mha.cu`` (online softmax over key
-tiles, scores never in device memory) or raises.  The quantized
-``mha_quant`` is not ported yet (ROADMAP queue 1).
+tiles, scores never in device memory) or raises.
+
+The quantized attention (``mha_quant`` of the reference) splits as the
+reference's does: :func:`quantize_mha_operands` (torch ops: int8 / e4m3
+codes with one fp32 scale per (batch*head) row), then
+:func:`mha_quantized` on the codes, which launches ``csrc/mha_quant.cu``
+on a CUDA tensor and runs :func:`mha_quantized_torch` on a CPU one.
+:func:`mha_quant` is the two in a row; :func:`mha_quant_torch` is the
+twin of the reference's ``mha_quant_jnp``.
 """
 from __future__ import annotations
 
@@ -15,11 +22,24 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, quant
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instances
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
+
+
+def _softmax_pv(s: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+    """fp32 scores (BH, Sq, Sk), masked (q_pos >= k_pos) where causal,
+    softmaxed over the keys, times fp32 v."""
+    if causal:
+        sq, sk = s.shape[1], s.shape[2]
+        keep = (torch.arange(sq, device=s.device)[:, None]
+                >= torch.arange(sk, device=s.device)[None, :])
+        s = torch.where(keep, s, NEG_INF)
+    return torch.softmax(s, dim=-1) @ v
 
 
 def mha_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -28,13 +48,7 @@ def mha_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = q.shape[-1]
     s = (q.to(torch.float32) * d ** -0.5) @ k.to(torch.float32).transpose(
         -1, -2)
-    if causal:
-        sq, sk = q.shape[1], k.shape[1]
-        keep = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(sk, device=q.device)[None, :])
-        s = torch.where(keep, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return (p @ v.to(torch.float32)).to(q.dtype)
+    return _softmax_pv(s, v.to(torch.float32), causal).to(q.dtype)
 
 
 def _lib():
@@ -83,3 +97,119 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return mha_torch(q, k, v, causal=causal)
     return mha_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                     causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# quantized path (int8 / e4m3 q, k, v; dequant on load; fp32 softmax)
+# ---------------------------------------------------------------------------
+
+def quantize_mha_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          precision: str):
+    """-> (qq, kq, vq, qs, ks, vs): codes with one fp32 scale per
+    (batch*head) row, shape (BH, 1).  A softmax row mixes every position
+    of one head, so the scale is uniform along S and D."""
+    qq, qs = quant.quantize(q, precision, axis=(1, 2))
+    kq, ks = quant.quantize(k, precision, axis=(1, 2))
+    vq, vs = quant.quantize(v, precision, axis=(1, 2))
+    to2d = lambda s: s.reshape(s.shape[0], 1)
+    return qq, kq, vq, to2d(qs), to2d(ks), to2d(vs)
+
+
+def mha_quantized_torch(qq: torch.Tensor, kq: torch.Tensor,
+                        vq: torch.Tensor, qs: torch.Tensor, ks: torch.Tensor,
+                        vs: torch.Tensor, *, causal: bool = True,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """Plain twin on the codes: q dequantized as ``q * (qs * ks *
+    D**-0.5)``, the whole score matrix against the k codes, softmax in
+    fp32, times the v codes, scaled by vs."""
+    d = qq.shape[-1]
+    qf = qq.to(torch.float32) * (qs * ks * d ** -0.5)[..., None]
+    s = qf @ kq.to(torch.float32).transpose(-1, -2)
+    out = _softmax_pv(s, vq.to(torch.float32), causal)
+    return (out * vs[..., None]).to(out_dtype)
+
+
+def _quant_lib():
+    fn = _build.library("mha_quant").mha_quant_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mha_quantized_cuda(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                       qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor,
+                       *, causal: bool = True,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """Launch ``csrc/mha_quant.cu``: one block per (bh, 64-row query
+    tile)."""
+    if qq.ndim != 3 or kq.ndim != 3 or tuple(kq.shape) != tuple(vq.shape) \
+            or kq.shape[0] != qq.shape[0] or kq.shape[2] != qq.shape[2]:
+        raise ValueError(f"mha_quant: q {tuple(qq.shape)}, k "
+                         f"{tuple(kq.shape)}, v {tuple(vq.shape)} are not "
+                         f"(BH, Sq, D), (BH, Sk, D)")
+    bh, sq, d = qq.shape
+    sk = kq.shape[1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"mha_quant kernel has no instance for D={d}; "
+                         f"instances: {HEAD_DIMS}")
+    if min(bh, sq, sk) == 0:
+        raise ValueError(f"mha_quant: empty operand {tuple(qq.shape)}, "
+                         f"{tuple(kq.shape)}")
+    if qq.dtype not in _QTYPE_CODE:
+        raise TypeError(f"mha_quant kernel takes int8 or float8_e4m3fn "
+                        f"codes, got {qq.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"mha_quant kernel writes float32 or bfloat16, not "
+                        f"{out_dtype}")
+    for name, s in (("qs", qs), ("ks", ks), ("vs", vs)):
+        if tuple(s.shape) != (bh, 1):
+            raise ValueError(f"mha_quant: {name} {tuple(s.shape)} != "
+                             f"({bh}, 1)")
+    _build.require_cuda("mha_quant", qq=(qq, qq.dtype), kq=(kq, qq.dtype),
+                        vq=(vq, qq.dtype), qs=(qs, torch.float32),
+                        ks=(ks, torch.float32), vs=(vs, torch.float32))
+    out = torch.empty((bh, sq, d), dtype=out_dtype, device=qq.device)
+    err = _quant_lib()(
+        qq.data_ptr(), kq.data_ptr(), vq.data_ptr(), qs.data_ptr(),
+        ks.data_ptr(), vs.data_ptr(), out.data_ptr(), bh, sq, sk, d,
+        int(causal), d ** -0.5, _QTYPE_CODE[qq.dtype],
+        _DTYPE_CODE[out_dtype], _build.stream_of(qq))
+    _build.launches["mha_quant"] += 1
+    _build.check(err, "mha_quant")
+    return out
+
+
+def mha_quantized(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
+                  qs: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor, *,
+                  causal: bool = True,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Quantized attention on codes (the reference's ``pallas_call``
+    operands): the CUDA kernel on a CUDA tensor (laid out contiguously
+    first), the plain twin on a CPU tensor."""
+    if qq.device.type == "cpu":
+        return mha_quantized_torch(qq, kq, vq, qs, ks, vs, causal=causal,
+                                   out_dtype=out_dtype)
+    return mha_quantized_cuda(
+        *(t.contiguous() for t in (qq, kq, vq, qs, ks, vs)), causal=causal,
+        out_dtype=out_dtype)
+
+
+def mha_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              precision: str = "int8", causal: bool = True) -> torch.Tensor:
+    """Attention over int8 / e4m3 q, k, v: quantize (torch ops on q's
+    device), then :func:`mha_quantized`.  Output in q's dtype."""
+    ops = quantize_mha_operands(q, k, v, precision)
+    return mha_quantized(*ops, causal=causal, out_dtype=q.dtype)
+
+
+def mha_quant_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    precision: str = "int8",
+                    causal: bool = True) -> torch.Tensor:
+    """Plain twin of :func:`mha_quant` (the reference's ``mha_quant_jnp``)
+    on any device."""
+    ops = quantize_mha_operands(q, k, v, precision)
+    return mha_quantized_torch(*ops, causal=causal, out_dtype=q.dtype)

@@ -7,8 +7,17 @@ row softmax over the whole output row.
 reference oracle's arithmetic) only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches ``csrc/te_gemm.cu`` (a tiled
 fp32 SIMT GEMM that masks its own edges, so every shape works with no
-padding) or raises.  The quantized ``te_gemm_quant`` is not ported yet
-(ROADMAP queue 1).
+padding) or raises.
+
+The quantized GEMM (``te_gemm_quant`` of the reference) splits as the
+reference's does: :func:`quantize_gemm_operands` (torch ops on the
+operands' device: per-row int8 / e4m3 codes of x, per-column of w, fp32
+scales), then :func:`te_gemm_quantized` on the codes, which launches
+``csrc/te_gemm_quant.cu`` on a CUDA tensor (int8 products summed exactly
+in int32 by ``__dp4a``, e4m3 dequantized on load into fp32) and runs
+:func:`te_gemm_quantized_torch` on a CPU one.  :func:`te_gemm_quant` is
+the two in a row; :func:`te_gemm_quant_torch` is the twin of the
+reference's ``te_gemm_quant_jnp``.
 """
 from __future__ import annotations
 
@@ -17,18 +26,18 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, quant
 
 EPILOGUES = ("none", "relu", "silu", "softmax")
-SOFTMAX_MAX_N = 256  # the widest row one block of the kernel holds
+SOFTMAX_MAX_N = 256  # the widest row one block of either kernel holds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
 
 
-def te_gemm_torch(x: torch.Tensor, w: torch.Tensor,
-                  bias: Optional[torch.Tensor] = None, *,
-                  epilogue: str = "none") -> torch.Tensor:
-    """Plain twin: fp32 product, + bias, epilogue, cast to x's dtype."""
-    z = x.to(torch.float32) @ w.to(torch.float32)
+def _epilogue(z: torch.Tensor, bias: Optional[torch.Tensor],
+              epilogue: str) -> torch.Tensor:
+    """fp32 ``z`` + bias, then the activation, as the reference's kernels
+    apply them."""
     if bias is not None:
         z = z + bias.to(torch.float32)
     if epilogue == "relu":
@@ -37,7 +46,15 @@ def te_gemm_torch(x: torch.Tensor, w: torch.Tensor,
         z = z * torch.sigmoid(z)
     elif epilogue == "softmax":
         z = torch.softmax(z, dim=-1)
-    return z.to(x.dtype)
+    return z
+
+
+def te_gemm_torch(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  epilogue: str = "none") -> torch.Tensor:
+    """Plain twin: fp32 product, + bias, epilogue, cast to x's dtype."""
+    z = x.to(torch.float32) @ w.to(torch.float32)
+    return _epilogue(z, bias, epilogue).to(x.dtype)
 
 
 def _lib():
@@ -95,3 +112,137 @@ def te_gemm(x: torch.Tensor, w: torch.Tensor,
     return te_gemm_cuda(x.contiguous(), w.contiguous(),
                         None if bias is None else bias.contiguous(),
                         epilogue=epilogue)
+
+
+# ---------------------------------------------------------------------------
+# quantized path (int8 / e4m3 codes, exact int32 or fp32 accumulate,
+# dequant epilogue)
+# ---------------------------------------------------------------------------
+
+def quantize_gemm_operands(x: torch.Tensor, w: torch.Tensor,
+                           precision: str):
+    """-> (xq, wq, xs (M, 1), ws (1, N)): per-row codes of x and
+    per-column codes of w with their fp32 scales, so each output element
+    sees one (xs, ws) pair and the dequantization is exact with respect
+    to the grid."""
+    xq, xs = quant.quantize(x, precision, axis=1)
+    wq, ws = quant.quantize(w, precision, axis=0)
+    return xq, wq, xs, ws
+
+
+def te_gemm_quantized_torch(xq: torch.Tensor, wq: torch.Tensor,
+                            xs: torch.Tensor, ws: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None, *,
+                            epilogue: str = "none",
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """Plain twin on the codes: the exact integer product for int8 (in
+    float64, where every partial sum of 8-bit products is an exact
+    integer, so its rounding to fp32 is the int32 accumulator's), the fp32
+    product of the e4m3 values otherwise; then ``acc * xs * ws``, + bias
+    and the activation in fp32, cast to ``out_dtype``."""
+    if xq.dtype == torch.int8:
+        acc = (xq.to(torch.float64) @ wq.to(torch.float64)).to(
+            torch.float32)
+    else:
+        acc = xq.to(torch.float32) @ wq.to(torch.float32)
+    return _epilogue(acc * xs * ws, bias, epilogue).to(out_dtype)
+
+
+def _quant_lib():
+    fn = _build.library("te_gemm_quant").te_gemm_quant_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def te_gemm_quantized_cuda(xq: torch.Tensor, wq: torch.Tensor,
+                           xs: torch.Tensor, ws: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None, *,
+                           epilogue: str = "none",
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """Launch ``csrc/te_gemm_quant.cu``: one block per output tile."""
+    if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
+        raise ValueError(f"te_gemm_quant: xq {tuple(xq.shape)} @ wq "
+                         f"{tuple(wq.shape)} is not (M, K) @ (K, N)")
+    m, k = xq.shape
+    n = wq.shape[1]
+    if min(m, n, k) == 0:
+        raise ValueError(f"te_gemm_quant: empty operand ({m}, {k}) @ "
+                         f"({k}, {n})")
+    if xq.dtype not in _QTYPE_CODE:
+        raise TypeError(f"te_gemm_quant kernel takes int8 or float8_e4m3fn "
+                        f"codes, got {xq.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"te_gemm_quant kernel writes float32 or bfloat16, "
+                        f"not {out_dtype}")
+    if tuple(xs.shape) != (m, 1) or tuple(ws.shape) != (1, n):
+        raise ValueError(f"te_gemm_quant: scales {tuple(xs.shape)}, "
+                         f"{tuple(ws.shape)} are not ({m}, 1), (1, {n})")
+    if epilogue == "softmax" and n > SOFTMAX_MAX_N:
+        raise ValueError(f"te_gemm_quant row-softmax needs the row in one "
+                         f"block: N={n} > {SOFTMAX_MAX_N}")
+    args = dict(xq=(xq, xq.dtype), wq=(wq, xq.dtype),
+                xs=(xs, torch.float32), ws=(ws, torch.float32))
+    if bias is not None:
+        if tuple(bias.shape) != (n,):
+            raise ValueError(f"te_gemm_quant: bias {tuple(bias.shape)} != "
+                             f"({n},)")
+        args["bias"] = (bias, torch.float32)
+    _build.require_cuda("te_gemm_quant", **args)
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    err = _quant_lib()(
+        xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
+        EPILOGUES.index(epilogue), _QTYPE_CODE[xq.dtype],
+        _DTYPE_CODE[out_dtype], _build.stream_of(xq))
+    _build.launches["te_gemm_quant"] += 1
+    _build.check(err, "te_gemm_quant")
+    return out
+
+
+def te_gemm_quantized(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
+                      ws: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      *, epilogue: str = "none",
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """The quantized GEMM on codes (the reference's ``pallas_call``
+    operands): the CUDA kernel on a CUDA tensor (operands laid out
+    contiguously, the bias in fp32), the plain twin on a CPU tensor."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; have {EPILOGUES}")
+    if xq.device.type == "cpu":
+        return te_gemm_quantized_torch(xq, wq, xs, ws, bias,
+                                       epilogue=epilogue,
+                                       out_dtype=out_dtype)
+    return te_gemm_quantized_cuda(
+        xq.contiguous(), wq.contiguous(), xs.contiguous(), ws.contiguous(),
+        None if bias is None else bias.to(torch.float32).contiguous(),
+        epilogue=epilogue, out_dtype=out_dtype)
+
+
+def te_gemm_quant(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  precision: str = "int8", epilogue: str = "none",
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``epi(x @ w + bias)`` over int8 / e4m3 operands: quantize (torch
+    ops on x's device), then :func:`te_gemm_quantized`.  Output in
+    ``out_dtype`` (default x's dtype)."""
+    xq, wq, xs, ws = quantize_gemm_operands(x, w, precision)
+    return te_gemm_quantized(xq, wq, xs, ws, bias, epilogue=epilogue,
+                             out_dtype=out_dtype or x.dtype)
+
+
+def te_gemm_quant_torch(x: torch.Tensor, w: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None, *,
+                        precision: str = "int8", epilogue: str = "none",
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """Plain twin of :func:`te_gemm_quant` (the reference's
+    ``te_gemm_quant_jnp``) on any device."""
+    xq, wq, xs, ws = quantize_gemm_operands(x, w, precision)
+    return te_gemm_quantized_torch(xq, wq, xs, ws, bias, epilogue=epilogue,
+                                   out_dtype=out_dtype or x.dtype)

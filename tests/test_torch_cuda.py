@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from repro_torch.common.params import tree_map
-from repro_torch.kernels import _build, ldpc, mha, rx_fused, te_gemm
+from repro_torch.core import pool
+from repro_torch.kernels import (_build, dwconv_block, fc_softmax, ldpc, mha,
+                                 ops, rx_fused, te_gemm)
 from repro_torch.phy import coding, link, ofdm, scenarios
 
 pytestmark = pytest.mark.cuda
@@ -286,3 +288,148 @@ def test_sic_and_int8_pipelines_on_card_match_twins(dev, name, kw, kernels):
     for k in ("crc_ok", "info_bits_hat", "decode_iters"):
         assert torch.equal(got[k].cpu(), want[k]), k
     assert int(((got["llr"].cpu() > 0) != (want["llr"] > 0)).sum()) <= 2
+
+
+# ---------------------------------------------------------------------------
+# the paper's compute blocks and the quantized ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n,epilogue,bias,precision,out_dtype", [
+    (256, 256, 256, "none", False, "int8", torch.float32),
+    (256, 256, 256, "relu", True, "int8", torch.float32),
+    (256, 256, 256, "softmax", False, "int8", torch.float32),
+    (256, 256, 256, "none", False, "fp8", torch.float32),
+    (256, 256, 256, "softmax", True, "fp8", torch.float32),
+    (28672, 288, 32, "none", True, "int8", torch.float32),  # DeepRx conv
+    (28672, 288, 32, "relu", True, "fp8", torch.float32),
+    (777, 100, 33, "silu", True, "int8", torch.float32),     # ragged
+    (512, 64, 128, "relu", True, "fp8", torch.bfloat16),
+])
+def test_te_gemm_quant_kernel_matches_twin(dev, m, k, n, epilogue, bias,
+                                           precision, out_dtype):
+    gen = ofdm.make_generator(m + k + n, dev)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    w = torch.randn(k, n, generator=gen, device=dev) / k ** 0.5
+    b = 0.1 * torch.randn(n, generator=gen, device=dev) if bias else None
+    codes = te_gemm.quantize_gemm_operands(x, w, precision)
+    n0 = _build.launches["te_gemm_quant"]
+    got = te_gemm.te_gemm_quantized(*codes, b, epilogue=epilogue,
+                                    out_dtype=out_dtype)
+    assert _build.launches["te_gemm_quant"] == n0 + 1
+    assert got.dtype == out_dtype and tuple(got.shape) == (m, n)
+    want = te_gemm.te_gemm_quantized_torch(*codes, b, epilogue=epilogue,
+                                           out_dtype=out_dtype)
+    if precision == "int8" and epilogue in ("none", "relu") and \
+            out_dtype == torch.float32:
+        assert torch.equal(got, want)  # exact product, the twin's order
+    else:
+        _close(got, want, 1e-4 if out_dtype == torch.float32
+               else _BF16_RTOL)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,precision,out_dtype", [
+    (4, 256, 256, 64, True, "int8", torch.float32),
+    (4, 256, 256, 64, True, "fp8", torch.float32),
+    (32, 64, 64, 16, False, "int8", torch.float32),  # CE-ViT
+    (8, 200, 200, 128, True, "fp8", torch.float32),  # ragged tiles
+    (4, 70, 130, 32, False, "int8", torch.float32),
+    (16, 256, 256, 64, False, "int8", torch.bfloat16),
+])
+def test_mha_quant_kernel_matches_twin(dev, bh, sq, sk, d, causal,
+                                       precision, out_dtype):
+    gen = ofdm.make_generator(bh + sq + d, dev)
+    q = torch.randn(bh, sq, d, generator=gen, device=dev)
+    k, v = (torch.randn(bh, sk, d, generator=gen, device=dev)
+            for _ in range(2))
+    codes = mha.quantize_mha_operands(q, k, v, precision)
+    n0 = _build.launches["mha_quant"]
+    got = mha.mha_quantized(*codes, causal=causal, out_dtype=out_dtype)
+    assert _build.launches["mha_quant"] == n0 + 1
+    assert got.dtype == out_dtype and tuple(got.shape) == (bh, sq, d)
+    _close(got, mha.mha_quantized_torch(*codes, causal=causal,
+                                        out_dtype=out_dtype),
+           1e-4 if out_dtype == torch.float32 else _BF16_RTOL)
+
+
+@pytest.mark.parametrize("m,k,n,bias,dtype", [
+    (512, 512, 512, True, torch.float32),   # the paper's FC block
+    (256, 384, 512, True, torch.float32),
+    (37, 45, 333, True, torch.float32),     # ragged
+    (512, 512, 100, False, torch.float32),
+    (512, 512, 512, True, torch.bfloat16),
+])
+def test_fc_softmax_kernel_matches_twin(dev, m, k, n, bias, dtype):
+    gen = ofdm.make_generator(m + k + n, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype) \
+        if bias else None
+    n0 = _build.launches["fc_softmax"]
+    got = fc_softmax.fc_softmax(x, w, b)
+    assert _build.launches["fc_softmax"] == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    _close(got, fc_softmax.fc_softmax_torch(x, w, b),
+           1e-4 if dtype == torch.float32 else _BF16_RTOL)
+
+
+@pytest.mark.parametrize("b,h,w,c,f,dtype", [
+    (1, 32, 16, 512, 512, torch.float32),   # the paper's block
+    (2, 16, 8, 128, 128, torch.float32),
+    (3, 5, 7, 70, 100, torch.float32),      # ragged C, F and pixels
+    (1, 32, 16, 512, 512, torch.bfloat16),
+])
+def test_dwconv_block_kernel_matches_twin(dev, b, h, w, c, f, dtype):
+    gen = ofdm.make_generator(b + h + c + f, dev)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    args = (r(b, h + 2, w + 2, c).to(dtype), 0.2 * r(3, 3, c),
+            r(c, f) / c ** 0.5, 1.0 + 0.1 * r(f), 0.1 * r(f))
+    n0 = _build.launches["dwconv_block"]
+    got = dwconv_block.dwconv_block(*args)
+    assert _build.launches["dwconv_block"] == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, h, w, f)
+    assert bool((got >= 0).all())
+    _close(got, dwconv_block.dwconv_block_torch(*args),
+           1e-4 if dtype == torch.float32 else _BF16_RTOL)
+
+
+def test_block_plans_on_card_agree(dev):
+    gen = ofdm.make_generator(5, dev)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    _build.reset_launches()
+    x, w, b = r(512, 512), r(512, 512) / 512 ** 0.5, 0.1 * r(512)
+    torch.testing.assert_close(pool.fc_softmax_sequential(x, w, b),
+                               pool.fc_softmax_concurrent(x, w, b),
+                               rtol=2e-4, atol=1e-5)
+    dw = (r(1, 34, 18, 512), 0.2 * r(3, 3, 512), r(512, 512) / 512 ** 0.5,
+          torch.ones(512, device=dev), torch.zeros(512, device=dev))
+    torch.testing.assert_close(pool.dwconv_sequential(*dw),
+                               pool.dwconv_concurrent(*dw),
+                               rtol=5e-4, atol=5e-4)
+    q, k, v = r(4, 128, 128), r(4, 128, 128), r(4, 128, 128)
+    torch.testing.assert_close(pool.mha_sequential(q, k, v),
+                               pool.mha_concurrent(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+    assert ops.te_gemm_quant(x, w, b).dtype == torch.float32
+    assert ops.mha_quant(q[:, :, :64], k[:, :, :64], v[:, :, :64],
+                         precision="fp8").shape == (4, 128, 64)
+    assert {k for k, n in _build.launches.items() if n > 0} == {
+        "te_gemm", "fc_softmax", "dwconv_block", "mha", "te_gemm_quant",
+        "mha_quant"}
+
+
+def test_block_wrappers_reject_bad_inputs_on_card(dev):
+    x = torch.zeros(4, 8, device=dev)
+    with pytest.raises(ValueError, match="512"):
+        fc_softmax.fc_softmax(x, torch.zeros(8, 513, device=dev))
+    with pytest.raises(ValueError, match="one block"):
+        te_gemm.te_gemm_quant(x, torch.ones(8, 300, device=dev),
+                              epilogue="softmax")
+    with pytest.raises(ValueError, match="F=600"):
+        dwconv_block.dwconv_block(
+            torch.zeros(1, 4, 4, 8, device=dev),
+            torch.zeros(3, 3, 8, device=dev),
+            torch.zeros(8, 600, device=dev), torch.zeros(600, device=dev),
+            torch.zeros(600, device=dev))
+    q = torch.zeros(2, 8, 24, device=dev)
+    with pytest.raises(ValueError, match="D=24"):
+        mha.mha_quant(q, q, q)

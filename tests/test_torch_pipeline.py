@@ -6,8 +6,15 @@ through ``slot_from_numpy``) for each ``siso-coded`` rung at the
 registered grid and for the 2x2 rung; the port runs on the CPU, where its
 kernel wrappers take their plain twins.
 
-Gates (the reference's own, ROADMAP port conventions): CRC flags, decoded
-payloads and per-codeword iteration counts equal; at most 2 hard LLR flips
+Gates (the reference's own, ROADMAP port conventions): CRC flags and
+per-codeword iteration counts equal, decoded payloads equal on every
+codeword whose CRC passes, and the port's decoder, fed the reference's own
+combined codeword LLRs (``cw_llr``), gives the reference's hard bits and
+iteration counts on every codeword, the non-converged ones included (a
+tolerated LLR difference may move the hard bits of a codeword that never
+converges, and the CPU receiver's reduction order depends on the thread
+count, so the payloads of failed codewords are held through the decoder
+instead of through the receiver); at most 2 hard LLR flips
 per pipeline (borderline LLRs near zero) and LLR values within rtol 1e-3 /
 atol 1e-5 of the largest |LLR|; channel estimates within rtol 1e-4 (the
 Wiener smoother's 256x256 solve rounds in another order); TTI and energy
@@ -19,11 +26,13 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.phy import coding as ref_coding
 from repro.phy import link as ref_link
 from repro.phy import scenarios as ref_scn
-from repro_torch.phy import link, ofdm, scenarios
+from repro_torch.kernels import ldpc
+from repro_torch.phy import coding, link, ofdm, scenarios
 
 _NAMES = ["siso-qpsk-r12-snr8", "siso-qam16-r12-snr15",
           "siso-qam16-r34-snr18", "mimo2x2-qam16-r12-snr17"]
@@ -57,6 +66,31 @@ def jax_slots(name: str, batch: int, seed: int) -> dict:
     for k in _PER_SLOT:
         out[k] = np.concatenate([s[k] for s in slots])
     return out
+
+
+def assert_decode_matches_reference(name: str, got: dict, want: dict):
+    """The receiver: CRC flags and iteration counts equal, payloads equal
+    on every codeword whose CRC passes.  The decoder: the reference's own
+    ``cw_llr`` through the port's LDPC decoder and CRC check reproduces
+    the reference's payload bits, CRC flags and iteration counts on every
+    codeword, converged or not."""
+    assert np.array_equal(got["crc_ok"], want["crc_ok"])
+    assert np.array_equal(got["decode_iters"], want["decode_iters"])
+    ok = want["crc_ok"].astype(bool)
+    assert np.array_equal(got["info_bits_hat"][ok], want["info_bits_hat"][ok])
+
+    code = scenarios.get_scenario(name).code
+    b, c, n = want["cw_llr"].shape
+    post, iters = ldpc.ldpc_decode(
+        torch.tensor(want["cw_llr"]).reshape(b * c, n), code)
+    hard = (post[:, : code.k] > 0).to(torch.int32)
+    assert np.array_equal(
+        hard[:, : code.k_info].reshape(b, c, -1).numpy(),
+        want["info_bits_hat"])
+    assert np.array_equal(
+        coding.crc_check(hard, code.crc_bits).reshape(b, c).numpy(),
+        want["crc_ok"])
+    assert np.array_equal(iters.reshape(b, c).numpy(), want["decode_iters"])
 
 
 @pytest.fixture(scope="module")
@@ -96,9 +130,7 @@ def test_pipeline_matches_reference(runs, name, fused):
     want = {k: np.asarray(v) for k, v in ref_state.items()}
     got = {k: v.numpy() for k, v in port_state.items()}
 
-    assert np.array_equal(got["crc_ok"], want["crc_ok"])
-    assert np.array_equal(got["info_bits_hat"], want["info_bits_hat"])
-    assert np.array_equal(got["decode_iters"], want["decode_iters"])
+    assert_decode_matches_reference(name, got, want)
     assert got["llr"].shape == want["llr"].shape
     assert int(np.sum((got["llr"] > 0) != (want["llr"] > 0))) <= 2
     np.testing.assert_allclose(got["llr"], want["llr"], rtol=1e-3,

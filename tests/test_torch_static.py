@@ -94,10 +94,13 @@ def test_scenario_and_ladder_registries_agree():
 
 
 _MODULES = [
-    "repro_torch", "repro_torch.device", "repro_torch.kernels.quant",
+    "repro_torch", "repro_torch.device", "repro_torch.kernels",
+    "repro_torch.kernels.quant",
     "repro_torch.kernels._build", "repro_torch.kernels.rx_fused",
     "repro_torch.kernels.ldpc", "repro_torch.kernels.te_gemm",
-    "repro_torch.kernels.mha", "repro_torch.common",
+    "repro_torch.kernels.mha", "repro_torch.kernels.fc_softmax",
+    "repro_torch.kernels.dwconv_block", "repro_torch.kernels.ops",
+    "repro_torch.kernels.ref", "repro_torch.common",
     "repro_torch.common.params", "repro_torch.phy.models",
     "repro_torch.core.machine",
     "repro_torch.core.pool", "repro_torch.analysis.costmodel",
@@ -123,6 +126,30 @@ def test_port_imports_neither_jax_nor_reference():
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_every_cuda_source_is_built_and_checked_on_the_card():
+    """Each ``csrc/*.cu`` is built by ``_build`` and held against its twin
+    by ``chip_smoke.py``, and every source those name exists."""
+    import importlib.util
+
+    from repro_torch.kernels import _build
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sources = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert sources == set(_build.SOURCE_FLAGS)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert {src.removesuffix(".cu") for src, _ in smoke.KERNELS.values()} \
+        == sources
+    assert set(smoke.KERNEL_SYMBOLS) == set(smoke.KERNELS)
+    for name, (_, replaces) in smoke.KERNELS.items():
+        path, line = replaces.split(":")
+        text = (root / path).read_text().splitlines()[int(line) - 1]
+        assert text.startswith("def ") and "pallas" in \
+            (root / path).read_text(), (name, replaces, text)
 
 
 def test_entry_points_default_to_cuda():
