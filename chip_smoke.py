@@ -20,17 +20,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    batch 8, every epilogue, a bf16 and a ragged case), ``mha``
    (CE-ViT's (32, 64, 16), (16, 256, 64) causal and not, bf16, ragged,
    D = 128), ``te_gemm_quant`` (256^3 and DeepRx's block conv at int8 and
-   fp8, every epilogue, a ragged and a bf16-output case; the int8 product
-   with epilogue none or relu bit for bit), ``mha_quant`` ((4, 256, 64)
+   fp8, every epilogue, a ragged, a bf16-output and an M % 64 != 0 case;
+   the int8 product with epilogue none or relu bit for bit),
+   ``mha_quant`` ((4, 256, 64)
    causal and CE-ViT's (32, 64, 16) at int8 and fp8, D = 128, ragged, a
    bf16 output), ``fc_softmax`` (the paper's 512^3 FC block, the
-   reference's test shapes, a ragged row, bf16) and ``dwconv_block`` (the
+   reference's test shapes, a ragged row, bf16, a cluster of one block,
+   a ragged bf16 row) and ``dwconv_block`` (the
    paper's 32 x 16 x 512 -> 512 block, the reference's test shapes,
    ragged C and F, bf16).
    Each kernel's time per call (CUDA events around the wrapper, so launch
    overhead included) and device time (CUPTI), its plain twin's time, a
-   library yardstick's where one PyTorch call computes the same thing,
-   and its bound (the larger of bytes at 3.35 TB/s and operations at the
+   library yardstick's where one PyTorch call computes the same thing
+   (per call, and its device time: every kernel it launches, summed),
+   for ``te_gemm_quant`` and ``fc_softmax`` the host microseconds per
+   call of the wrapper and of the yardstick (``host_us``), and its bound
+   (the larger of bytes at 3.35 TB/s and operations at the
    peak for the operands' type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 1,979
    TOP/s int8 / fp8) are printed.
 4. Closed loops, each with the kernels' launch counts zeroed just before
@@ -126,6 +131,27 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = 1000, chunk: int = 100) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` calls back to back
+    in chunks of ``chunk``, the host clock read before the card is
+    synchronised after each chunk (so the time is the enqueue cost and
+    never waits on a full launch queue); the median of the chunks' means,
+    since the host's clock is shared with other work."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    means = []
+    for _ in range(calls // chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        means.append((time.perf_counter() - t0) / chunk * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(means)
+
+
 def _device_events(prof) -> list:
     """(name, microseconds) of every device-side event (kernels, copies)
     the profiler recorded."""
@@ -150,6 +176,16 @@ def device_us(fn, kernel: str, reps: int = 20):
         torch.cuda.synchronize()
     hits = [us for name, us in _device_events(prof) if kernel in name]
     return sum(hits) / len(hits) if hits else None
+
+
+def library(fn) -> dict:
+    """The yardstick columns of a case: one PyTorch call's time per call
+    (CUDA events, host included) and its device time (every kernel it
+    launches, summed per call, CUPTI); both None without such a call."""
+    if fn is None:
+        return {"library_ms": None, "library_device_us": None}
+    return {"library_ms": time_ms(fn),
+            "library_device_us": device_total_us(fn)}
 
 
 def profile_ticks(sch, n_ticks: int) -> dict:
@@ -186,7 +222,7 @@ def profile_ticks(sch, n_ticks: int) -> dict:
 
 # per-case fields printed besides the times, where a check records them
 EXTRA_FIELDS = ("bit_exact", "joint_device_us", "max_abs_code", "iters_hist",
-                "library_call")
+                "library_call", "host_us", "library_host_us")
 
 # each ported kernel: its source and the TPU kernel it replaces
 KERNELS = {
@@ -277,8 +313,7 @@ def check_ls_che(dev) -> list:
             device_us=device_us(lambda: rx_fused.ls_che(*args),
                                 KERNEL_SYMBOLS["ls_che"]),
             plain_ms=time_ms(lambda: rx_fused.ls_che_torch(*args)),
-            library_ms=time_ms(
-                lambda: torch.einsum("btpr,tps->bsrt", comb, op)),
+            **library(lambda: torch.einsum("btpr,tps->bsrt", comb, op)),
             bound_ms=bms, bound_by=by,
         ))
     return cases
@@ -342,7 +377,7 @@ def check_detect_demap(dev) -> list:
                                 KERNEL_SYMBOLS["mmse_detect_demap"]),
             plain_ms=time_ms(
                 lambda: rx_fused.mmse_detect_demap_torch(*args)),
-            library_ms=None, bound_ms=bms, bound_by=by,
+            **library(None), bound_ms=bms, bound_by=by,
         ))
     return cases
 
@@ -411,7 +446,7 @@ def check_sic(dev) -> list:
                                 KERNEL_SYMBOLS["sic_detect_demap"]),
             plain_ms=time_ms(lambda: rx_fused.sic_detect_demap_torch(*args),
                              reps=10),
-            library_ms=None, bound_ms=bms, bound_by=by,
+            **library(None), bound_ms=bms, bound_by=by,
             # the joint receiver's kernel on the same inputs, for scale
             joint_device_us=device_us(
                 lambda: rx_fused.mmse_detect_demap(*args),
@@ -472,7 +507,7 @@ def check_ldpc(dev) -> list:
                                     KERNEL_SYMBOLS["ldpc_decode"]),
                 plain_ms=time_ms(lambda: ldpc.ldpc_decode_torch(llr, code),
                                  reps=20, warmup=1),
-                library_ms=None, bound_ms=bms, bound_by=by,
+                **library(None), bound_ms=bms, bound_by=by,
             ))
     return cases
 
@@ -520,7 +555,7 @@ def check_ldpc_q(dev) -> list:
                 device_us=device_us(run, KERNEL_SYMBOLS["ldpc_decode_q"]),
                 plain_ms=time_ms(lambda: ldpc.ldpc_decode_torch(
                     llr, code, precision="int8"), reps=10, warmup=1),
-                library_ms=None, bound_ms=bms, bound_by=by,
+                **library(None), bound_ms=bms, bound_by=by,
             ))
     return cases
 
@@ -595,10 +630,10 @@ def check_te_gemm(dev) -> list:
         flops = 2.0 * m * n * k + (m * n if has_bias else 0)
         bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
                         else BF16_FLOPS)
-        library = None
+        lib = None
         if epi == "none":  # one library call computes the same function
-            library = time_ms((lambda: torch.addmm(b, x, w)) if has_bias
-                              else (lambda: torch.mm(x, w)))
+            lib = ((lambda: torch.addmm(b, x, w)) if has_bias
+                   else (lambda: torch.mm(x, w)))
         cases.append(dict(
             shape=f"{label} ({m}x{k})@({k}x{n}) {epi}"
                   f"{' +bias' if has_bias else ''} {dt}",
@@ -609,7 +644,7 @@ def check_te_gemm(dev) -> list:
                 KERNEL_SYMBOLS["te_gemm"]),
             plain_ms=time_ms(
                 lambda: te_gemm.te_gemm_torch(x, w, b, epilogue=epi)),
-            library_ms=library, bound_ms=bms, bound_by=by,
+            **library(lib), bound_ms=bms, bound_by=by,
         ))
     return cases
 
@@ -664,7 +699,7 @@ def check_mha(dev) -> list:
             device_us=device_us(lambda: mha.mha(q, k, v, causal=causal),
                                 KERNEL_SYMBOLS["mha"]),
             plain_ms=time_ms(lambda: mha.mha_torch(q, k, v, causal=causal)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            **library(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal)),
             bound_ms=bms, bound_by=by,
         ))
@@ -713,6 +748,9 @@ TE_GEMM_QUANT_CASES = (
     ("deeprx block conv1", 28672, 288, 32, "relu", True, "int8", "float32"),
     ("ragged silu", 777, 100, 33, "silu", True, "int8", "float32"),
     ("bf16 out", 512, 64, 128, "relu", True, "fp8", "bfloat16"),
+    ("M not a multiple of 64", 1000, 288, 32, "none", False, "int8",
+     "float32"),
+    ("256^3", 256, 256, 256, "softmax", True, "fp8", "float32"),
 )
 
 
@@ -756,9 +794,10 @@ def check_te_gemm_quant(dev) -> list:
             max_abs_err=err, tolerance=tol, bit_exact=exact,
             ms=time_ms(run),
             device_us=device_us(run, KERNEL_SYMBOLS["te_gemm_quant"]),
-            plain_ms=time_ms(twin),
-            library_ms=None if lib is None else time_ms(lib),
-            library_call=lib_label, bound_ms=bms, bound_by=by,
+            host_us=host_us(run),
+            plain_ms=time_ms(twin), **library(lib), library_call=lib_label,
+            library_host_us=None if lib is None else host_us(lib),
+            bound_ms=bms, bound_by=by,
         ))
     return cases
 
@@ -805,7 +844,7 @@ def check_mha_quant(dev) -> list:
             shape=label, max_abs_err=err, tolerance=_tolerance(out_dtype)[1],
             ms=time_ms(run),
             device_us=device_us(run, KERNEL_SYMBOLS["mha_quant"]),
-            plain_ms=time_ms(twin), library_ms=None,
+            plain_ms=time_ms(twin), **library(None),
             bound_ms=bms, bound_by=by,
         ))
     return cases
@@ -820,6 +859,8 @@ FC_SOFTMAX_CASES = (
     ("ragged", 37, 45, 333, True, "float32"),
     ("no bias", 512, 512, 100, False, "float32"),
     ("paper FC block bf16", 512, 512, 512, True, "bfloat16"),
+    ("a cluster of one", 512, 512, 64, True, "float32"),
+    ("ragged bf16 (K not TMA-aligned)", 37, 45, 333, True, "bfloat16"),
 )
 
 
@@ -846,17 +887,17 @@ def check_fc_softmax(dev) -> list:
         flops = 2.0 * m * n * k + 5.0 * m * n
         bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
                         else BF16_FLOPS)
-        library = ((lambda: torch.softmax(torch.addmm(b, x, w), dim=-1))
-                   if has_bias else
-                   (lambda: torch.softmax(torch.mm(x, w), dim=-1)))
+        lib = ((lambda: torch.softmax(torch.addmm(b, x, w), dim=-1))
+               if has_bias else
+               (lambda: torch.softmax(torch.mm(x, w), dim=-1)))
         cases.append(dict(
             shape=f"{label} ({m}x{k})@({k}x{n}){' +bias' if has_bias else ''}"
                   f" {dt}", max_abs_err=err, tolerance=_tolerance(dtype)[1],
             ms=time_ms(run),
             device_us=device_us(run, KERNEL_SYMBOLS["fc_softmax"]),
-            plain_ms=time_ms(twin), library_ms=time_ms(library),
+            host_us=host_us(run), plain_ms=time_ms(twin), **library(lib),
             library_call="torch.softmax(torch.addmm(...)) (two calls)",
-            bound_ms=bms, bound_by=by,
+            library_host_us=host_us(lib), bound_ms=bms, bound_by=by,
         ))
     return cases
 
@@ -911,7 +952,7 @@ def check_dwconv_block(dev) -> list:
             shape=f"{label} B={b} {h}x{w}x{c} -> {f} {dt}", max_abs_err=err,
             tolerance=_tolerance(dtype)[1], ms=time_ms(run),
             device_us=device_us(run, KERNEL_SYMBOLS["dwconv_block"]),
-            plain_ms=time_ms(twin), library_ms=None,
+            plain_ms=time_ms(twin), **library(None),
             bound_ms=bms, bound_by=by,
         ))
     return cases
@@ -1247,11 +1288,15 @@ def main() -> int:
         for c in results[name]:
             lib = ("-" if c["library_ms"] is None
                    else f"{c['library_ms']:.4f}")
+            lib_dus = ("-" if c["library_ms"] is None else "not measured"
+                       if c["library_device_us"] is None
+                       else f"{c['library_device_us']:.2f}")
             dus = ("not measured" if c["device_us"] is None
                    else f"{c['device_us']:.2f}")
             print(f"kernel {name} [{c['shape']}]: kernel_ms={c['ms']:.4f} "
                   f"device_us={dus} "
                   f"plain_ms={c['plain_ms']:.4f} library_ms={lib} "
+                  f"library_device_us={lib_dus} "
                   f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) "
                   f"max_abs_err={c['max_abs_err']:.3g} "
                   f"(tolerance: {c['tolerance']})"
@@ -1315,7 +1360,9 @@ def main() -> int:
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], cases=cases,
+            library_ms=head["library_ms"],
+            library_device_us=head["library_device_us"],
+            host_us=head.get("host_us"), cases=cases,
         ))
     line = json.dumps({"kernels": kernels})
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f}s",

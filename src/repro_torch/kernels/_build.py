@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is a self-contained source with a plain C entry
 point.  At first CUDA use it is compiled by ``nvcc`` for ``sm_90a`` into
 a shared library under ``build/repro_torch_kernels/`` at the repository
 root (git-ignored) and loaded with :mod:`ctypes`; the library's file name
-carries a hash of the source and flags, so an edited source rebuilds.
+carries a hash of the source, the local headers it includes
+(``#include "x.cuh"``, e.g. ``csrc/hopper.cuh``) and the flags, so an
+edited source or header rebuilds.
 :func:`build_all` starts one ``nvcc`` per source, all in parallel.
 
 Every wrapper that launches a kernel adds one to :data:`launches` under
@@ -17,6 +19,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -77,8 +80,24 @@ def flags(name: str) -> tuple:
     return NVCC_FLAGS + SOURCE_FLAGS[name]
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """The file's bytes followed by those of every local header it
+    includes, depth first, each header once."""
+    data = path.read_bytes()
+    parts = [data]
+    for inc in _LOCAL_INCLUDE.findall(data):
+        header = path.parent / inc.decode()
+        if header not in seen:
+            seen.add(header)
+            parts.append(_source_bytes(header, seen))
+    return b"".join(parts)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu", set())
     digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -131,22 +150,24 @@ def check(err: int, name: str) -> None:
                            f"{err}")
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s device, as a C pointer."""
+def stream_of(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as the integer handle
+    the kernels' C entry points take (no Stream object is built)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(name: str, **args) -> None:
     """Check each ``arg=(tensor, dtype)`` before its pointer goes to a
     kernel: all on one CUDA device, contiguous, of the given dtype."""
-    dev = None
+    dev = None  # the first tensor's CUDA device index
     for arg, (t, dtype) in args.items():
-        if t.device.type != "cuda" or (dev is not None and t.device != dev):
+        if not t.is_cuda or (dev is not None and t.get_device() != dev):
             raise ValueError(f"{name}: {arg} is on {t.device}, expected "
-                             f"{dev or 'a CUDA device'}")
-        dev = t.device
+                             + ("a CUDA device" if dev is None
+                                else f"cuda:{dev}"))
+        dev = t.get_device()
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
         if t.dtype != dtype:

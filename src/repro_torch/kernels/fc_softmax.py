@@ -4,9 +4,10 @@ output row, fp32 accumulate, output in x's dtype.
 
 :func:`fc_softmax` runs the plain PyTorch twin (:func:`fc_softmax_torch`)
 only because the tensor it was given lies on the CPU; on a CUDA tensor it
-launches ``csrc/fc_softmax.cu`` (a block owns 8 rows and the whole row of
-N <= :data:`MAX_N` columns, so the softmax never leaves the chip) or
-raises.
+launches ``csrc/fc_softmax.cu`` (a thread-block cluster of up to 8
+blocks owns 32 rows (fp32) or 64 rows (bf16) and the whole row of
+N <= :data:`MAX_N` columns, 64 a block, so the softmax never leaves the
+chip) or raises.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_N = 512  # the widest row one block of the kernel holds
+MAX_N = 512  # the widest row one cluster of the kernel holds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -41,7 +42,8 @@ def _lib():
 
 def fc_softmax_cuda(x: torch.Tensor, w: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``csrc/fc_softmax.cu``: one block per 8 rows."""
+    """Launch ``csrc/fc_softmax.cu``: one cluster per 32 (fp32) or 64
+    (bf16) rows, one block per 64 columns."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fc_softmax: x {tuple(x.shape)} @ w "
                          f"{tuple(w.shape)} is not (M, K) @ (K, N)")
@@ -52,7 +54,7 @@ def fc_softmax_cuda(x: torch.Tensor, w: torch.Tensor,
                          f"({k}, {n})")
     if n > MAX_N:
         raise ValueError(f"fc_softmax kernel holds a row of at most "
-                         f"{MAX_N} columns in one block, got N={n}")
+                         f"{MAX_N} columns in one cluster, got N={n}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fc_softmax kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")

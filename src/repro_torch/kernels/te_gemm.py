@@ -32,6 +32,7 @@ EPILOGUES = ("none", "relu", "silu", "softmax")
 SOFTMAX_MAX_N = 256  # the widest row one block of either kernel holds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
+_EPILOGUE_CODE = {e: i for i, e in enumerate(EPILOGUES)}
 
 
 def _epilogue(z: torch.Tensor, bias: Optional[torch.Tensor],
@@ -164,7 +165,9 @@ def te_gemm_quantized_cuda(xq: torch.Tensor, wq: torch.Tensor,
                            epilogue: str = "none",
                            out_dtype: torch.dtype = torch.float32
                            ) -> torch.Tensor:
-    """Launch ``csrc/te_gemm_quant.cu``: one block per output tile."""
+    """Launch ``csrc/te_gemm_quant.cu``: persistent blocks walking 64-row
+    tiles of a column slab, wgmma on the codes (int8) or their bf16
+    values (e4m3)."""
     if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
         raise ValueError(f"te_gemm_quant: xq {tuple(xq.shape)} @ wq "
                          f"{tuple(wq.shape)} is not (M, K) @ (K, N)")
@@ -197,7 +200,7 @@ def te_gemm_quantized_cuda(xq: torch.Tensor, wq: torch.Tensor,
     err = _quant_lib()(
         xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        EPILOGUES.index(epilogue), _QTYPE_CODE[xq.dtype],
+        _EPILOGUE_CODE[epilogue], _QTYPE_CODE[xq.dtype],
         _DTYPE_CODE[out_dtype], _build.stream_of(xq))
     _build.launches["te_gemm_quant"] += 1
     _build.check(err, "te_gemm_quant")

@@ -304,6 +304,8 @@ def test_sic_and_int8_pipelines_on_card_match_twins(dev, name, kw, kernels):
     (28672, 288, 32, "relu", True, "fp8", torch.float32),
     (777, 100, 33, "silu", True, "int8", torch.float32),     # ragged
     (512, 64, 128, "relu", True, "fp8", torch.bfloat16),
+    (1000, 288, 32, "none", False, "int8", torch.float32),  # M % 64 != 0
+    (256, 256, 256, "softmax", True, "int8", torch.float32),
 ])
 def test_te_gemm_quant_kernel_matches_twin(dev, m, k, n, epilogue, bias,
                                            precision, out_dtype):
@@ -357,6 +359,8 @@ def test_mha_quant_kernel_matches_twin(dev, bh, sq, sk, d, causal,
     (37, 45, 333, True, torch.float32),     # ragged
     (512, 512, 100, False, torch.float32),
     (512, 512, 512, True, torch.bfloat16),
+    (512, 512, 64, True, torch.float32),    # a cluster of one block
+    (37, 45, 333, True, torch.bfloat16),    # K, N not 16-byte rows
 ])
 def test_fc_softmax_kernel_matches_twin(dev, m, k, n, bias, dtype):
     gen = ofdm.make_generator(m + k + n, dev)

@@ -5,6 +5,7 @@ field for field, and the port must import neither JAX nor the reference
 package."""
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -150,6 +151,46 @@ def test_every_cuda_source_is_built_and_checked_on_the_card():
         text = (root / path).read_text().splitlines()[int(line) - 1]
         assert text.startswith("def ") and "pallas" in \
             (root / path).read_text(), (name, replaces, text)
+
+
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\("
+                     r"(?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+
+
+def test_every_kernel_symbol_names_a_global_function():
+    """``chip_smoke.device_us`` finds a kernel in the CUPTI trace by the
+    substring in ``KERNEL_SYMBOLS`` and reads None when no name holds it,
+    so each one must be part of a ``__global__`` function of its source."""
+    import importlib.util
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    csrc = root / "src" / "repro_torch" / "csrc"
+    for name, symbol in smoke.KERNEL_SYMBOLS.items():
+        source = smoke.KERNELS[name][0]
+        kernels = _GLOBAL.findall((csrc / source).read_text())
+        assert any(symbol in k for k in kernels), (name, symbol, kernels)
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """An edited header rebuilds every source that includes it, and only
+    those."""
+    from repro_torch.kernels import _build
+
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    users = [n for n in _build.SOURCES
+             if '#include "hopper.cuh"' in (tmp_path / f"{n}.cu").read_text()]
+    assert set(users) >= {"te_gemm_quant", "fc_softmax"}
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert {n for n in _build.SOURCES if after[n] != before[n]} == set(users)
 
 
 def test_entry_points_default_to_cuda():
