@@ -1,6 +1,6 @@
-"""Host microseconds per call of the quantized GEMM's and the fused FC +
-softmax's kernel wrappers, and of one PyTorch call that computes the same
-function, on one CUDA card.
+"""Host microseconds per call of the kernel wrappers of LS-CHE, the TE
+GEMM, the quantized GEMM and the fused FC + softmax, and of one PyTorch
+call that computes the same function, on one CUDA card.
 
     python scripts/host_us.py [--src SRC_DIR]
 
@@ -9,7 +9,10 @@ is measured (default: this one's), so two commits compare in one run on
 one card.  Each callable runs 1000 times in chunks of 100, the host
 clock read before the card is synchronised, and the median of the
 chunks' means is kept (``chip_smoke.host_us``): the enqueue cost per
-call.  The shapes are the blocks path's: 256^3
+call.  The shapes: LS-CHE on the SISO grid at batch 8 (yardstick
+``torch.einsum`` on the averaged comb), the TE GEMM at DeepRx's block
+conv (28,672 x 288 -> 32, fp32, bias; ``torch.addmm``) and CE-ViT's
+wqkv (512 x 64 -> 192, fp32; ``torch.mm``), the blocks path's 256^3
 int8 codes with epilogue none, and the paper's 512^3 fp32 FC block with
 a bias.  Prints one JSON line per callable, then the card's name and
 power limit.
@@ -34,11 +37,27 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     import chip_smoke
-    from repro_torch.kernels import fc_softmax, te_gemm
+    from repro_torch.kernels import fc_softmax, rx_fused, te_gemm
+    from repro_torch.phy import coding, ofdm, scenarios
 
     dev = torch.device("cuda")
+    scn = scenarios.get_scenario("siso-qam16-r12-snr15")
+    g = scn.grid
+    y = chip_smoke._grid_y(coding.make_coded_slot(
+        ofdm.make_generator(1, dev), scn, 8))
+    op = torch.from_numpy(rx_fused.make_ls_interp_operator(
+        g.n_subcarriers, g.n_tx, g.pilot_stride,
+        ofdm.pilot_sequence_np(g))).to(dev)
+    ls_args = (y, g.pilot_symbols, g.pilot_stride, op)
+    comb = rx_fused._comb_extract(y, g.pilot_symbols, g.pilot_stride,
+                                  g.n_tx).mean(dim=1)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    cx = torch.randn(28672, 288, generator=gen, device=dev)
+    cw = torch.randn(288, 32, generator=gen, device=dev) / 17.0
+    cb = 0.1 * torch.randn(32, generator=gen, device=dev)
+    vx = torch.randn(512, 64, generator=gen, device=dev)
+    vw = torch.randn(64, 192, generator=gen, device=dev) / 8.0
     x = torch.randn(256, 256, generator=gen, device=dev)
     w = torch.randn(256, 256, generator=gen, device=dev) / 16.0
     xq, wq, xs, ws = te_gemm.quantize_gemm_operands(x, w, "int8")
@@ -47,6 +66,16 @@ def main() -> int:
     fw = torch.randn(512, 512, generator=gen, device=dev) / 22.6
     fb = 0.1 * torch.randn(512, generator=gen, device=dev)
     calls = {
+        "ls_che_cuda": lambda: rx_fused.ls_che_cuda(*ls_args),
+        "ls_che": lambda: rx_fused.ls_che(*ls_args),
+        "torch.einsum (ls_che)": lambda: torch.einsum("btpr,tps->bsrt",
+                                                      comb, op),
+        "te_gemm_cuda (deeprx conv)": lambda: te_gemm.te_gemm_cuda(cx, cw,
+                                                                   cb),
+        "te_gemm (deeprx conv)": lambda: te_gemm.te_gemm(cx, cw, cb),
+        "torch.addmm (deeprx conv)": lambda: torch.addmm(cb, cx, cw),
+        "te_gemm (cevit wqkv)": lambda: te_gemm.te_gemm(vx, vw),
+        "torch.mm (cevit wqkv)": lambda: torch.mm(vx, vw),
         "te_gemm_quantized_cuda": lambda: te_gemm.te_gemm_quantized_cuda(
             xq, wq, xs, ws),
         "te_gemm_quantized": lambda: te_gemm.te_gemm_quantized(

@@ -17,7 +17,8 @@
 // output channels: 4 warps, each owning 2 pixels, each lane owning the
 // channels lane, lane + 32, ..., lane + 32 * (NJ - 1), so a pixel's F
 // accumulators lie in one warp's registers (NJ = 16: F <= 512, 32 fp32
-// accumulators a thread).  C is walked in slices of BC = 16 channels:
+// accumulators a thread; NJ = 32: F <= 1024, 64).  C is walked in slices
+// of BC = 16 channels (8 for NJ = 32):
 // the block's threads first compute the depthwise 3x3 of the slice (one
 // (pixel, channel) each, 9 taps in the reference's order) into a
 // (BC x BP) plane in shared memory, stage the (BC x F) slice of pw
@@ -26,7 +27,7 @@
 // mean and the variance of each pixel's F values by shuffles, normalises,
 // applies gamma / beta and ReLU, and stores once.  Pixels past H*W,
 // channels past C and outputs past F are masked: any H, W, C and B work,
-// and F above 512 is refused.  The reference walks C in blocks of 128
+// and F above 1024 is refused.  The reference walks C in blocks of 128
 // that must divide it; the port masks the last slice instead.  x is
 // fp32 or bf16; the filters arrive in fp32.  wgmma for the pointwise
 // product is later work.
@@ -62,8 +63,9 @@ dwconv_block_kernel(const T* __restrict__ x, const float* __restrict__ dw,
                     const float* __restrict__ beta, T* __restrict__ out,
                     int h, int w, int c, int f, float eps) {
   constexpr int BN = 32 * NJ;
-  __shared__ float ys[BC][BP];  // depthwise output slice: ys[ch][pixel]
-  __shared__ float pws[BC][BN];
+  constexpr int KB = NJ > 16 ? BC / 2 : BC;  // channels a slice: pws 32 KB
+  __shared__ float ys[KB][BP];  // depthwise output slice: ys[ch][pixel]
+  __shared__ float pws[KB][BN];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -80,9 +82,9 @@ dwconv_block_kernel(const T* __restrict__ x, const float* __restrict__ dw,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  for (int c0 = 0; c0 < c; c0 += BC) {
-    for (int i = tid; i < BP * BC; i += NT) {
-      const int cc = i % BC, pp = i / BC;
+  for (int c0 = 0; c0 < c; c0 += KB) {
+    for (int i = tid; i < BP * KB; i += NT) {
+      const int cc = i % KB, pp = i / KB;
       const int p = p0 + pp, ch = c0 + cc;
       float y = 0.f;
       if (p < hw && ch < c) {
@@ -96,14 +98,14 @@ dwconv_block_kernel(const T* __restrict__ x, const float* __restrict__ dw,
       }
       ys[cc][pp] = y;
     }
-    for (int i = tid; i < BC * BN; i += NT) {
+    for (int i = tid; i < KB * BN; i += NT) {
       const int r = i / BN, col = i % BN;
       const int ch = c0 + r;
       pws[r][col] = (ch < c && col < f) ? pw[(size_t)ch * f + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BC; ++kk) {
+    for (int kk = 0; kk < KB; ++kk) {
       float a[TM];
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = ys[kk][warp * TM + i];
@@ -175,6 +177,8 @@ int dispatch(const void* x, const float* dw, const float* pw,
     return launch<T, 8>(x, dw, pw, gamma, beta, out, b, h, w, c, f, eps, s);
   if (f <= 512)
     return launch<T, 16>(x, dw, pw, gamma, beta, out, b, h, w, c, f, eps, s);
+  if (f <= 1024)
+    return launch<T, 32>(x, dw, pw, gamma, beta, out, b, h, w, c, f, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -182,7 +186,7 @@ int dispatch(const void* x, const float* dw, const float* pw,
 
 // x (b, h+2, w+2, c) pre-padded, contiguous, dtype 0 = float32, 1 =
 // bfloat16; dw (3, 3, c), pw (c, f), gamma and beta (f,) fp32; out
-// (b, h, w, f) in x's dtype; f <= 512.  Returns the launch's cudaError_t.
+// (b, h, w, f) in x's dtype; f <= 1024.  Returns the launch's cudaError_t.
 extern "C" int dwconv_block_launch(const void* x, const void* dw,
                                    const void* pw, const void* gamma,
                                    const void* beta, void* out, int b, int h,

@@ -17,7 +17,8 @@
 // cluster.sync reads every block's pair at once (cluster.map_shared_rank)
 // for the row's max M and sum S = sum_b s_b exp(m_b - M); each block
 // stores exp(z - M) / S once, between the two halves of the last cluster
-// barrier.  N above 512 is refused.
+// barrier.  N above 512 is refused here; the wrapper sends such a row
+// to te_gemm.cu's two-pass softmax.
 //
 // fp32 keeps IEEE products on the FMA units (the reference accumulates in
 // full fp32; TF32 would not hold rtol 1e-4).  A cluster owns 32 rows, so
@@ -485,10 +486,11 @@ extern "C" int fc_softmax_launch(const void* x, const void* w,
   auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
+  const int dev = current_device();
   if (dtype == 0) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        fc_softmax_kernel_fp32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        F_SMEM);
+    static std::atomic<unsigned long long> smem_set{0};  // per device
+    const cudaError_t attr =
+        allow_dynamic_smem(fc_softmax_kernel_fp32, F_SMEM, smem_set, dev);
     if (attr != cudaSuccess) return (int)attr;
     const int vec = k % 4 == 0 && n % 4 == 0 && aligned(x) && aligned(w);
     return launch_cluster(fc_softmax_kernel_fp32, cluster, F_BM, m, F_NT,
@@ -497,9 +499,9 @@ extern "C" int fc_softmax_launch(const void* x, const void* w,
                           static_cast<float*>(out), m, n, k, vec);
   }
   if (dtype == 1) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        fc_softmax_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        B_SMEM);
+    static std::atomic<unsigned long long> smem_set{0};  // per device
+    const cudaError_t attr =
+        allow_dynamic_smem(fc_softmax_kernel_bf16, B_SMEM, smem_set, dev);
     if (attr != cudaSuccess) return (int)attr;
     // 16-byte rows: TMA for both operands, or per operand cp.async
     const int vec_x = k % 8 == 0 && aligned(x);

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels (te_gemm_quant.cu, fc_softmax.cu): asynchronous copies into
-// shared memory, the proxy fence that makes them visible to the tensor
-// cores, descriptors of 128-byte-swizzled shared-memory tiles, and the
-// warpgroup matrix multiplies (wgmma) as inline PTX.
+// kernels (te_gemm.cu, te_gemm_quant.cu, fc_softmax.cu): per-device
+// launch facts, asynchronous copies into shared memory, the proxy fence
+// that makes them visible to the tensor cores, descriptors of
+// 128-byte-swizzled shared-memory tiles, and the warpgroup matrix
+// multiplies (wgmma) as inline PTX.
 //
 // Tile layout (the one TMA's SWIZZLE_128B writes): a tile is a stack of
 // 128-byte rows starting on a 1024-byte boundary; the 16-byte chunk c of
@@ -18,7 +19,55 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace hopper {
+
+// ---- per-device launch facts ----------------------------------------------
+// The SM count and a kernel's dynamic shared-memory limit belong to a
+// device, so they are kept per device index (the current one at launch),
+// never once per process.
+
+constexpr int kMaxDevices = 64;
+
+inline int current_device() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
+inline int sm_count(int dev) {
+  static std::atomic<int> counts[kMaxDevices];  // 0 until read
+  int count = dev >= 0 && dev < kMaxDevices
+                  ? counts[dev].load(std::memory_order_relaxed) : 0;
+  if (count == 0) {
+    count = 132;
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (dev >= 0 && dev < kMaxDevices)
+      counts[dev].store(count, std::memory_order_relaxed);
+  }
+  return count;
+}
+
+// raise `kernel`'s dynamic shared-memory limit to `bytes` on device
+// `dev`, once per device: bit dev of `done` (one mask per kernel
+// instance, owned by its launcher) records it
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes,
+                                      std::atomic<unsigned long long>& done,
+                                      int dev) {
+  const unsigned long long bit =
+      dev >= 0 && dev < kMaxDevices ? 1ull << dev : 0ull;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) {
+    return cudaSuccess;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && bit != 0) {
+    done.fetch_or(bit, std::memory_order_release);
+  }
+  return err;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -29,12 +78,17 @@ __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
 }
 
-// 16-byte (cp.async.cg) or 4-byte (cp.async.ca) asynchronous copy from
-// global to shared memory; the bytes past src_bytes are zero-filled, so
-// src_bytes = 0 writes zeros (src must still be a valid address)
+// 16-byte (cp.async.cg), 8- or 4-byte (cp.async.ca) asynchronous copy
+// from global to shared memory; the bytes past src_bytes are zero-filled,
+// so src_bytes = 0 writes zeros (src must still be a valid address)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -70,6 +124,14 @@ __device__ __forceinline__ void st_shared_v2(uint32_t dst, uint32_t a,
 }
 __device__ __forceinline__ void st_shared_u32(uint32_t dst, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(dst), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared_u16(uint32_t dst, uint16_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" :: "r"(dst), "h"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t src) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(src) : "memory");
+  return v;
 }
 
 // shared-memory writes of this thread (st.shared, cp.async) become
@@ -307,5 +369,102 @@ __device__ __forceinline__ void wgmma_bf16_nmajor_b(float (&d)[32],
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// tf32: K = 8 a step, both operands K-major (tf32 takes no other), A
+// from registers: a[0..3] hold rows 16 warp + lane / 4 (+ 8 for a[1],
+// a[3]) at columns lane % 4 (+ 4 for a[2], a[3]), the m16n8k8 layout of
+// each warp's 16 rows.  Only the top 19 bits of each value are read.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// bf16 at the narrow widths (n8, n16), both operands K-major from shared
+// memory, as wgmma_bf16 above
+__device__ __forceinline__ void wgmma_bf16(float (&d)[4], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 }  // namespace hopper

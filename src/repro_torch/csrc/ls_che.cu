@@ -5,65 +5,136 @@
 // static interpolation operator (per-pilot conjugate divide + clamped
 // linear frequency interpolation folded in by make_ls_interp_operator).
 //
-// What bounds it: bytes.  Per slot row it reads n_tx * n_p comb REs of
+// What bounds it: latency.  Per slot row it reads n_tx * n_p comb REs of
 // each pilot symbol, the whole (n_tx, n_p, n_sc) complex64 operator (131 KB
-// on every registered grid) and writes n_sc * n_tx channel taps; the GEMM
-// is a few MFLOP.  At the served batch the launch itself dominates.
+// on every registered grid) once, and writes n_sc * n_tx channel taps; the
+// GEMM is a few MFLOP, and the bytes are 0.05 us of HBM time at the served
+// batch, far under one launch.
 //
-// Design: one block per (batch, rx) row.  The comb is gathered by index
-// arithmetic straight from the interleaved complex64 grid (subcarrier
-// t*stride + p*stride*n_tx of each pilot symbol), so the reference's
-// stack/transpose/concat staging does not exist; the pilot-symbol average
-// lands in shared memory.  Each thread then produces one output subcarrier
-// for every tx, looping over the pilots against the operator, which stays
-// dense and is read through L2 (neighbouring threads read neighbouring
-// operator columns, so the loads coalesce).  Accumulation is plain fp32
-// (no tensor cores, so no TF32), and H is written directly in its
-// (B, n_sc, n_rx, n_tx) complex64 layout.
+// Design: the grid splits the output columns.  A block owns a slab of
+// SC = 16 subcarriers of one tx and up to RB = 64 rows (batch x rx) --
+// the reference also holds up to 64 rows in a block, so the operator is
+// read once per row group -- which gives 16 blocks for the SISO batch of
+// 8 and 32 for 2x2 where one block per row gave 8 and 16.  Per chunk of
+// PC = 64 pilots, the block stages the operator's (PC x SC) slab in shared
+// memory with cp.async copies and, meanwhile, gathers the comb of
+// each of its rows there: subcarrier t*stride + p*stride*n_tx of each
+// pilot symbol, read by index arithmetic straight from the interleaved
+// complex64 grid (the reference's stack/transpose/concat staging does not
+// exist) and averaged over the pilot symbols (sum, then times 1/n_psym).
+// Each output (row, subcarrier) is a complex dot product over the pilots,
+// unrolled by 4 into four independent partial sums, so shared-memory
+// loads overlap instead of waiting on one accumulator; a thread has up to
+// four outputs, and where a block has at most 128 (the SISO batch of 8:
+// 8 rows x 16 subcarriers) two adjacent threads split an output's pilots
+// and meet by a shuffle, so no thread idles and the chain halves.
+// Accumulation is plain fp32 on the CUDA cores (no tensor cores, so no
+// TF32), and H is written directly in its (B, n_sc, n_rx, n_tx)
+// complex64 layout.
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-__global__ void ls_che_kernel(const float2* __restrict__ y,
-                              const float2* __restrict__ op,
-                              float2* __restrict__ h, int n_sym, int n_sc,
-                              int n_rx, int n_tx, int n_p, int stride,
-                              unsigned psym_mask, float inv_psym) {
-  extern __shared__ float2 comb[];  // (n_tx, n_p) pilot-symbol averages
-  const int row = blockIdx.x;       // b * n_rx + r
-  const int b = row / n_rx;
-  const int r = row % n_rx;
+using hopper::cp_async8;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::smem_u32;
+
+constexpr int SC = 16;   // subcarriers of a block's output slab
+constexpr int PC = 64;   // pilots staged at a time
+constexpr int RB = 64;   // rows (batch x rx) a block holds
+constexpr int NT = 256;
+constexpr int OPT = RB * SC / NT;  // outputs a thread, at most
+
+__device__ __forceinline__ void cmac(float2& acc, float2 c, float2 o) {
+  acc.x += c.x * o.x - c.y * o.y;
+  acc.y += c.x * o.y + c.y * o.x;
+}
+
+template <int TPO>
+__global__ void __launch_bounds__(NT)
+ls_che_kernel(const float2* __restrict__ y, const float2* __restrict__ op,
+              float2* __restrict__ h, int n_rows, int n_sym, int n_sc,
+              int n_rx, int n_tx, int n_p, int stride, unsigned psym_mask,
+              float inv_psym) {
+  __shared__ __align__(16) float2 op_s[PC][SC];
+  __shared__ float2 comb_s[RB][PC + 1];  // + 1: rows start on other banks
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * SC;
+  const int t = blockIdx.y;
+  const int row0 = blockIdx.z * RB;
+  const int rows = min(RB, n_rows - row0);
   const int spacing = stride * n_tx;
 
-  for (int i = threadIdx.x; i < n_tx * n_p; i += blockDim.x) {
-    const int t = i / n_p;
-    const int p = i % n_p;
-    const int sc = t * stride + p * spacing;
-    float sr = 0.f, si = 0.f;
-    for (int sym = 0; sym < n_sym; ++sym) {
-      if ((psym_mask >> sym) & 1u) {
-        const float2 v = y[((size_t)(b * n_sym + sym) * n_sc + sc) * n_rx + r];
+  float2 acc[OPT][4];
+#pragma unroll
+  for (int j = 0; j < OPT; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[j][u] = make_float2(0.f, 0.f);
+
+  for (int p0 = 0; p0 < n_p; p0 += PC) {
+    const int pc = min(PC, n_p - p0);
+    // the operator's slab: pc rows of SC complex, one 8-byte copy each
+    // (any n_sc), zero past n_sc
+    for (int i = tid; i < pc * SC; i += NT) {
+      const int p = i / SC, c = i % SC, s = s0 + c;
+      const bool in = s < n_sc;
+      cp_async8(smem_u32(&op_s[p][c]),
+                in ? op + ((size_t)t * n_p + p0 + p) * n_sc + s : op,
+                in ? 8 : 0);
+    }
+    cp_async_commit();
+    // the comb of each row at these pilots, averaged over the pilot symbols
+    for (int i = tid; i < rows * pc; i += NT) {
+      const int rr = i / pc, p = i % pc;
+      const int row = row0 + rr, b = row / n_rx, r = row % n_rx;
+      const int sc = t * stride + (p0 + p) * spacing;
+      float sr = 0.f, si = 0.f;
+      for (unsigned mask = psym_mask; mask != 0u; mask &= mask - 1u) {
+        const int sym = __ffs(mask) - 1;
+        const float2 v =
+            y[((size_t)(b * n_sym + sym) * n_sc + sc) * n_rx + r];
         sr += v.x;
         si += v.y;
       }
+      comb_s[rr][p] = make_float2(sr * inv_psym, si * inv_psym);
     }
-    comb[i] = make_float2(sr * inv_psym, si * inv_psym);
-  }
-  __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();
 
-  for (int s = threadIdx.x; s < n_sc; s += blockDim.x) {
-    for (int t = 0; t < n_tx; ++t) {
-      const float2* opt = op + (size_t)t * n_p * n_sc + s;
-      const float2* ct = comb + t * n_p;
-      float ar = 0.f, ai = 0.f;
-      for (int p = 0; p < n_p; ++p) {
-        const float2 c = ct[p];
-        const float2 o = opt[(size_t)p * n_sc];
-        ar += c.x * o.x - c.y * o.y;
-        ai += c.x * o.y + c.y * o.x;
+#pragma unroll
+    for (int j = 0; j < OPT / TPO; ++j) {
+      const int o = tid / TPO + j * (NT / TPO);
+      const int rr = o / SC, c = o % SC;
+      if (rr >= rows) continue;
+      const float2* cr = comb_s[rr];
+      int p = tid % TPO;
+      for (; p + 3 * TPO < pc; p += 4 * TPO) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          cmac(acc[j][u], cr[p + u * TPO], op_s[p + u * TPO][c]);
       }
-      h[(((size_t)b * n_sc + s) * n_rx + r) * n_tx + t] = make_float2(ar, ai);
+      for (; p < pc; p += TPO) cmac(acc[j][0], cr[p], op_s[p][c]);
     }
+    __syncthreads();  // the next chunk overwrites both slabs
+  }
+
+#pragma unroll
+  for (int j = 0; j < OPT / TPO; ++j) {
+    float2 v = make_float2(
+        (acc[j][0].x + acc[j][1].x) + (acc[j][2].x + acc[j][3].x),
+        (acc[j][0].y + acc[j][1].y) + (acc[j][2].y + acc[j][3].y));
+    if (TPO == 2) {
+      v.x += __shfl_xor_sync(0xffffffffu, v.x, 1);
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, 1);
+    }
+    const int o = tid / TPO + j * (NT / TPO);
+    const int rr = o / SC, s = s0 + o % SC;
+    if (tid % TPO != 0 || rr >= rows || s >= n_sc) continue;
+    const int row = row0 + rr, b = row / n_rx, r = row % n_rx;
+    h[(((size_t)b * n_sc + s) * n_rx + r) * n_tx + t] = v;
   }
 }
 
@@ -77,11 +148,16 @@ extern "C" int ls_che_launch(const void* y, const void* op, void* h,
                              int n_tx, int stride, unsigned psym_mask,
                              int n_psym, void* stream) {
   const int n_p = n_sc / (stride * n_tx);
-  const int threads = n_sc < 1024 ? ((n_sc + 31) / 32) * 32 : 1024;
-  const size_t smem = sizeof(float2) * (size_t)n_tx * n_p;
-  ls_che_kernel<<<batch * n_rx, threads, smem, (cudaStream_t)stream>>>(
+  const int n_rows = batch * n_rx;
+  if (n_p <= 0 || n_rows <= 0 || psym_mask == 0u)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_sc + SC - 1) / SC, n_tx, (n_rows + RB - 1) / RB);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  // two threads an output where a block has at most 128 outputs
+  auto kernel = n_rows * SC <= NT / 2 ? ls_che_kernel<2> : ls_che_kernel<1>;
+  kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       static_cast<const float2*>(y), static_cast<const float2*>(op),
-      static_cast<float2*>(h), n_sym, n_sc, n_rx, n_tx, n_p, stride,
+      static_cast<float2*>(h), n_rows, n_sym, n_sc, n_rx, n_tx, n_p, stride,
       psym_mask, 1.0f / (float)n_psym);
   return (int)cudaGetLastError();
 }

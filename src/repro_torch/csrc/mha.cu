@@ -10,7 +10,8 @@
 // 67 TFLOP/s fp32), so in practice the launch; at (16, 256, 64) it is
 // 0.27 GFLOP against 4.2 MB, so fp32 operations (4.0 us vs 1.3 us).
 //
-// Design: one block per (bh, 64-row query tile); grid (BH, ceil(Sq/64)).
+// Design: one block per (bh, 64-row query tile; 32 rows at D = 256); grid
+// (BH, ceil(Sq/64)).
 // TPR = max(1, D/32) adjacent threads own one query row, each holding
 // D/TPR of its dims of q (pre-scaled, as the reference does) and of the
 // fp32 output accumulator in registers; a score's partial dot products
@@ -23,7 +24,11 @@
 // last tile) are left out of the softmax; with the causal mask, key tiles
 // wholly after the query tile are skipped, which changes nothing (each of
 // their p is exactly 0 and their corr exactly 1 in the reference).
-// Instances: D in {16, 32, 64, 128}, fp32 and bf16 (loaded as fp32).
+// Instances: D in {16, 32, 64, 128, 256}, fp32 and bf16 (loaded as fp32);
+// the wrapper zero-pads any other D <= 256 to the next one and passes the
+// true D's scale, so the padded dims add nothing to a score.  D = 256
+// takes 16-key tiles (32 KB of K and V) and 32-row query tiles (256
+// threads, so a thread may hold 255 registers: no spill).
 // wgmma for QK^T and PV is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,7 +36,6 @@
 
 namespace {
 
-constexpr int BQ = 64;
 constexpr float kMaskFill = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -51,7 +55,11 @@ template <int D>
 struct Shape {
   static constexpr int TPR = D <= 32 ? 1 : D / 32;  // threads per row
   static constexpr int DT = D / TPR;                // dims per thread
-  static constexpr int BKV = D <= 64 ? 64 : 32;     // keys per tile
+  // keys per tile
+  static constexpr int BKV = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
+  // query rows a block: 32 at D = 256, so 256 threads of 255 registers
+  // hold a row's 32 dims of q and of the accumulator with no spill
+  static constexpr int BQ = D > 128 ? 32 : 64;
   static constexpr int NT = BQ * TPR;
 };
 
@@ -65,7 +73,7 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float vs[S::BKV][D];
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
+  const int q0 = blockIdx.y * S::BQ;
   const int row = threadIdx.x / S::TPR;
   const int d0 = (threadIdx.x % S::TPR) * S::DT;
   const int q_pos = q0 + row;
@@ -80,7 +88,7 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = kMaskFill, l = 0.f;
 
-  const int kv_end = causal ? min(sk, q0 + BQ) : sk;
+  const int kv_end = causal ? min(sk, q0 + S::BQ) : sk;
   for (int kv0 = 0; kv0 < kv_end; kv0 += S::BKV) {
     for (int i = threadIdx.x; i < S::BKV * D; i += S::NT) {
       const int j = i / D, d = i % D;
@@ -141,7 +149,7 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int sk, int causal, float scale, cudaStream_t stream) {
-  const dim3 grid(bh, (sq + BQ - 1) / BQ);
+  const dim3 grid(bh, (sq + Shape<D>::BQ - 1) / Shape<D>::BQ);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   mha_kernel<T, D><<<grid, Shape<D>::NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -157,6 +165,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
     case 32: return launch<T, 32>(q, k, v, out, bh, sq, sk, causal, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, bh, sq, sk, causal, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, bh, sq, sk, causal, scale, s);
+    case 256: return launch<T, 256>(q, k, v, out, bh, sq, sk, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -164,8 +173,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
 }  // namespace
 
 // q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d), contiguous and of one
-// dtype: dtype 0 = float32, 1 = bfloat16; d in {16, 32, 64, 128}; scale is
-// d^-0.5 as the caller rounds it.  Returns the launch's cudaError_t.
+// dtype: dtype 0 = float32, 1 = bfloat16; d in {16, 32, 64, 128, 256};
+// scale is the true head dimension's ^-0.5 as the caller rounds it.
+// Returns the launch's cudaError_t.
 extern "C" int mha_launch(const void* q, const void* k, const void* v,
                           void* out, int bh, int sq, int sk, int d,
                           int causal, float scale, int dtype, void* stream) {

@@ -14,7 +14,8 @@
 // bytes, and in practice the launch; at CE-ViT's (32, 64, 16) likewise.
 //
 // Design: mha.cu's flash kernel over 1-byte loads.  One block per
-// (bh, 64-row query tile); max(1, D/32) adjacent threads own one query
+// (bh, 64-row query tile; 32 rows and 16-key tiles at D = 256); max(1,
+// D/32) adjacent threads own one query
 // row, holding their slice of the pre-scaled q and of the fp32
 // accumulator in registers, and meet through warp shuffles for each
 // score.  K and V
@@ -23,8 +24,9 @@
 // after the query tile are skipped (their p would be exactly 0).  The
 // code type (int8 or e4m3) and the output type are runtime flags read
 // at the loads and the store, so the source has one instance per head
-// dimension, D in {16, 32, 64, 128}, and builds in its own nvcc process
-// beside mha.cu.  8-bit wgmma for QK^T and PV is later work.
+// dimension, D in {16, 32, 64, 128, 256} (any other D <= 256 zero-padded
+// by the wrapper, with the true D's scale), and builds in its own nvcc
+// process beside mha.cu.  8-bit wgmma for QK^T and PV is later work.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -33,7 +35,6 @@
 
 namespace {
 
-constexpr int BQ = 64;
 constexpr float kMaskFill = -1e30f;
 
 // every e4m3 value is exact in fp16, and so in fp32
@@ -46,7 +47,11 @@ template <int D>
 struct Shape {
   static constexpr int TPR = D <= 32 ? 1 : D / 32;  // threads per row
   static constexpr int DT = D / TPR;                // dims per thread
-  static constexpr int BKV = D <= 64 ? 64 : 32;     // keys per tile
+  // keys per tile
+  static constexpr int BKV = D <= 64 ? 64 : (D <= 128 ? 32 : 16);
+  // query rows a block: 32 at D = 256, so 256 threads of 255 registers
+  // hold a row's 32 dims of q and of the accumulator with no spill
+  static constexpr int BQ = D > 128 ? 32 : 64;
   static constexpr int NT = BQ * TPR;
 };
 
@@ -62,7 +67,7 @@ mha_quant_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
   __shared__ float vsh[S::BKV][D];
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
+  const int q0 = blockIdx.y * S::BQ;
   const int row = threadIdx.x / S::TPR;
   const int d0 = (threadIdx.x % S::TPR) * S::DT;
   const int q_pos = q0 + row;
@@ -79,7 +84,7 @@ mha_quant_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
   }
   float m = kMaskFill, l = 0.f;
 
-  const int kv_end = causal ? min(sk, q0 + BQ) : sk;
+  const int kv_end = causal ? min(sk, q0 + S::BQ) : sk;
   for (int kv0 = 0; kv0 < kv_end; kv0 += S::BKV) {
     for (int i = threadIdx.x; i < S::BKV * D; i += S::NT) {
       const int j = i / D, d = i % D;
@@ -148,7 +153,7 @@ int launch(const void* q, const void* k, const void* v, const float* qs,
            const float* ks, const float* vs, void* out, int bh, int sq,
            int sk, int causal, float scale, int fp8, int out_bf16,
            cudaStream_t stream) {
-  const dim3 grid(bh, (sq + BQ - 1) / BQ);
+  const dim3 grid(bh, (sq + Shape<D>::BQ - 1) / Shape<D>::BQ);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   mha_quant_kernel<D><<<grid, Shape<D>::NT, 0, stream>>>(
       static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
@@ -161,8 +166,9 @@ int launch(const void* q, const void* k, const void* v, const float* qs,
 
 // q (bh, sq, d), k and v (bh, sk, d): contiguous codes of one type, qtype
 // 0 = int8, 1 = e4m3; qs, ks, vs (bh,) fp32 scales; out (bh, sq, d) fp32
-// (out_bf16 = 0) or bf16 (1); d in {16, 32, 64, 128}; scale is d^-0.5 as
-// the caller rounds it.  Returns the launch's cudaError_t.
+// (out_bf16 = 0) or bf16 (1); d in {16, 32, 64, 128, 256}; scale is the
+// true head dimension's ^-0.5 as the caller rounds it.  Returns the
+// launch's cudaError_t.
 extern "C" int mha_quant_launch(const void* q, const void* k, const void* v,
                                 const void* qs, const void* ks,
                                 const void* vs, void* out, int bh, int sq,
@@ -186,6 +192,9 @@ extern "C" int mha_quant_launch(const void* q, const void* k, const void* v,
                         qtype, out_bf16, s);
     case 128:
       return launch<128>(q, k, v, a, b, c, out, bh, sq, sk, causal, scale,
+                         qtype, out_bf16, s);
+    case 256:
+      return launch<256>(q, k, v, a, b, c, out, bh, sq, sk, causal, scale,
                          qtype, out_bf16, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -45,7 +45,8 @@
 // The row-softmax needs the row in one block (N <= 256): a row's columns
 // lie in one quad of lanes of each warpgroup, so it reduces by two
 // shuffles, and across the two warpgroups of a 256-column slab through
-// shared memory.  The output type is a runtime flag at the single store.
+// shared memory.  A wider row runs this kernel with epilogue none into
+// fp32 logits, then te_gemm.cu's second softmax pass (the caller's job).  The output type is a runtime flag at the single store.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -473,30 +474,22 @@ te_gemm_quant_kernel(const uint8_t* __restrict__ xq,
   }
 }
 
-int num_sms() {
-  static const int sms = [] {
-    int dev = 0, count = 132;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count;
-  }();
-  return sms;
-}
-
 template <int BN, bool kInt8>
 int launch(const void* xq, const void* wq, const float* xs, const float* ws,
            const float* bias, void* out, int m, int n, int k, int epilogue,
            int out_bf16, cudaStream_t stream) {
   using T = Tile<BN, kInt8>;
   auto kernel = te_gemm_quant_kernel<BN, kInt8>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_MAX);
+  const int dev = current_device();
+  static std::atomic<unsigned long long> smem_set{0};  // per device
+  const cudaError_t attr =
+      allow_dynamic_smem(kernel, T::SMEM_MAX, smem_set, dev);
   if (attr != cudaSuccess) return (int)attr;
   const int kpad = (k + BK - 1) / BK * BK;
   const int smem = 1024 + STAGES * X_STAGE + T::A_TILES +
                    BN * T::EL * (kpad < T::KC ? kpad : T::KC);
   const long long tiles = (long long)((m + BM - 1) / BM) * ((n + BN - 1) / BN);
-  const long long cap = (long long)BLOCKS_PER_SM * num_sms();
+  const long long cap = (long long)BLOCKS_PER_SM * sm_count(dev);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   // TMA needs 16-byte rows; the map zero-fills the ragged M and K edges
   CUtensorMap tmap_x = {};

@@ -12,6 +12,11 @@ edited source or header rebuilds.
 Every wrapper that launches a kernel adds one to :data:`launches` under
 the kernel's name, and nowhere else, so a run can show that its path went
 through the kernels (:func:`reset_launches` zeroes the counts).
+
+The kernels fill fresh tensors through ``ctypes``, which autograd cannot
+see, so :func:`require_cuda` refuses (:func:`require_no_grad`) an operand
+that requires grad while grad mode is on, rather than return a result
+whose operands silently get no gradient.
 """
 from __future__ import annotations
 
@@ -158,9 +163,23 @@ def stream_of(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad: a
+    kernel's output carries no ``grad_fn``, so those operands would get no
+    gradient and no error (serving runs under ``torch.no_grad()``)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, but the CUDA kernel has no "
+            f"backward; call it under torch.no_grad() or detach the operands")
+
+
 def require_cuda(name: str, **args) -> None:
     """Check each ``arg=(tensor, dtype)`` before its pointer goes to a
-    kernel: all on one CUDA device, contiguous, of the given dtype."""
+    kernel: all on one CUDA device, contiguous, of the given dtype, and
+    none requiring grad while grad mode is on."""
+    require_no_grad(name, *(t for t, _ in args.values()))
     dev = None  # the first tensor's CUDA device index
     for arg, (t, dtype) in args.items():
         if not t.is_cuda or (dev is not None and t.get_device() != dev):

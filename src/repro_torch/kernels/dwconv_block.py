@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 
 EPS = 1e-5
-MAX_F = 512  # the widest output row one block of the kernel holds
+MAX_F = 1024  # the widest output row one block of the kernel holds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -7,7 +7,8 @@ only because the tensor it was given lies on the CPU; on a CUDA tensor it
 launches ``csrc/fc_softmax.cu`` (a thread-block cluster of up to 8
 blocks owns 32 rows (fp32) or 64 rows (bf16) and the whole row of
 N <= :data:`MAX_N` columns, 64 a block, so the softmax never leaves the
-chip) or raises.
+chip) or raises.  A wider row goes to ``te_gemm.cu``'s row softmax (two
+passes, any N; counted as a ``te_gemm`` launch).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, te_gemm
 
 MAX_N = 512  # the widest row one cluster of the kernel holds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,7 +44,8 @@ def _lib():
 def fc_softmax_cuda(x: torch.Tensor, w: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``csrc/fc_softmax.cu``: one cluster per 32 (fp32) or 64
-    (bf16) rows, one block per 64 columns."""
+    (bf16) rows, one block per 64 columns; above :data:`MAX_N` columns,
+    ``te_gemm.cu``'s two-pass row softmax."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fc_softmax: x {tuple(x.shape)} @ w "
                          f"{tuple(w.shape)} is not (M, K) @ (K, N)")
@@ -52,12 +54,11 @@ def fc_softmax_cuda(x: torch.Tensor, w: torch.Tensor,
     if min(m, n, k) == 0:
         raise ValueError(f"fc_softmax: empty operand ({m}, {k}) @ "
                          f"({k}, {n})")
-    if n > MAX_N:
-        raise ValueError(f"fc_softmax kernel holds a row of at most "
-                         f"{MAX_N} columns in one cluster, got N={n}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"fc_softmax kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
+    if n > MAX_N:  # wider than one cluster holds
+        return te_gemm.te_gemm_cuda(x, w, bias, epilogue="softmax")
     args = dict(x=(x, x.dtype), w=(w, x.dtype))
     if bias is not None:
         if tuple(bias.shape) != (n,):

@@ -6,7 +6,10 @@ output in q's dtype.
 :func:`mha` runs the plain PyTorch twin (:func:`mha_torch`, the reference
 oracle's arithmetic) only because the tensor it was given lies on the CPU;
 on a CUDA tensor it launches ``csrc/mha.cu`` (online softmax over key
-tiles, scores never in device memory) or raises.
+tiles, scores never in device memory) or raises.  The kernels have
+instances for D in :data:`HEAD_DIMS`; any other D up to the widest is
+zero-padded to the next (:func:`pad_head_dim`) and run with the true D's
+scale, and the output is cut back to D.
 
 The quantized attention (``mha_quant`` of the reference) splits as the
 reference's does: :func:`quantize_mha_operands` (torch ops: int8 / e4m3
@@ -25,7 +28,7 @@ import torch
 from repro_torch.kernels import _build, quant
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instances
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
 
@@ -42,11 +45,34 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor,
     return torch.softmax(s, dim=-1) @ v
 
 
+def pad_head_dim(*ts: torch.Tensor) -> tuple:
+    """Each (BH, S, D) operand zero-padded along D to the next kernel
+    instance (as given when D is one).  Zero dims add nothing to a score
+    and make zero output columns, so with the true D's scale the padded
+    attention cut back to D is the unpadded one.  Raises above the
+    widest instance."""
+    d = ts[0].shape[-1]
+    dp = next((i for i in HEAD_DIMS if i >= d), None)
+    if dp is None:
+        raise ValueError(f"the mha kernels take D <= {HEAD_DIMS[-1]} "
+                         f"(instances {HEAD_DIMS}), got D={d}")
+    if dp == d:
+        return ts
+    padded = []
+    for t in ts:
+        z = t.new_zeros(*t.shape[:-1], dp)
+        z[..., :d] = t
+        padded.append(z)
+    return tuple(padded)
+
+
 def mha_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
-    """Plain twin: the whole score matrix, masked, softmaxed, times v."""
+              causal: bool = True, scale=None) -> torch.Tensor:
+    """Plain twin: the whole score matrix, masked, softmaxed, times v.
+    ``scale`` defaults to ``D**-0.5``."""
     d = q.shape[-1]
-    s = (q.to(torch.float32) * d ** -0.5) @ k.to(torch.float32).transpose(
+    scale = d ** -0.5 if scale is None else scale
+    s = (q.to(torch.float32) * scale) @ k.to(torch.float32).transpose(
         -1, -2)
     return _softmax_pv(s, v.to(torch.float32), causal).to(q.dtype)
 
@@ -62,17 +88,15 @@ def _lib():
 
 def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              causal: bool = True) -> torch.Tensor:
-    """Launch ``csrc/mha.cu``: one block per (bh, 64-row query tile)."""
+    """Launch ``csrc/mha.cu``: one block per (bh, 64-row query tile; 32
+    rows at D = 256); D zero-padded to the next instance."""
     if q.ndim != 3 or k.ndim != 3 or tuple(k.shape) != tuple(v.shape) or \
             k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"mha: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} are not (BH, Sq, D), (BH, Sk, D)")
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"mha kernel has no instance for D={d}; "
-                         f"instances: {HEAD_DIMS}")
-    if min(bh, sq, sk) == 0:
+    if min(bh, sq, sk, d) == 0:
         raise ValueError(f"mha: empty operand {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
     if q.dtype not in _DTYPE_CODE:
@@ -80,13 +104,15 @@ def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{q.dtype}")
     _build.require_cuda("mha", q=(q, q.dtype), k=(k, q.dtype),
                         v=(v, q.dtype))
-    out = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
+    q, k, v = pad_head_dim(q, k, v)
+    dp = q.shape[-1]
+    out = torch.empty((bh, sq, dp), dtype=q.dtype, device=q.device)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 bh, sq, sk, d, int(causal), d ** -0.5, _DTYPE_CODE[q.dtype],
-                 _build.stream_of(q))
+                 bh, sq, sk, dp, int(causal), d ** -0.5,
+                 _DTYPE_CODE[q.dtype], _build.stream_of(q))
     _build.launches["mha"] += 1
     _build.check(err, "mha")
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -118,13 +144,15 @@ def quantize_mha_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mha_quantized_torch(qq: torch.Tensor, kq: torch.Tensor,
                         vq: torch.Tensor, qs: torch.Tensor, ks: torch.Tensor,
                         vs: torch.Tensor, *, causal: bool = True,
-                        out_dtype: torch.dtype = torch.float32
-                        ) -> torch.Tensor:
+                        out_dtype: torch.dtype = torch.float32,
+                        scale=None) -> torch.Tensor:
     """Plain twin on the codes: q dequantized as ``q * (qs * ks *
-    D**-0.5)``, the whole score matrix against the k codes, softmax in
-    fp32, times the v codes, scaled by vs."""
+    scale)`` (``scale`` defaults to ``D**-0.5``), the whole score matrix
+    against the k codes, softmax in fp32, times the v codes, scaled by
+    vs."""
     d = qq.shape[-1]
-    qf = qq.to(torch.float32) * (qs * ks * d ** -0.5)[..., None]
+    scale = d ** -0.5 if scale is None else scale
+    qf = qq.to(torch.float32) * (qs * ks * scale)[..., None]
     s = qf @ kq.to(torch.float32).transpose(-1, -2)
     out = _softmax_pv(s, vq.to(torch.float32), causal)
     return (out * vs[..., None]).to(out_dtype)
@@ -145,7 +173,8 @@ def mha_quantized_cuda(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
                        out_dtype: torch.dtype = torch.float32
                        ) -> torch.Tensor:
     """Launch ``csrc/mha_quant.cu``: one block per (bh, 64-row query
-    tile)."""
+    tile; 32 rows at D = 256); the codes zero-padded along D to the next
+    instance."""
     if qq.ndim != 3 or kq.ndim != 3 or tuple(kq.shape) != tuple(vq.shape) \
             or kq.shape[0] != qq.shape[0] or kq.shape[2] != qq.shape[2]:
         raise ValueError(f"mha_quant: q {tuple(qq.shape)}, k "
@@ -153,10 +182,7 @@ def mha_quantized_cuda(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
                          f"(BH, Sq, D), (BH, Sk, D)")
     bh, sq, d = qq.shape
     sk = kq.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"mha_quant kernel has no instance for D={d}; "
-                         f"instances: {HEAD_DIMS}")
-    if min(bh, sq, sk) == 0:
+    if min(bh, sq, sk, d) == 0:
         raise ValueError(f"mha_quant: empty operand {tuple(qq.shape)}, "
                          f"{tuple(kq.shape)}")
     if qq.dtype not in _QTYPE_CODE:
@@ -172,15 +198,17 @@ def mha_quantized_cuda(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
     _build.require_cuda("mha_quant", qq=(qq, qq.dtype), kq=(kq, qq.dtype),
                         vq=(vq, qq.dtype), qs=(qs, torch.float32),
                         ks=(ks, torch.float32), vs=(vs, torch.float32))
-    out = torch.empty((bh, sq, d), dtype=out_dtype, device=qq.device)
+    qq, kq, vq = pad_head_dim(qq, kq, vq)
+    dp = qq.shape[-1]
+    out = torch.empty((bh, sq, dp), dtype=out_dtype, device=qq.device)
     err = _quant_lib()(
         qq.data_ptr(), kq.data_ptr(), vq.data_ptr(), qs.data_ptr(),
-        ks.data_ptr(), vs.data_ptr(), out.data_ptr(), bh, sq, sk, d,
+        ks.data_ptr(), vs.data_ptr(), out.data_ptr(), bh, sq, sk, dp,
         int(causal), d ** -0.5, _QTYPE_CODE[qq.dtype],
         _DTYPE_CODE[out_dtype], _build.stream_of(qq))
     _build.launches["mha_quant"] += 1
     _build.check(err, "mha_quant")
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 def mha_quantized(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,

@@ -401,7 +401,8 @@ def _ls_lib():
 
 
 def ls_che_cuda(y, pilot_symbols: tuple, pilot_stride: int, op):
-    """Launch ``csrc/ls_che.cu``: one block per (batch, rx) row."""
+    """Launch ``csrc/ls_che.cu``: one block per slab of 16 subcarriers
+    of one tx and up to 64 (batch, rx) rows."""
     b, n_sym, n_sc, n_rx = y.shape
     n_tx, n_p, n_sc_op = op.shape
     if n_sc_op != n_sc or n_p * pilot_stride * n_tx != n_sc:
@@ -411,8 +412,6 @@ def ls_che_cuda(y, pilot_symbols: tuple, pilot_stride: int, op):
             len(set(pilot_symbols)) != len(pilot_symbols):
         raise ValueError(f"bad pilot symbols {pilot_symbols} for "
                          f"{n_sym} symbols")
-    if n_sc > 1024:
-        raise ValueError(f"ls_che kernel takes n_sc <= 1024, got {n_sc}")
     _build.require_cuda("ls_che", y=(y, torch.complex64),
                         op=(op, torch.complex64))
     mask = sum(1 << s for s in pilot_symbols)

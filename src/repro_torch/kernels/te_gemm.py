@@ -5,16 +5,20 @@ row softmax over the whole output row.
 
 :func:`te_gemm` runs the plain PyTorch twin (:func:`te_gemm_torch`, the
 reference oracle's arithmetic) only because the tensor it was given lies
-on the CPU; on a CUDA tensor it launches ``csrc/te_gemm.cu`` (a tiled
-fp32 SIMT GEMM that masks its own edges, so every shape works with no
-padding) or raises.
+on the CPU; on a CUDA tensor it launches ``csrc/te_gemm.cu`` (persistent
+wgmma blocks over a TMA / cp.async ring, fp32 as 3xTF32, edges masked so
+every shape works with no padding) or raises.  A softmax row wider than
+:data:`SOFTMAX_TILE_N` takes two passes (per-tile logits and (max, sum)
+pairs, then a normalising pass), so any N works.
 
 The quantized GEMM (``te_gemm_quant`` of the reference) splits as the
 reference's does: :func:`quantize_gemm_operands` (torch ops on the
 operands' device: per-row int8 / e4m3 codes of x, per-column of w, fp32
 scales), then :func:`te_gemm_quantized` on the codes, which launches
 ``csrc/te_gemm_quant.cu`` on a CUDA tensor (int8 products summed exactly
-in int32 by ``__dp4a``, e4m3 dequantized on load into fp32) and runs
+in int32 by wgmma, e4m3 widened to bf16; a softmax row wider
+than :data:`QUANT_SOFTMAX_MAX_N` runs it with no epilogue into fp32 logits,
+then ``te_gemm.cu``'s normalising pass) and runs
 :func:`te_gemm_quantized_torch` on a CPU one.  :func:`te_gemm_quant` is
 the two in a row; :func:`te_gemm_quant_torch` is the twin of the
 reference's ``te_gemm_quant_jnp``.
@@ -29,7 +33,8 @@ import torch
 from repro_torch.kernels import _build, quant
 
 EPILOGUES = ("none", "relu", "silu", "softmax")
-SOFTMAX_MAX_N = 256  # the widest row one block of either kernel holds
+SOFTMAX_TILE_N = 64  # the widest softmax row te_gemm.cu ends in one pass
+QUANT_SOFTMAX_MAX_N = 256  # the widest one te_gemm_quant.cu's block holds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
 _EPILOGUE_CODE = {e: i for i, e in enumerate(EPILOGUES)}
@@ -61,7 +66,16 @@ def te_gemm_torch(x: torch.Tensor, w: torch.Tensor,
 def _lib():
     fn = _build.library("te_gemm").te_gemm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _softmax_lib():
+    fn = _build.library("te_gemm").te_gemm_row_softmax_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -70,7 +84,10 @@ def _lib():
 def te_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *,
                  epilogue: str = "none") -> torch.Tensor:
-    """Launch ``csrc/te_gemm.cu``: one block per output tile."""
+    """Launch ``csrc/te_gemm.cu``: persistent blocks, one column slab of W
+    each, walking 64-row tiles; the bias in fp32.  A softmax row wider
+    than :data:`SOFTMAX_TILE_N` gets per-(row, tile) (max, sum) pairs and,
+    for a bf16 output, fp32 logits as scratch, and a second kernel."""
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"te_gemm: x {tuple(x.shape)} @ w "
                          f"{tuple(w.shape)} is not (M, K) @ (K, N)")
@@ -81,19 +98,25 @@ def te_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"te_gemm kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
-    if epilogue == "softmax" and n > SOFTMAX_MAX_N:
-        raise ValueError(f"te_gemm row-softmax needs the row in one block: "
-                         f"N={n} > {SOFTMAX_MAX_N}")
     args = dict(x=(x, x.dtype), w=(w, x.dtype))
     if bias is not None:
         if tuple(bias.shape) != (n,):
             raise ValueError(f"te_gemm: bias {tuple(bias.shape)} != ({n},)")
-        args["bias"] = (bias, x.dtype)
+        args["bias"] = (bias, torch.float32)
     _build.require_cuda("te_gemm", **args)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    logits = stats = None
+    if epilogue == "softmax" and n > SOFTMAX_TILE_N:
+        stats = torch.empty(2 * m * ((n + 7) // 8), dtype=torch.float32,
+                            device=x.device)
+        if x.dtype != torch.float32:
+            logits = torch.empty((m, n), dtype=torch.float32,
+                                 device=x.device)
     err = _lib()(x.data_ptr(), w.data_ptr(),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 m, n, k, EPILOGUES.index(epilogue), _DTYPE_CODE[x.dtype],
+                 None if logits is None else logits.data_ptr(),
+                 None if stats is None else stats.data_ptr(),
+                 m, n, k, _EPILOGUE_CODE[epilogue], _DTYPE_CODE[x.dtype],
                  _build.stream_of(x))
     _build.launches["te_gemm"] += 1
     _build.check(err, "te_gemm")
@@ -104,15 +127,16 @@ def te_gemm(x: torch.Tensor, w: torch.Tensor,
             bias: Optional[torch.Tensor] = None, *,
             epilogue: str = "none") -> torch.Tensor:
     """``epi(x @ w + bias)``, x (M, K), w (K, N), bias (N,) or None: the
-    CUDA kernel on a CUDA tensor (operands laid out contiguously first),
-    the plain twin on a CPU tensor."""
+    CUDA kernel on a CUDA tensor (operands laid out contiguously first,
+    the bias in fp32), the plain twin on a CPU tensor."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; have {EPILOGUES}")
     if x.device.type == "cpu":
         return te_gemm_torch(x, w, bias, epilogue=epilogue)
-    return te_gemm_cuda(x.contiguous(), w.contiguous(),
-                        None if bias is None else bias.contiguous(),
-                        epilogue=epilogue)
+    return te_gemm_cuda(
+        x.contiguous(), w.contiguous(),
+        None if bias is None else bias.to(torch.float32).contiguous(),
+        epilogue=epilogue)
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +191,8 @@ def te_gemm_quantized_cuda(xq: torch.Tensor, wq: torch.Tensor,
                            ) -> torch.Tensor:
     """Launch ``csrc/te_gemm_quant.cu``: persistent blocks walking 64-row
     tiles of a column slab, wgmma on the codes (int8) or their bf16
-    values (e4m3)."""
+    values (e4m3); a softmax row wider than :data:`QUANT_SOFTMAX_MAX_N`
+    ends in ``te_gemm.cu``'s normalising pass."""
     if xq.ndim != 2 or wq.ndim != 2 or xq.shape[1] != wq.shape[0]:
         raise ValueError(f"te_gemm_quant: xq {tuple(xq.shape)} @ wq "
                          f"{tuple(wq.shape)} is not (M, K) @ (K, N)")
@@ -185,9 +210,6 @@ def te_gemm_quantized_cuda(xq: torch.Tensor, wq: torch.Tensor,
     if tuple(xs.shape) != (m, 1) or tuple(ws.shape) != (1, n):
         raise ValueError(f"te_gemm_quant: scales {tuple(xs.shape)}, "
                          f"{tuple(ws.shape)} are not ({m}, 1), (1, {n})")
-    if epilogue == "softmax" and n > SOFTMAX_MAX_N:
-        raise ValueError(f"te_gemm_quant row-softmax needs the row in one "
-                         f"block: N={n} > {SOFTMAX_MAX_N}")
     args = dict(xq=(xq, xq.dtype), wq=(wq, xq.dtype),
                 xs=(xs, torch.float32), ws=(ws, torch.float32))
     if bias is not None:
@@ -197,11 +219,21 @@ def te_gemm_quantized_cuda(xq: torch.Tensor, wq: torch.Tensor,
         args["bias"] = (bias, torch.float32)
     _build.require_cuda("te_gemm_quant", **args)
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    # a row wider than one block: fp32 logits (+ bias), then the
+    # normalising pass (in place for an fp32 output)
+    wide = epilogue == "softmax" and n > QUANT_SOFTMAX_MAX_N
+    logits = out if not wide or out_dtype == torch.float32 else \
+        torch.empty((m, n), dtype=torch.float32, device=xq.device)
     err = _quant_lib()(
         xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        _EPILOGUE_CODE[epilogue], _QTYPE_CODE[xq.dtype],
-        _DTYPE_CODE[out_dtype], _build.stream_of(xq))
+        None if bias is None else bias.data_ptr(), logits.data_ptr(), m, n,
+        k, _EPILOGUE_CODE["none" if wide else epilogue],
+        _QTYPE_CODE[xq.dtype], _DTYPE_CODE[torch.float32 if wide
+                                           else out_dtype],
+        _build.stream_of(xq))
+    if wide and err == 0:
+        err = _softmax_lib()(logits.data_ptr(), out.data_ptr(), m, n,
+                             _DTYPE_CODE[out_dtype], _build.stream_of(xq))
     _build.launches["te_gemm_quant"] += 1
     _build.check(err, "te_gemm_quant")
     return out

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro.core import pool as ref_pool
+from repro.kernels import fc_softmax as ref_fc
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracle
 from repro.phy import ofdm as ref_ofdm
@@ -59,6 +60,19 @@ def test_fc_softmax_matches_reference(m, k, n):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-5)
     oracle = np.asarray(ref_oracle.fc_softmax_ref(*_j(x, w, b)))
     np.testing.assert_allclose(got, oracle, rtol=2e-4, atol=5e-5)
+    np.testing.assert_allclose(got.sum(axis=-1), 1.0, rtol=1e-5)
+
+
+def test_fc_softmax_twin_wide_row_matches_reference_kernel():
+    """N = 600, wider than one cluster of the CUDA kernel holds (there the
+    row goes to te_gemm's two-pass softmax): the twin against the
+    reference kernel in interpret mode, which holds the whole row."""
+    x, w, b = _rand(21, (16, 64), (64, 600), (600,))
+    got = fc_softmax.fc_softmax(*_t(x, w, b)).numpy()
+    want = np.asarray(ref_fc.fc_softmax(*_j(x, w, b), bm=16, bk=64,
+                                        interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
     np.testing.assert_allclose(got.sum(axis=-1), 1.0, rtol=1e-5)
 
 

@@ -106,10 +106,21 @@ def _close(got, want, rtol):
     (512, 128, 64, "none", True, torch.float32),      # CE-ViT w2
     (512, 64, 128, "silu", True, torch.float32),
     (512, 64, 64, "softmax", True, torch.float32),
-    (300, 40, 200, "softmax", False, torch.float32),  # the 16 x 256 tile
+    (300, 40, 200, "softmax", False, torch.float32),  # two passes
     (777, 100, 33, "relu", True, torch.float32),      # ragged everywhere
     (28672, 288, 32, "relu", True, torch.bfloat16),
     (512, 64, 64, "softmax", True, torch.bfloat16),
+    # every other DeepRx and CE-ViT shape, and the kernel's other paths
+    (28672, 288, 32, "relu", True, torch.float32),    # DeepRx block conv1
+    (28672, 32, 4, "none", True, torch.float32),      # DeepRx conv_out
+    (512, 16, 64, "none", False, torch.float32),      # CE-ViT embed
+    (512, 64, 64, "none", False, torch.float32),      # CE-ViT wo
+    (512, 64, 128, "none", True, torch.float32),      # CE-ViT w1
+    (512, 64, 8, "none", False, torch.float32),       # CE-ViT head
+    (4096, 288, 64, "relu", True, torch.float32),     # W held in 2 chunks
+    (512, 512, 512, "none", True, torch.float32),     # Fig. 10's FC GEMM
+    (28672, 54, 32, "relu", True, torch.bfloat16),    # cp.async rows
+    (300, 45, 40, "silu", True, torch.bfloat16),      # odd K: plain loads
 ])
 def test_te_gemm_kernel_matches_twin(dev, m, k, n, epilogue, bias, dtype):
     gen = ofdm.make_generator(m + k + n, dev)
@@ -132,6 +143,9 @@ def test_te_gemm_kernel_matches_twin(dev, m, k, n, epilogue, bias, dtype):
     (8, 200, 200, 128, True, torch.float32),  # ragged query and key tiles
     (4, 70, 130, 32, False, torch.float32),
     (16, 256, 256, 64, False, torch.bfloat16),
+    (32, 64, 64, 48, False, torch.float32),   # D zero-padded to 64
+    (8, 100, 100, 80, True, torch.float32),   # D zero-padded to 128
+    (4, 128, 128, 256, False, torch.float32),
 ])
 def test_mha_kernel_matches_twin(dev, bh, sq, sk, d, causal, dtype):
     gen = ofdm.make_generator(bh + sq + d, dev)
@@ -146,10 +160,70 @@ def test_mha_kernel_matches_twin(dev, bh, sq, sk, d, causal, dtype):
            1e-4 if dtype == torch.float32 else _BF16_RTOL)
 
 
+@pytest.mark.parametrize("m,k,n,bias,dtype", [
+    (512, 64, 300, True, torch.float32),
+    (512, 64, 600, True, torch.float32),
+    (256, 128, 1000, False, torch.float32),
+    (512, 64, 600, True, torch.bfloat16),
+])
+def test_te_gemm_wide_softmax_matches_twin(dev, m, k, n, bias, dtype):
+    """A softmax row wider than one column tile: per-tile logits and
+    (max, sum) pairs, then the normalising pass."""
+    gen = ofdm.make_generator(m + k + n, dev)
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
+    b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype) \
+        if bias else None
+    n0 = _build.launches["te_gemm"]
+    got = te_gemm.te_gemm(x, w, b, epilogue="softmax")
+    assert _build.launches["te_gemm"] == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    _close(got, te_gemm.te_gemm_torch(x, w, b, epilogue="softmax"),
+           1e-4 if dtype == torch.float32 else _BF16_RTOL)
+
+
+def test_kernel_wrappers_refuse_operands_requiring_grad(dev):
+    x = torch.randn(64, 16, device=dev)
+    w = torch.randn(16, 8, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        te_gemm.te_gemm(x, w)
+    q = torch.randn(2, 8, 16, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        mha.mha(q, q, q)
+    with torch.no_grad():  # serving's mode: no graph, no error
+        torch.testing.assert_close(te_gemm.te_gemm(x, w), x @ w, rtol=1e-4,
+                                   atol=1e-4)
+    torch.testing.assert_close(te_gemm.te_gemm(x, w.detach()),
+                               x @ w.detach(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,batch", [("siso-qam16-r12-snr15", 8),
+                                        ("mimo2x2-qam16-r12-snr17", 8),
+                                        ("mimo4x4-qam16-mu-snr18", 8),
+                                        ("mimo4x4-qam16-mu-snr18", 20)])
+def test_ls_che_grid_split_matches_twin(dev, name, batch):
+    """Column slabs of 16 subcarriers x one tx, rows in groups of 64
+    (the MU grid at batch 20 has 80 rows: two groups)."""
+    scn = scenarios.get_scenario(name)
+    g = scn.grid
+    y = torch.fft.fft(coding.make_coded_slot(ofdm.make_generator(3, dev),
+                                             scn, batch)["y_time"],
+                      dim=2).contiguous()
+    op = torch.from_numpy(rx_fused.make_ls_interp_operator(
+        g.n_subcarriers, g.n_tx, g.pilot_stride,
+        ofdm.pilot_sequence_np(g))).to(dev)
+    args = (y, g.pilot_symbols, g.pilot_stride, op)
+    n0 = _build.launches["ls_che"]
+    got = rx_fused.ls_che(*args)
+    assert _build.launches["ls_che"] == n0 + 1
+    torch.testing.assert_close(got, rx_fused.ls_che_torch(*args), rtol=1e-5,
+                               atol=1e-6)
+
+
 def test_neural_wrappers_reject_bad_inputs_on_card(dev):
     x = torch.zeros(4, 8, device=dev)
-    with pytest.raises(ValueError, match="one block"):
-        te_gemm.te_gemm(x, torch.zeros(8, 300, device=dev),
+    with pytest.raises(ValueError, match=r"is not \(M, K\)"):
+        te_gemm.te_gemm(x, torch.zeros(9, 300, device=dev),
                         epilogue="softmax")
     with pytest.raises(TypeError):
         te_gemm.te_gemm(x.double(), torch.zeros(8, 3, device=dev,
@@ -157,8 +231,8 @@ def test_neural_wrappers_reject_bad_inputs_on_card(dev):
     with pytest.raises(ValueError, match="bias"):
         te_gemm.te_gemm(x, torch.zeros(8, 3, device=dev),
                         torch.zeros(4, device=dev))
-    q = torch.zeros(2, 8, 24, device=dev)
-    with pytest.raises(ValueError, match="D=24"):
+    q = torch.zeros(2, 8, 300, device=dev)
+    with pytest.raises(ValueError, match="D=300"):
         mha.mha(q, q, q)
 
 
@@ -306,6 +380,8 @@ def test_sic_and_int8_pipelines_on_card_match_twins(dev, name, kw, kernels):
     (512, 64, 128, "relu", True, "fp8", torch.bfloat16),
     (1000, 288, 32, "none", False, "int8", torch.float32),  # M % 64 != 0
     (256, 256, 256, "softmax", True, "int8", torch.float32),
+    (512, 64, 300, "softmax", True, "int8", torch.float32),   # two passes
+    (512, 64, 300, "softmax", False, "fp8", torch.bfloat16),
 ])
 def test_te_gemm_quant_kernel_matches_twin(dev, m, k, n, epilogue, bias,
                                            precision, out_dtype):
@@ -336,6 +412,8 @@ def test_te_gemm_quant_kernel_matches_twin(dev, m, k, n, epilogue, bias,
     (8, 200, 200, 128, True, "fp8", torch.float32),  # ragged tiles
     (4, 70, 130, 32, False, "int8", torch.float32),
     (16, 256, 256, 64, False, "int8", torch.bfloat16),
+    (4, 128, 128, 48, True, "int8", torch.float32),  # D zero-padded to 64
+    (8, 64, 64, 80, False, "fp8", torch.float32),    # D zero-padded to 128
 ])
 def test_mha_quant_kernel_matches_twin(dev, bh, sq, sk, d, causal,
                                        precision, out_dtype):
@@ -361,6 +439,8 @@ def test_mha_quant_kernel_matches_twin(dev, bh, sq, sk, d, causal,
     (512, 512, 512, True, torch.bfloat16),
     (512, 512, 64, True, torch.float32),    # a cluster of one block
     (37, 45, 333, True, torch.bfloat16),    # K, N not 16-byte rows
+    (512, 128, 600, True, torch.float32),   # wider than a cluster
+    (64, 64, 600, True, torch.bfloat16),
 ])
 def test_fc_softmax_kernel_matches_twin(dev, m, k, n, bias, dtype):
     gen = ofdm.make_generator(m + k + n, dev)
@@ -368,9 +448,11 @@ def test_fc_softmax_kernel_matches_twin(dev, m, k, n, bias, dtype):
     w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5).to(dtype)
     b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype) \
         if bias else None
-    n0 = _build.launches["fc_softmax"]
+    # a row wider than a cluster holds runs on te_gemm's two passes
+    which = "fc_softmax" if n <= fc_softmax.MAX_N else "te_gemm"
+    n0 = _build.launches[which]
     got = fc_softmax.fc_softmax(x, w, b)
-    assert _build.launches["fc_softmax"] == n0 + 1
+    assert _build.launches[which] == n0 + 1
     assert got.dtype == dtype and tuple(got.shape) == (m, n)
     _close(got, fc_softmax.fc_softmax_torch(x, w, b),
            1e-4 if dtype == torch.float32 else _BF16_RTOL)
@@ -381,6 +463,7 @@ def test_fc_softmax_kernel_matches_twin(dev, m, k, n, bias, dtype):
     (2, 16, 8, 128, 128, torch.float32),
     (3, 5, 7, 70, 100, torch.float32),      # ragged C, F and pixels
     (1, 32, 16, 512, 512, torch.bfloat16),
+    (1, 16, 16, 256, 768, torch.float32),   # F > 512: NJ = 32
 ])
 def test_dwconv_block_kernel_matches_twin(dev, b, h, w, c, f, dtype):
     gen = ofdm.make_generator(b + h + c + f, dev)
@@ -423,17 +506,21 @@ def test_block_plans_on_card_agree(dev):
 
 def test_block_wrappers_reject_bad_inputs_on_card(dev):
     x = torch.zeros(4, 8, device=dev)
-    with pytest.raises(ValueError, match="512"):
-        fc_softmax.fc_softmax(x, torch.zeros(8, 513, device=dev))
-    with pytest.raises(ValueError, match="one block"):
+    with pytest.raises(TypeError):
+        fc_softmax.fc_softmax(x.double(), torch.zeros(8, 513, device=dev,
+                                                      dtype=torch.float64))
+    with pytest.raises(ValueError, match=r"is not \(M, K\)"):
+        fc_softmax.fc_softmax(x, torch.zeros(9, 513, device=dev))
+    with pytest.raises(ValueError, match="bias"):
         te_gemm.te_gemm_quant(x, torch.ones(8, 300, device=dev),
+                              torch.zeros(3, device=dev),
                               epilogue="softmax")
-    with pytest.raises(ValueError, match="F=600"):
+    with pytest.raises(ValueError, match="F=1100"):
         dwconv_block.dwconv_block(
             torch.zeros(1, 4, 4, 8, device=dev),
             torch.zeros(3, 3, 8, device=dev),
-            torch.zeros(8, 600, device=dev), torch.zeros(600, device=dev),
-            torch.zeros(600, device=dev))
-    q = torch.zeros(2, 8, 24, device=dev)
-    with pytest.raises(ValueError, match="D=24"):
+            torch.zeros(8, 1100, device=dev), torch.zeros(1100, device=dev),
+            torch.zeros(1100, device=dev))
+    q = torch.zeros(2, 8, 300, device=dev)
+    with pytest.raises(ValueError, match="D=300"):
         mha.mha_quant(q, q, q)

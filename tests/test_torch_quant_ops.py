@@ -194,6 +194,26 @@ def test_mha_quantized_matches_reference_kernel(precision, causal):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [48, 80])
+@pytest.mark.parametrize("precision", _PRECISIONS)
+def test_mha_quantized_padded_head_dim_matches_reference_kernel(precision, d):
+    """A head dimension with no kernel instance: the codes zero-padded
+    along D (``mha.pad_head_dim``, as the CUDA wrapper does) and the twin
+    at the true D's scale, against the reference kernel at D."""
+    q, k, v = _rand(20 + d, *[(2, 64, d)] * 3)
+    jq = [jnp.asarray(a) for a in (q, k, v)]
+    codes = [_to_torch(a) for a in
+             ref_mha.quantize_mha_operands(*jq, precision)]
+    want = np.asarray(ref_mha.mha_quant(*jq, precision=precision,
+                                        causal=True, bq=32, bkv=32,
+                                        interpret=True))
+    padded = mha.pad_head_dim(*codes[:3])
+    assert padded[0].shape[-1] == {48: 64, 80: 128}[d]
+    got = mha.mha_quantized_torch(*padded, *codes[3:], causal=True,
+                                  scale=d ** -0.5)[..., :d]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("precision", _PRECISIONS)
 def test_quantize_mha_operands_matches_reference(precision):
     q, k, v = _rand(6, *[(2, 128, 64)] * 3)

@@ -233,3 +233,106 @@ def test_neural_builders_default_to_cuda(kind):
     assert build(scn, device="cpu").device.type == "cpu"
     rx = build(scn, precision="int8", device="cpu")
     assert rx.name == f"{kind}@int8/{scn.name}" and rx.precision == "int8"
+
+
+def _chip_smoke():
+    import importlib.util
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_grad_guard_refuses_operands_that_require_grad():
+    """The kernels write fresh tensors through ctypes, which autograd
+    cannot see: with grad mode on, an operand that requires grad is
+    refused (every CUDA wrapper reaches the guard through
+    ``require_cuda``, before any device check)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    w = torch.ones(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        _build.require_no_grad("k", torch.ones(3), w)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        _build.require_cuda("k", x=(torch.ones(3), torch.float32),
+                            w=(w, torch.float32))
+    with torch.no_grad():
+        _build.require_no_grad("k", w)
+    _build.require_no_grad("k", w.detach(), torch.ones(3))
+    with pytest.raises(ValueError, match="CUDA"):  # then the device check
+        _build.require_cuda("k", x=(w.detach(), torch.float32))
+
+
+def _static_initializers(text: str) -> list:
+    """The text of every ``static`` variable definition with an
+    initializer, up to its ``;`` at bracket depth 0 (so a lambda's body
+    is included)."""
+    out = []
+    for m in re.finditer(r"\bstatic\b[^;{}()]*=", text):
+        depth, i = 0, m.start()
+        while i < len(text):
+            ch = text[i]
+            if ch in "([{":
+                depth += 1
+            elif ch in ")]}":
+                depth -= 1
+            elif ch == ";" and depth == 0:
+                break
+            i += 1
+        out.append(text[m.start():i])
+    return out
+
+
+def test_no_source_caches_a_device_attribute_process_wide():
+    """The SM count and a kernel's dynamic shared-memory limit belong to
+    one device: no source keeps them in a function-local ``static``
+    initialised once per process; only ``hopper.cuh``'s per-device
+    helpers call ``cudaFuncSetAttribute``."""
+    from repro_torch.kernels import _build
+
+    setters = set()
+    for path in sorted(_build.CSRC.iterdir()):
+        if path.suffix not in (".cu", ".cuh"):
+            continue
+        text = path.read_text()
+        if "cudaFuncSetAttribute(" in text:
+            setters.add(path.name)
+        for init in _static_initializers(text):
+            assert "cudaFuncSetAttribute" not in init, (path.name, init)
+            assert "MultiProcessorCount" not in init, (path.name, init)
+    assert setters == {"hopper.cuh"}
+
+
+def test_device_us_fails_when_the_trace_misses_the_kernel(monkeypatch):
+    """A CUPTI trace without the kernel's events is taken again, up to
+    ``TRACE_TRIES`` times, and then fails the case: never a silent None.
+    A trace that recorded only some of the calls gives the mean per
+    launch; a call's kernels are summed."""
+    smoke = _chip_smoke()
+    tries = []
+
+    def other_kernel(fn, reps):
+        tries.append(reps)
+        return [("void other_kernel<float>(float*)", 3.0)] * reps
+
+    monkeypatch.setattr(smoke, "_trace", other_kernel)
+    with pytest.raises(RuntimeError, match="no CUPTI event"):
+        smoke.device_us(lambda: None, "te_gemm_kernel", reps=4)
+    assert tries == [4] * smoke.TRACE_TRIES and smoke.TRACE_TRIES == 3
+    traces = iter([[], [("te_gemm_kernel<float, 32>", 2.0)] * 3
+                   + [("row_softmax_kernel", 1.0)] * 2])
+    monkeypatch.setattr(smoke, "_trace", lambda fn, reps: next(traces))
+    assert smoke.device_us(lambda: None, smoke.TE_GEMM_SYMBOLS,
+                           reps=4) == 3.0
+    monkeypatch.setattr(smoke, "_trace", lambda fn, reps: [])
+    with pytest.raises(RuntimeError, match="CUPTI"):
+        smoke.device_total_us(lambda: None, reps=4)
+    # two launches of b a call, of a once; some calls not recorded
+    monkeypatch.setattr(smoke, "_trace", lambda fn, reps:
+                        [("a", 1.0)] * 3 + [("b", 2.0)] * 6)
+    assert smoke.device_total_us(lambda: None, reps=4) == 5.0

@@ -12,6 +12,13 @@ block shapes that make the reference walk several K and key tiles:
   to one bf16 rounding step (rtol 2**-7).
 * ``mha``: causal and not, to rtol 1e-5 / atol 1e-6 (a flash softmax over
   tiles against the twin's whole-row softmax).
+
+Two routes the CUDA wrappers add around their kernels are checked here by
+their arithmetic: a softmax row of N = 600 (the kernel ends rows wider
+than its column tile in a second pass; the twin against the reference
+kernel holding the whole row), and head dimensions with no kernel
+instance (48, 80: ``mha.pad_head_dim`` then the twin at the true D's
+scale, against the reference kernel at the unpadded D), to rtol 1e-5.
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -147,3 +154,51 @@ def test_mha_twin_ragged_lengths_match_oracle(causal):
                   torch.from_numpy(v), causal=causal).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-6 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_te_gemm_twin_wide_softmax_matches_reference_kernel(dtype):
+    rng = np.random.default_rng(13)
+    m, k, n = 16, 32, 600
+    x, w, b = _rand(rng, m, k), _rand(rng, k, n) / 4.0, _rand(rng, n)
+    if dtype == torch.bfloat16:  # operands on the bf16 grid in both
+        x, w, b = (a.astype(ml_dtypes.bfloat16).astype(np.float32)
+                   for a in (x, w, b))
+    want = _as_f32(ref_te.te_gemm(
+        _to_jax(x, dtype), _to_jax(w, dtype), _to_jax(b, dtype),
+        epilogue="softmax", block_shape=(16, n, 32), interpret=True))
+    got = te_gemm.te_gemm(_to_torch(x, dtype), _to_torch(w, dtype),
+                          _to_torch(b, dtype), epilogue="softmax")
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    got = _as_f32(got)
+    scale = float(np.abs(want).max())
+    rtol = 1e-5 if dtype == torch.float32 else _BF16_RTOL
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6 * scale)
+    np.testing.assert_allclose(got.sum(axis=-1), 1.0, rtol=3 * _BF16_RTOL)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [48, 80])
+def test_mha_padded_head_dim_matches_reference_kernel(d, causal):
+    rng = np.random.default_rng(17 + d)
+    q, k, v = (_rand(rng, 2, 64, d) for _ in range(3))
+    want = np.asarray(ref_mha.mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bq=32, bkv=32, interpret=True))
+    qp, kp, vp = mha.pad_head_dim(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert qp.shape[-1] == {48: 64, 80: 128}[d]
+    assert torch.equal(qp[..., :d], torch.from_numpy(q))
+    assert not qp[..., d:].any()
+    got = mha.mha_torch(qp, kp, vp, causal=causal,
+                        scale=d ** -0.5)[..., :d].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+
+
+def test_pad_head_dim_keeps_instances_and_refuses_wider():
+    q = torch.ones(1, 4, 64)
+    assert mha.pad_head_dim(q, q)[0] is q
+    assert mha.pad_head_dim(torch.ones(1, 4, 200))[0].shape[-1] == 256
+    with pytest.raises(ValueError, match="D=300"):
+        mha.pad_head_dim(torch.ones(1, 4, 300))
