@@ -15,29 +15,31 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    2x2-16QAM, 4x8-64QAM, SISO-256QAM) at batch 8, ``sic_detect_demap``
    (the MU-MIMO 4x4-16QAM grid, 2x2-16QAM, 4x8-64QAM) at batch 8,
    ``ldpc_decode`` and the int8 ``ldpc_decode_q`` (r12 and r34, 216
-   codewords, at a converging and a non-converging SNR; int8 also at a
-   saturating one), ``te_gemm`` (every GEMM shape of DeepRx and CE-ViT at
+   codewords, at a converging and a non-converging SNR, and r12 at
+   lifting sizes z = 16 and, fp32 only, 384; int8 also at a saturating
+   one; the fp32 posteriors bit for bit), ``te_gemm`` (every GEMM shape
+   of DeepRx and CE-ViT at
    batch 8, every epilogue, softmax rows of 300, 600 and 1000 columns,
    bf16, Fig. 10's FC GEMM and a ragged case), ``mha``
    (CE-ViT's (32, 64, 16), (16, 256, 64) causal and not, bf16, ragged,
-   D = 128, 256 and the zero-padded 48 and 80), ``te_gemm_quant`` (256^3
+   D = 48, 80, 128, 256 and 512, Fig. 10's (4, 128, 128) causal in fp32
+   and bf16), ``te_gemm_quant`` (256^3
    and DeepRx's block conv at int8 and fp8, every epilogue, a ragged, a
    bf16-output and an M % 64 != 0 case, softmax rows of 300; the int8
    product with epilogue none or relu bit for bit),
    ``mha_quant`` ((4, 256, 64)
-   causal and CE-ViT's (32, 64, 16) at int8 and fp8, D = 128, 256, 48
-   and 80, ragged, a bf16 output), ``fc_softmax`` (the paper's 512^3 FC
+   causal and CE-ViT's (32, 64, 16) at int8 and fp8, D = 128, 256, 384,
+   48 and 80, ragged, a bf16 output), ``fc_softmax`` (the paper's 512^3 FC
    block, the reference's test shapes, a ragged row, bf16, a cluster of
    one block, a ragged bf16 row, a 600-column row) and ``dwconv_block``
    (the paper's 32 x 16 x 512 -> 512 block, the reference's test shapes,
-   ragged C and F, bf16, F = 768).
+   ragged C and F, bf16, F = 768 and 1536).
    Each kernel's time per call (CUDA events around the wrapper, so launch
    overhead included) and device time (CUPTI), its plain twin's time, a
    library yardstick's where one PyTorch call computes the same thing
    (per call, and its device time: every kernel it launches, summed),
-   for ``ls_che``, ``te_gemm``, ``te_gemm_quant`` and ``fc_softmax`` the
-   host microseconds per call of the wrapper and of the yardstick
-   (``host_us``), and its bound
+   the host microseconds per call of every wrapper and of the yardstick
+   where one is timed (``host_us``), and its bound
    (the larger of bytes at 3.35 TB/s and operations at the
    peak for the operands' type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 1,979
    TOP/s int8 / fp8) are printed.  A CUPTI trace with none of a case's
@@ -167,19 +169,30 @@ def _device_events(prof) -> list:
 
 def _trace(fn, reps: int) -> list:
     """(name, microseconds) of the device events of ``reps`` calls of
-    ``fn`` under a CUPTI trace, after one untraced call."""
+    ``fn`` under a CUPTI trace, after one untraced call.  A window in
+    which CUPTI recorded no device event at all (every call launches
+    kernels, so the tracer failed) is taken again after a pause, up to
+    :data:`WINDOW_RETAKES` times: late in a process such windows come a
+    few in a row."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    events = []
+    for _ in range(WINDOW_RETAKES):
+        fn()
         torch.cuda.synchronize()
-    return _device_events(prof)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            break
+        time.sleep(0.05)
+    return events
 
 
+WINDOW_RETAKES = 5  # an empty CUPTI window (the tracer failed) is retaken
 TRACE_TRIES = 3  # a trace that holds none of the call's kernels is retaken
 
 
@@ -398,13 +411,14 @@ def check_detect_demap(dev) -> list:
         nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4
                   + n_re * n_tx * (8 + 4 + 4 * 2 * nb))
         bms, by = bound(nbytes, n_re * _detect_flops(n_rx, n_tx, nb))
+        run = lambda: rx_fused.mmse_detect_demap(*args)
         cases.append(dict(
             shape=f"{name} B=8", max_abs_err=err, llr_sign_agree=agree,
             tolerance="x_hat, nv_eff rtol 1e-4 atol 1e-5; LLR rtol 1e-5 "
                       "atol 1e-5 and signs >= 99.9%",
-            ms=time_ms(lambda: rx_fused.mmse_detect_demap(*args)),
-            device_us=device_us(lambda: rx_fused.mmse_detect_demap(*args),
-                                KERNEL_SYMBOLS["mmse_detect_demap"]),
+            ms=time_ms(run),
+            device_us=device_us(run, KERNEL_SYMBOLS["mmse_detect_demap"]),
+            host_us=host_us(run),
             plain_ms=time_ms(
                 lambda: rx_fused.mmse_detect_demap_torch(*args)),
             **library(None), bound_ms=bms, bound_by=by,
@@ -467,13 +481,14 @@ def check_sic(dev) -> list:
         nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4
                   + n_re * n_tx * (8 + 4 + 4 * 2 * nb))
         bms, by = bound(nbytes, n_re * _sic_flops(n_rx, n_tx, nb))
+        run = lambda: rx_fused.sic_detect_demap(*args)
         cases.append(dict(
             shape=f"{name} B=8", max_abs_err=err, bit_exact=exact,
             tolerance="decisions and LLR signs equal; x_hat, nv_eff rtol "
                       "1e-4 atol 1e-5; LLR rtol 1e-5 atol 1e-5",
-            ms=time_ms(lambda: rx_fused.sic_detect_demap(*args)),
-            device_us=device_us(lambda: rx_fused.sic_detect_demap(*args),
-                                KERNEL_SYMBOLS["sic_detect_demap"]),
+            ms=time_ms(run),
+            device_us=device_us(run, KERNEL_SYMBOLS["sic_detect_demap"]),
+            host_us=host_us(run),
             plain_ms=time_ms(lambda: rx_fused.sic_detect_demap_torch(*args),
                              reps=10),
             **library(None), bound_ms=bms, bound_by=by,
@@ -507,18 +522,23 @@ def check_ldpc(dev) -> list:
     from repro_torch.phy import coding
 
     cases = []
-    for rate, snrs in (("r12", (3.0, -6.0)), ("r34", (6.0, -6.0))):
-        code = coding.make_code(rate)
+    # z = 384 (5G's largest lifting size) runs ldpc_minsum_kernel_any
+    for rate, z, snrs in (("r12", 32, (3.0, -6.0)), ("r34", 32, (6.0, -6.0)),
+                          ("r12", 16, (3.0,)), ("r12", 384, (3.0,))):
+        code = coding.make_code(rate, z=z)
         n_edges = sum(len(e) for e in code.layers())
         for snr in snrs:
             llr = _code_llrs(code, 216, snr, dev)
             post, iters = ldpc.ldpc_decode(llr, code)
             post_t, iters_t = ldpc.ldpc_decode_torch(llr, code)
             torch.cuda.synchronize()
+            label = f"{rate}{'' if z == 32 else f' z={z}'}@{snr}dB"
             check(torch.equal(iters, iters_t),
-                  f"ldpc[{rate}@{snr}dB] iteration counts differ")
+                  f"ldpc[{label}] iteration counts differ")
             check(torch.equal(post > 0, post_t > 0),
-                  f"ldpc[{rate}@{snr}dB] hard bits differ")
+                  f"ldpc[{label}] hard bits differ")
+            check(torch.equal(post, post_t),
+                  f"ldpc[{label}] posteriors differ")
             err = float((post - post_t).abs().max())
             it = iters.long()
             # ~10 fp32 ops per edge and lifted row per sweep, 2 per edge
@@ -527,14 +547,16 @@ def check_ldpc(dev) -> list:
                            * code.z).sum())
             nbytes = 2 * llr.numel() * 4 + iters.numel() * 4
             bms, by = bound(nbytes, flops)
+            run = lambda: ldpc.ldpc_decode(llr, code)
             cases.append(dict(
-                shape=f"{rate} {snr:+.0f}dB 216cw", max_abs_err=err,
-                tolerance="hard bits and iteration counts exact",
+                shape=f"{rate}{'' if z == 32 else f' z={z}'} {snr:+.0f}dB "
+                      f"216cw", max_abs_err=err,
+                tolerance="hard bits, posteriors and iteration counts exact",
                 iters_hist=torch.bincount(iters.long(),
                                           minlength=13).tolist(),
-                ms=time_ms(lambda: ldpc.ldpc_decode(llr, code)),
-                device_us=device_us(lambda: ldpc.ldpc_decode(llr, code),
-                                    KERNEL_SYMBOLS["ldpc_decode"]),
+                ms=time_ms(run),
+                device_us=device_us(run, KERNEL_SYMBOLS["ldpc_decode"]),
+                host_us=host_us(run),
                 plain_ms=time_ms(lambda: ldpc.ldpc_decode_torch(llr, code),
                                  reps=20, warmup=1),
                 **library(None), bound_ms=bms, bound_by=by,
@@ -553,9 +575,11 @@ def check_ldpc_q(dev) -> list:
     from repro_torch.phy import coding
 
     cases = []
-    for rate, points in (("r12", ((3.0, 1.0), (-6.0, 1.0), (3.0, 8.0))),
-                         ("r34", ((6.0, 1.0), (-6.0, 1.0)))):
-        code = coding.make_code(rate)
+    for rate, z, points in (
+            ("r12", 32, ((3.0, 1.0), (-6.0, 1.0), (3.0, 8.0))),
+            ("r34", 32, ((6.0, 1.0), (-6.0, 1.0))),
+            ("r12", 16, ((3.0, 1.0),))):
+        code = coding.make_code(rate, z=z)
         n_edges = sum(len(e) for e in code.layers())
         for snr, gain in points:
             llr = (_code_llrs(code, 216, snr, dev) * gain).contiguous()
@@ -564,7 +588,8 @@ def check_ldpc_q(dev) -> list:
             post_t, iters_t = ldpc.ldpc_decode_torch(llr, code,
                                                      precision="int8")
             torch.cuda.synchronize()
-            label = f"{rate} {snr:+.0f}dB{' x8' if gain != 1 else ''}"
+            label = (f"{rate}{'' if z == 32 else f' z={z}'} {snr:+.0f}dB"
+                     f"{' x8' if gain != 1 else ''}")
             check(torch.equal(iters, iters_t),
                   f"ldpc int8[{label}] iteration counts differ")
             check(torch.equal(post, post_t),
@@ -583,6 +608,7 @@ def check_ldpc_q(dev) -> list:
                 iters_hist=torch.bincount(it, minlength=13).tolist(),
                 ms=time_ms(run),
                 device_us=device_us(run, KERNEL_SYMBOLS["ldpc_decode_q"]),
+                host_us=host_us(run),
                 plain_ms=time_ms(lambda: ldpc.ldpc_decode_torch(
                     llr, code, precision="int8"), reps=10, warmup=1),
                 **library(None), bound_ms=bms, bound_by=by,
@@ -709,9 +735,12 @@ MHA_CASES = (
     (16, 256, 256, 64, False, "bfloat16"),
     (8, 200, 200, 128, True, "float32"),
     (4, 70, 130, 32, False, "float32"),
-    (32, 64, 64, 48, False, "float32"),   # D zero-padded to 64
-    (8, 100, 100, 80, True, "float32"),   # D zero-padded to 128
-    (4, 128, 128, 256, False, "float32"),
+    (32, 64, 64, 48, False, "float32"),
+    (8, 100, 100, 80, True, "float32"),
+    (4, 128, 128, 256, False, "float32"),   # two output slabs of D
+    (4, 128, 128, 128, True, "float32"),    # Fig. 10's MHA block
+    (4, 128, 128, 128, True, "bfloat16"),
+    (4, 128, 128, 512, False, "float32"),   # four output slabs of D
 )
 
 
@@ -739,15 +768,16 @@ def check_mha(dev) -> list:
         nbytes = q.element_size() * bh * d * (2 * sq + 2 * sk)
         bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
                         else BF16_FLOPS)
+        run = lambda: mha.mha(q, k, v, causal=causal)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                     is_causal=causal)
         cases.append(dict(
             shape=label, max_abs_err=err, tolerance=_tolerance(dtype)[1],
-            ms=time_ms(lambda: mha.mha(q, k, v, causal=causal)),
-            device_us=device_us(lambda: mha.mha(q, k, v, causal=causal),
-                                KERNEL_SYMBOLS["mha"]),
+            ms=time_ms(run), device_us=device_us(run, KERNEL_SYMBOLS["mha"]),
+            host_us=host_us(run),
             plain_ms=time_ms(lambda: mha.mha_torch(q, k, v, causal=causal)),
-            **library(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal)),
-            bound_ms=bms, bound_by=by,
+            **library(lib), library_call="F.scaled_dot_product_attention",
+            library_host_us=host_us(lib), bound_ms=bms, bound_by=by,
         ))
     return cases
 
@@ -865,6 +895,7 @@ MHA_QUANT_CASES = (
     (4, 128, 128, 48, True, "int8", "float32"),   # D zero-padded to 64
     (8, 64, 64, 80, False, "fp8", "float32"),     # D zero-padded to 128
     (4, 128, 128, 256, False, "int8", "float32"),
+    (4, 128, 128, 384, True, "int8", "float32"),  # two output slabs of D
 )
 
 
@@ -897,7 +928,7 @@ def check_mha_quant(dev) -> list:
             shape=label, max_abs_err=err, tolerance=_tolerance(out_dtype)[1],
             ms=time_ms(run),
             device_us=device_us(run, KERNEL_SYMBOLS["mha_quant"]),
-            plain_ms=time_ms(twin), **library(None),
+            host_us=host_us(run), plain_ms=time_ms(twin), **library(None),
             bound_ms=bms, bound_by=by,
         ))
     return cases
@@ -976,6 +1007,7 @@ DWCONV_CASES = (
     ("ragged", 3, 5, 7, 70, 100, "float32"),
     ("paper block bf16", 1, 32, 16, 512, 512, "bfloat16"),
     ("F=768", 1, 16, 16, 256, 768, "float32"),
+    ("F=1536 (a cluster of 2)", 1, 16, 16, 256, 1536, "float32"),
 )
 
 
@@ -1009,7 +1041,7 @@ def check_dwconv_block(dev) -> list:
             shape=f"{label} B={b} {h}x{w}x{c} -> {f} {dt}", max_abs_err=err,
             tolerance=_tolerance(dtype)[1], ms=time_ms(run),
             device_us=device_us(run, KERNEL_SYMBOLS["dwconv_block"]),
-            plain_ms=time_ms(twin), **library(None),
+            host_us=host_us(run), plain_ms=time_ms(twin), **library(None),
             bound_ms=bms, bound_by=by,
         ))
     return cases

@@ -26,17 +26,29 @@
 // product into its registers.  After the last slice each warp takes the
 // mean and the variance of each pixel's F values by shuffles, normalises,
 // applies gamma / beta and ReLU, and stores once.  Pixels past H*W,
-// channels past C and outputs past F are masked: any H, W, C and B work,
-// and F above 1024 is refused.  The reference walks C in blocks of 128
+// channels past C and outputs past F are masked: any H, W, C and B work.
+// F above 1024 is split over a thread-block cluster of ceil(F / 1024) <= 8
+// blocks, each holding an equal slab (<= 1024 channels) of the same 8
+// pixels; the LayerNorm meets through distributed shared memory in two
+// exchanges, the reference's two passes: the slabs' partial sums give mu,
+// then their partial sums of (acc - mu)^2 give var.  F above 8192 is
+// refused.  The reference walks C in blocks of 128
 // that must divide it; the port masks the last slice instead.  x is
 // fp32 or bf16; the filters arrive in fp32.  wgmma for the pointwise
 // product is later work.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int WARPS = 4;
+constexpr int MAX_CLUSTER = 8;  // blocks a row of F is split over
+constexpr int SLAB = 1024;      // channels a block holds at most
 constexpr int TM = 2;  // pixels per warp
 constexpr int BP = WARPS * TM;
 constexpr int BC = 16;
@@ -55,23 +67,31 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T, int NJ>
+// CL: one of a cluster's blocks, owning output channels [f0, f0 + fw)
+template <typename T, int NJ, bool CL>
 __global__ void __launch_bounds__(NT)
 dwconv_block_kernel(const T* __restrict__ x, const float* __restrict__ dw,
                     const float* __restrict__ pw,
                     const float* __restrict__ gamma,
                     const float* __restrict__ beta, T* __restrict__ out,
-                    int h, int w, int c, int f, float eps) {
+                    int h, int w, int c, int f, int fw, float eps) {
   constexpr int BN = 32 * NJ;
   constexpr int KB = NJ > 16 ? BC / 2 : BC;  // channels a slice: pws 32 KB
   __shared__ float ys[KB][BP];  // depthwise output slice: ys[ch][pixel]
   __shared__ float pws[KB][BN];
+  __shared__ float part[2][BP];  // CL: a slab's sum, then sum of squares
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b = blockIdx.y;
-  const int p0 = blockIdx.x * BP;
+  int tile = blockIdx.x, f0 = 0;
+  if constexpr (CL) {
+    tile = blockIdx.x / cg::this_cluster().num_blocks();
+    f0 = (int)cg::this_cluster().block_rank() * fw;
+  }
+  const int fend = min(f, f0 + fw);  // this block's channels end
+  const int p0 = tile * BP;
   const int hw = h * w;
   const int wp = w + 2;
   const T* xb = x + (size_t)b * (h + 2) * wp * c;
@@ -101,7 +121,8 @@ dwconv_block_kernel(const T* __restrict__ x, const float* __restrict__ dw,
     for (int i = tid; i < KB * BN; i += NT) {
       const int r = i / BN, col = i % BN;
       const int ch = c0 + r;
-      pws[r][col] = (ch < c && col < f) ? pw[(size_t)ch * f + col] : 0.f;
+      pws[r][col] =
+          (ch < c && f0 + col < fend) ? pw[(size_t)ch * f + f0 + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -119,40 +140,78 @@ dwconv_block_kernel(const T* __restrict__ x, const float* __restrict__ dw,
     __syncthreads();
   }
 
+  // LayerNorm over F: each pixel's sum, then its sum of (acc - mu)^2, each
+  // within a warp and, for a cluster, over every block's slab
+  float mu[TM], inv[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int p = p0 + warp * TM + i;
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (lane + 32 * j < f) sum += acc[i][j];
+      if (f0 + lane + 32 * j < fend) sum += acc[i][j];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mu = sum / (float)f;
+    mu[i] = sum;
+    if (CL && lane == 0) part[0][warp * TM + i] = sum;
+  }
+  if constexpr (CL) {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float sum = 0.f;
+      for (unsigned r = 0; r < cl.num_blocks(); ++r)
+        sum += cl.map_shared_rank(&part[0][0], r)[warp * TM + i];
+      mu[i] = sum;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    mu[i] /= (float)f;
     float sq = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      if (lane + 32 * j < f) {
-        const float d = acc[i][j] - mu;
+      if (f0 + lane + 32 * j < fend) {
+        const float d = acc[i][j] - mu[i];
         sq += d * d;
       }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float inv = rsqrtf(sq / (float)f + eps);
+    inv[i] = sq;
+    if (CL && lane == 0) part[1][warp * TM + i] = sq;
+  }
+  if constexpr (CL) {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float sq = 0.f;
+      for (unsigned r = 0; r < cl.num_blocks(); ++r)
+        sq += cl.map_shared_rank(&part[1][0], r)[warp * TM + i];
+      inv[i] = sq;
+    }
+    hopper::cluster_arrive();  // this block has read every partial it needs
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int p = p0 + warp * TM + i;
+    inv[i] = rsqrtf(inv[i] / (float)f + eps);
     if (p >= hw) continue;
     T* o_row = out + ((size_t)b * hw + p) * f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int col = lane + 32 * j;
-      if (col < f) {
-        const float z = (acc[i][j] - mu) * inv * gamma[col] + beta[col];
+      const int col = f0 + lane + 32 * j;
+      if (col < fend) {
+        const float z = (acc[i][j] - mu[i]) * inv[i] * gamma[col] + beta[col];
         o_row[col] = from_f32<T>(fmaxf(z, 0.f));
       }
     }
   }
+  // no block leaves while another may read its partials
+  if constexpr (CL) hopper::cluster_wait();
 }
 
 template <typename T, int NJ>
@@ -161,10 +220,39 @@ int launch(const void* x, const float* dw, const float* pw,
            int w, int c, int f, float eps, cudaStream_t stream) {
   const dim3 grid((h * w + BP - 1) / BP, b);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  dwconv_block_kernel<T, NJ><<<grid, NT, 0, stream>>>(
+  dwconv_block_kernel<T, NJ, false><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(x), dw, pw, gamma, beta, static_cast<T*>(out), h,
-      w, c, f, eps);
+      w, c, f, f, eps);
   return (int)cudaGetLastError();
+}
+
+// F > SLAB: a cluster of ceil(F / SLAB) blocks per 8 pixels, each holding
+// an equal slab of F (a multiple of 32 channels)
+template <typename T>
+int launch_cluster(const void* x, const float* dw, const float* pw,
+                   const float* gamma, const float* beta, void* out, int b,
+                   int h, int w, int c, int f, float eps,
+                   cudaStream_t stream) {
+  const int cs = (f + SLAB - 1) / SLAB;
+  const int fw = ((f + cs - 1) / cs + 31) / 32 * 32;
+  const long long tiles = (h * (long long)w + BP - 1) / BP;
+  if (b > 65535 || tiles * cs > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * cs), b);
+  cfg.blockDim = dim3(NT);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, dwconv_block_kernel<T, 32, true>, static_cast<const T*>(x), dw,
+      pw, gamma, beta, static_cast<T*>(out), h, w, c, f, fw, eps);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T>
@@ -177,8 +265,11 @@ int dispatch(const void* x, const float* dw, const float* pw,
     return launch<T, 8>(x, dw, pw, gamma, beta, out, b, h, w, c, f, eps, s);
   if (f <= 512)
     return launch<T, 16>(x, dw, pw, gamma, beta, out, b, h, w, c, f, eps, s);
-  if (f <= 1024)
+  if (f <= SLAB)
     return launch<T, 32>(x, dw, pw, gamma, beta, out, b, h, w, c, f, eps, s);
+  if (f <= SLAB * MAX_CLUSTER)
+    return launch_cluster<T>(x, dw, pw, gamma, beta, out, b, h, w, c, f, eps,
+                             s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -186,7 +277,7 @@ int dispatch(const void* x, const float* dw, const float* pw,
 
 // x (b, h+2, w+2, c) pre-padded, contiguous, dtype 0 = float32, 1 =
 // bfloat16; dw (3, 3, c), pw (c, f), gamma and beta (f,) fp32; out
-// (b, h, w, f) in x's dtype; f <= 1024.  Returns the launch's cudaError_t.
+// (b, h, w, f) in x's dtype; f <= 8192.  Returns the launch's cudaError_t.
 extern "C" int dwconv_block_launch(const void* x, const void* dw,
                                    const void* pw, const void* gamma,
                                    const void* beta, void* out, int b, int h,

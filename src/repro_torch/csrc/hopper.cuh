@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels (te_gemm.cu, te_gemm_quant.cu, fc_softmax.cu): per-device
+// kernels (te_gemm.cu, te_gemm_quant.cu, fc_softmax.cu, mha.cu) and the
+// kernels that size their shared memory per device: per-device
 // launch facts, asynchronous copies into shared memory, the proxy fence
 // that makes them visible to the tensor cores, descriptors of
 // 128-byte-swizzled shared-memory tiles, and the warpgroup matrix
@@ -215,35 +216,72 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
-// Host side: a 2-D row-major tensor of rows x cols elements of elem_bytes
-// each, read in boxes of box_rows x box_cols (box_cols * elem_bytes <=
-// 128) into the 128-byte-swizzled layout above, zero past its edges.
-// The driver's encoder is looked up through the runtime, once.  Needs a
-// 16-byte aligned base and row pitch; false if the driver refuses.
-inline bool tma_map_2d(CUtensorMap* map, const void* base,
-                       CUtensorMapDataType type, int elem_bytes,
-                       uint64_t rows, uint64_t cols, uint32_t box_rows,
-                       uint32_t box_cols) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static const Encode encode = [] {
+// the box of a 3-D tensor map at (c0 inner, c1, c2 outer)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Host side: cuTensorMapEncodeTiled, looked up through the runtime's
+// entry-point query once (null if it is not found)
+using TmaEncode = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+inline TmaEncode tma_encoder() {
+  static const TmaEncode encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
     if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
                                 cudaEnableDefault, &found) != cudaSuccess ||
         found != cudaDriverEntryPointSuccess)
-      return static_cast<Encode>(nullptr);
-    return reinterpret_cast<Encode>(fn);
+      return static_cast<TmaEncode>(nullptr);
+    return reinterpret_cast<TmaEncode>(fn);
   }();
+  return encode;
+}
+
+// A 2-D row-major tensor of rows x cols elements of elem_bytes each, read
+// in boxes of box_rows x box_cols (box_cols * elem_bytes <= 128) into the
+// 128-byte-swizzled layout above, zero past its edges.  Needs a 16-byte
+// aligned base and row pitch; false if the encoder refuses.
+inline bool tma_map_2d(CUtensorMap* map, const void* base,
+                       CUtensorMapDataType type, int elem_bytes,
+                       uint64_t rows, uint64_t cols, uint32_t box_rows,
+                       uint32_t box_cols) {
+  const TmaEncode encode = tma_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * elem_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same over a stack of `mats` such matrices (mats, rows, cols): a box
+// never crosses from one matrix into the next, and reads zero past rows.
+inline bool tma_map_3d(CUtensorMap* map, const void* base,
+                       CUtensorMapDataType type, int elem_bytes,
+                       uint64_t mats, uint64_t rows, uint64_t cols,
+                       uint32_t box_rows, uint32_t box_cols) {
+  const TmaEncode encode = tma_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {cols, rows, mats};
+  const cuuint64_t strides[2] = {cols * elem_bytes, rows * cols * elem_bytes};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
                 unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -465,6 +503,65 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[8], uint64_t a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// bf16 with A from registers (K = 16 a step; a[0..3] hold rows
+// 16 warp + lane / 4 (+ 8 for a[1], a[3]) at columns 2 (lane % 4) and
+// the next (+ 8 for a[2], a[3]), two values a register, the lower column
+// in the low half: the m64nNk16 accumulator layout of 16 columns), B
+// K-major from shared memory
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 }  // namespace hopper

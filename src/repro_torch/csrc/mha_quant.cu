@@ -26,12 +26,20 @@
 // at the loads and the store, so the source has one instance per head
 // dimension, D in {16, 32, 64, 128, 256} (any other D <= 256 zero-padded
 // by the wrapper, with the true D's scale), and builds in its own nvcc
-// process beside mha.cu.  8-bit wgmma for QK^T and PV is later work.
+// process beside mha.cu.  A D above 256 runs mha_quant_kernel_wide: a
+// grid axis over output slabs of 256 columns, each slab's block computing
+// the scores over the whole D from chunks of 256 dims of q and k staged
+// (dequantized) in shared memory in place of registers, and reading its
+// slab of V.  8-bit wgmma for QK^T and PV is later work.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -148,6 +156,147 @@ mha_quant_kernel(const uint8_t* __restrict__ q, const uint8_t* __restrict__ k,
   }
 }
 
+// D > 256: blockIdx.z is the output slab [dv0, dv0 + WD); the block's
+// rows and threads as the D = 256 instance's
+constexpr int WD = 256;
+
+__global__ void __launch_bounds__(Shape<WD>::NT)
+mha_quant_kernel_wide(const uint8_t* __restrict__ q,
+                      const uint8_t* __restrict__ k,
+                      const uint8_t* __restrict__ v,
+                      const float* __restrict__ qs,
+                      const float* __restrict__ ks,
+                      const float* __restrict__ vs, void* __restrict__ out,
+                      int sq, int sk, int d, int causal, float scale, int fp8,
+                      int out_bf16) {
+  using S = Shape<WD>;
+  extern __shared__ float wide_smem[];
+  float* qsh = wide_smem;         // S::BQ x WD: a chunk of pre-scaled q
+  float* ksh = qsh + S::BQ * WD;  // S::BKV x WD: the same chunk of k
+  float* vsh = ksh + S::BKV * WD;  // S::BKV x WD: the slab of v
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * S::BQ;
+  const int dv0 = blockIdx.z * WD;
+  const int row = threadIdx.x / S::TPR;
+  const int d0 = (threadIdx.x % S::TPR) * S::DT;
+  const int q_pos = q0 + row;
+  const bool live = q_pos < sq;
+  const float q_scale = qs[bh] * ks[bh] * scale;
+  const uint8_t* qb = q + (size_t)bh * sq * d;
+  const uint8_t* kb = k + (size_t)bh * sk * d;
+  const uint8_t* vb = v + (size_t)bh * sk * d;
+
+  float acc[S::DT];
+#pragma unroll
+  for (int i = 0; i < S::DT; ++i) acc[i] = 0.f;
+  float m = kMaskFill, l = 0.f;
+
+  const int kv_end = causal ? min(sk, q0 + S::BQ) : sk;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += S::BKV) {
+    float s[S::BKV];
+#pragma unroll
+    for (int j = 0; j < S::BKV; ++j) s[j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += WD) {
+      __syncthreads();  // the last chunk's reads are done
+      for (int i = threadIdx.x; i < S::BQ * WD; i += S::NT) {
+        const int r = i / WD, dd = c0 + i % WD;
+        qsh[i] = q0 + r < sq && dd < d
+                     ? decode(qb[(size_t)(q0 + r) * d + dd], fp8) * q_scale
+                     : 0.f;
+      }
+      for (int i = threadIdx.x; i < S::BKV * WD; i += S::NT) {
+        const int j = i / WD, dd = c0 + i % WD;
+        ksh[i] = kv0 + j < sk && dd < d
+                     ? decode(kb[(size_t)(kv0 + j) * d + dd], fp8) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < S::BKV; ++j) {
+        float dot = 0.f;
+#pragma unroll
+        for (int dd = 0; dd < S::DT; ++dd)
+          dot += qsh[row * WD + d0 + dd] * ksh[j * WD + d0 + dd];
+        s[j] += dot;
+      }
+    }
+    for (int i = threadIdx.x; i < S::BKV * WD; i += S::NT) {
+      const int j = i / WD, dd = dv0 + i % WD;
+      vsh[i] = kv0 + j < sk && dd < d
+                   ? decode(vb[(size_t)(kv0 + j) * d + dd], fp8) : 0.f;
+    }
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < S::BKV; ++j) {
+      float dot = s[j];
+#pragma unroll
+      for (int o = S::TPR / 2; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      const int k_pos = kv0 + j;
+      if (k_pos >= sk) {
+        dot = -CUDART_INF_F;  // past the keys: not part of the softmax
+      } else if (causal && q_pos < k_pos) {
+        dot = kMaskFill;
+      }
+      s[j] = dot;
+      mx = fmaxf(mx, dot);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < S::BKV; ++j) {
+      s[j] = expf(s[j] - m_new);
+      psum += s[j];
+    }
+    l = l * corr + psum;
+    __syncthreads();  // the v slab is in
+#pragma unroll
+    for (int dd = 0; dd < S::DT; ++dd) {
+      float pv = 0.f;
+#pragma unroll
+      for (int j = 0; j < S::BKV; ++j) pv += s[j] * vsh[j * WD + d0 + dd];
+      acc[dd] = acc[dd] * corr + pv;
+    }
+    m = m_new;
+  }
+
+  if (live) {
+    const float post = vs[bh] / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int dd = 0; dd < S::DT; ++dd) {
+      const int col = dv0 + d0 + dd;
+      if (col >= d) break;
+      const size_t at = ((size_t)bh * sq + q_pos) * d + col;
+      if (out_bf16) {
+        static_cast<__nv_bfloat16*>(out)[at] =
+            __float2bfloat16(acc[dd] * post);
+      } else {
+        static_cast<float*>(out)[at] = acc[dd] * post;
+      }
+    }
+  }
+}
+
+int launch_wide(const void* q, const void* k, const void* v, const float* qs,
+                const float* ks, const float* vs, void* out, int bh, int sq,
+                int sk, int d, int causal, float scale, int fp8,
+                int out_bf16, cudaStream_t stream) {
+  using S = Shape<WD>;
+  constexpr int smem = sizeof(float) * WD * (S::BQ + 2 * S::BKV);  // 64 KB
+  static std::atomic<unsigned long long> smem_set{0};  // per device
+  const cudaError_t attr = hopper::allow_dynamic_smem(
+      mha_quant_kernel_wide, smem, smem_set, hopper::current_device());
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(bh, (sq + S::BQ - 1) / S::BQ, (d + WD - 1) / WD);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  mha_quant_kernel_wide<<<grid, S::NT, smem, stream>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(v), qs, ks, vs, out, sq, sk, d, causal,
+      scale, fp8, out_bf16);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const float* qs,
            const float* ks, const float* vs, void* out, int bh, int sq,
@@ -166,7 +315,8 @@ int launch(const void* q, const void* k, const void* v, const float* qs,
 
 // q (bh, sq, d), k and v (bh, sk, d): contiguous codes of one type, qtype
 // 0 = int8, 1 = e4m3; qs, ks, vs (bh,) fp32 scales; out (bh, sq, d) fp32
-// (out_bf16 = 0) or bf16 (1); d in {16, 32, 64, 128, 256}; scale is the
+// (out_bf16 = 0) or bf16 (1); d in {16, 32, 64, 128, 256} or above 256
+// (split into output slabs); scale is the
 // true head dimension's ^-0.5 as the caller rounds it.  Returns the
 // launch's cudaError_t.
 extern "C" int mha_quant_launch(const void* q, const void* k, const void* v,
@@ -197,6 +347,9 @@ extern "C" int mha_quant_launch(const void* q, const void* k, const void* v,
       return launch<256>(q, k, v, a, b, c, out, bh, sq, sk, causal, scale,
                          qtype, out_bf16, s);
     default:
+      if (d > WD)
+        return launch_wide(q, k, v, a, b, c, out, bh, sq, sk, d, causal,
+                           scale, qtype, out_bf16, s);
       return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,9 +6,10 @@
 
 :func:`dwconv_block` runs the plain PyTorch twin (:func:`dwconv_block_torch`)
 only because the tensor it was given lies on the CPU; on a CUDA tensor it
-launches ``csrc/dwconv_block.cu`` (a block owns 8 pixels and all F <=
-:data:`MAX_F` output channels; the depthwise plane and the pointwise
-accumulator never reach device memory) or raises.
+launches ``csrc/dwconv_block.cu`` (a block owns 8 pixels and all their F
+output channels up to 1024, a cluster of up to 8 blocks splits a wider F
+up to :data:`MAX_F`; the depthwise plane and the pointwise accumulator
+never reach device memory) or raises.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 from repro_torch.kernels import _build
 
 EPS = 1e-5
-MAX_F = 1024  # the widest output row one block of the kernel holds
+MAX_F = 8192  # the widest output row: 8 blocks of a cluster, 1024 each
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,7 +59,8 @@ def dwconv_block_cuda(x_padded: torch.Tensor, dw: torch.Tensor,
                       pw: torch.Tensor, gamma: torch.Tensor,
                       beta: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Launch ``csrc/dwconv_block.cu``: one block per 8 pixels of an
-    image; the filters in fp32."""
+    image (a cluster of ceil(F / 1024) blocks above F = 1024); the filters
+    in fp32."""
     if x_padded.ndim != 4 or x_padded.shape[1] < 3 or x_padded.shape[2] < 3:
         raise ValueError(f"dwconv_block: x {tuple(x_padded.shape)} is not "
                          f"(B, H+2, W+2, C)")
@@ -75,7 +77,8 @@ def dwconv_block_cuda(x_padded: torch.Tensor, dw: torch.Tensor,
                          f"{tuple(x_padded.shape)} -> F={f}")
     if f > MAX_F:
         raise ValueError(f"dwconv_block kernel holds at most {MAX_F} output "
-                         f"channels in one block, got F={f}")
+                         f"channels (a cluster of 8 blocks of 1024), got "
+                         f"F={f}")
     if x_padded.dtype not in _DTYPE_CODE:
         raise TypeError(f"dwconv_block kernel takes float32 or bfloat16, "
                         f"got {x_padded.dtype}")

@@ -5,17 +5,20 @@ output in q's dtype.
 
 :func:`mha` runs the plain PyTorch twin (:func:`mha_torch`, the reference
 oracle's arithmetic) only because the tensor it was given lies on the CPU;
-on a CUDA tensor it launches ``csrc/mha.cu`` (online softmax over key
-tiles, scores never in device memory) or raises.  The kernels have
-instances for D in :data:`HEAD_DIMS`; any other D up to the widest is
-zero-padded to the next (:func:`pad_head_dim`) and run with the true D's
-scale, and the output is cut back to D.
+on a CUDA tensor it launches ``csrc/mha.cu`` (tensor cores, online softmax
+over key tiles, scores never in device memory) or raises.  It takes any
+D: the kernel tiles the output's D over a grid axis, and the wrapper only
+zero-pads D to a 16-byte row pitch (:func:`align_head_dim`), run with the
+true D's scale and cut back.
 
 The quantized attention (``mha_quant`` of the reference) splits as the
 reference's does: :func:`quantize_mha_operands` (torch ops: int8 / e4m3
 codes with one fp32 scale per (batch*head) row), then
 :func:`mha_quantized` on the codes, which launches ``csrc/mha_quant.cu``
-on a CUDA tensor and runs :func:`mha_quantized_torch` on a CPU one.
+on a CUDA tensor and runs :func:`mha_quantized_torch` on a CPU one.  Its
+kernels have instances for D in :data:`HEAD_DIMS`; any other D up to the
+widest is zero-padded to the next (:func:`pad_head_dim`), and a wider D
+runs the kernel that splits the output's D into slabs of 256.
 :func:`mha_quant` is the two in a row; :func:`mha_quant_torch` is the
 twin of the reference's ``mha_quant_jnp``.
 """
@@ -28,7 +31,7 @@ import torch
 from repro_torch.kernels import _build, quant
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instances
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the quantized kernel's instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
 
@@ -45,17 +48,10 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor,
     return torch.softmax(s, dim=-1) @ v
 
 
-def pad_head_dim(*ts: torch.Tensor) -> tuple:
-    """Each (BH, S, D) operand zero-padded along D to the next kernel
-    instance (as given when D is one).  Zero dims add nothing to a score
-    and make zero output columns, so with the true D's scale the padded
-    attention cut back to D is the unpadded one.  Raises above the
-    widest instance."""
+def _zero_pad(ts: tuple, dp: int) -> tuple:
+    """Each (..., D) operand zero-padded along D to ``dp`` (as given when
+    D is ``dp``)."""
     d = ts[0].shape[-1]
-    dp = next((i for i in HEAD_DIMS if i >= d), None)
-    if dp is None:
-        raise ValueError(f"the mha kernels take D <= {HEAD_DIMS[-1]} "
-                         f"(instances {HEAD_DIMS}), got D={d}")
     if dp == d:
         return ts
     padded = []
@@ -64,6 +60,25 @@ def pad_head_dim(*ts: torch.Tensor) -> tuple:
         z[..., :d] = t
         padded.append(z)
     return tuple(padded)
+
+
+def pad_head_dim(*ts: torch.Tensor) -> tuple:
+    """Each (BH, S, D) operand zero-padded along D to the next instance of
+    the quantized kernel (as given when D is one, or wider than the widest:
+    that kernel splits such a D into slabs).  Zero dims add nothing to a
+    score and make zero output columns, so with the true D's scale the
+    padded attention cut back to D is the unpadded one."""
+    d = ts[0].shape[-1]
+    return _zero_pad(ts, next((i for i in HEAD_DIMS if i >= d), d))
+
+
+def align_head_dim(*ts: torch.Tensor) -> tuple:
+    """Each (BH, S, D) operand zero-padded along D to a row pitch of a
+    multiple of 16 bytes (what the TMA copies of ``csrc/mha.cu`` need), as
+    given when its rows already are."""
+    per = 16 // ts[0].element_size()
+    d = ts[0].shape[-1]
+    return _zero_pad(ts, -(-d // per) * per)
 
 
 def mha_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -88,8 +103,9 @@ def _lib():
 
 def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              causal: bool = True) -> torch.Tensor:
-    """Launch ``csrc/mha.cu``: one block per (bh, 64-row query tile; 32
-    rows at D = 256); D zero-padded to the next instance."""
+    """Launch ``csrc/mha.cu``: a warpgroup per (bh, 64-row query tile,
+    output slab of D), a cluster splitting the keys when that grid is
+    small; D zero-padded to a 16-byte row pitch."""
     if q.ndim != 3 or k.ndim != 3 or tuple(k.shape) != tuple(v.shape) or \
             k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"mha: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -104,7 +120,9 @@ def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{q.dtype}")
     _build.require_cuda("mha", q=(q, q.dtype), k=(k, q.dtype),
                         v=(v, q.dtype))
-    q, k, v = pad_head_dim(q, k, v)
+    q, k, v = align_head_dim(q, k, v)
+    # TMA reads from 16-byte aligned bases (a view may start off one)
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     dp = q.shape[-1]
     out = torch.empty((bh, sq, dp), dtype=q.dtype, device=q.device)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -173,8 +191,8 @@ def mha_quantized_cuda(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
                        out_dtype: torch.dtype = torch.float32
                        ) -> torch.Tensor:
     """Launch ``csrc/mha_quant.cu``: one block per (bh, 64-row query
-    tile; 32 rows at D = 256); the codes zero-padded along D to the next
-    instance."""
+    tile; 32 rows at D >= 256); the codes zero-padded along D to the next
+    instance, or, above 256, a block per output slab of 256 columns."""
     if qq.ndim != 3 or kq.ndim != 3 or tuple(kq.shape) != tuple(vq.shape) \
             or kq.shape[0] != qq.shape[0] or kq.shape[2] != qq.shape[2]:
         raise ValueError(f"mha_quant: q {tuple(qq.shape)}, k "

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro.core import pool as ref_pool
+from repro.kernels import dwconv_block as ref_dw
 from repro.kernels import fc_softmax as ref_fc
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracle
@@ -92,6 +93,18 @@ def test_dwconv_block_matches_reference(h, w, c, f):
     oracle = np.asarray(ref_oracle.dwconv_block_ref(*_j(*args)))
     np.testing.assert_allclose(got, oracle, rtol=5e-4, atol=5e-4)
     assert np.all(got >= 0)  # ReLU'd
+
+
+def test_dwconv_block_twin_wide_row_matches_reference_kernel():
+    """F = 1536, wider than one CUDA block holds (there a cluster of two
+    blocks splits the row and meets for the LayerNorm): the twin against
+    the reference kernel in interpret mode, which holds the whole row."""
+    args = _dw_inputs(15, 1, 4, 4, 128, 1536)
+    want = np.asarray(ref_dw.dwconv_block(*_j(*args), interpret=True))
+    got = dwconv_block.dwconv_block(*_t(*args)).numpy()
+    assert got.shape == (1, 4, 4, 1536)
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
+    assert np.all(got >= 0)
 
 
 def test_block_twins_take_ragged_shapes():

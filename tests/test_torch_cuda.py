@@ -143,9 +143,17 @@ def test_te_gemm_kernel_matches_twin(dev, m, k, n, epilogue, bias, dtype):
     (8, 200, 200, 128, True, torch.float32),  # ragged query and key tiles
     (4, 70, 130, 32, False, torch.float32),
     (16, 256, 256, 64, False, torch.bfloat16),
-    (32, 64, 64, 48, False, torch.float32),   # D zero-padded to 64
-    (8, 100, 100, 80, True, torch.float32),   # D zero-padded to 128
-    (4, 128, 128, 256, False, torch.float32),
+    (32, 64, 64, 48, False, torch.float32),
+    (8, 100, 100, 80, True, torch.float32),
+    (4, 128, 128, 256, False, torch.float32),  # two output slabs of D
+    (4, 128, 128, 128, True, torch.float32),   # Fig. 10's MHA block
+    (4, 128, 128, 128, True, torch.bfloat16),
+    (2, 64, 64, 300, False, torch.float32),    # D > 256: three slabs
+    (2, 64, 64, 300, True, torch.bfloat16),    # rows padded to 304
+    (2, 96, 80, 512, True, torch.float32),
+    (2, 96, 80, 512, False, torch.bfloat16),
+    (3, 70, 130, 40, True, torch.bfloat16),    # ragged Sq != Sk
+    (3, 130, 70, 24, False, torch.float32),
 ])
 def test_mha_kernel_matches_twin(dev, bh, sq, sk, d, causal, dtype):
     gen = ofdm.make_generator(bh + sq + d, dev)
@@ -231,9 +239,9 @@ def test_neural_wrappers_reject_bad_inputs_on_card(dev):
     with pytest.raises(ValueError, match="bias"):
         te_gemm.te_gemm(x, torch.zeros(8, 3, device=dev),
                         torch.zeros(4, device=dev))
-    q = torch.zeros(2, 8, 300, device=dev)
-    with pytest.raises(ValueError, match="D=300"):
-        mha.mha(q, q, q)
+    with pytest.raises(TypeError):
+        mha.mha(*(torch.zeros(2, 8, 300, device=dev,
+                              dtype=torch.float16) for _ in range(3)))
 
 
 @pytest.mark.parametrize("kind", ["deeprx", "cevit"])
@@ -322,6 +330,33 @@ def _code_llrs(rate, n_cw, snr_db, dev, seed=7):
     y = (2 * tx - 1) + math.sqrt(s2) * torch.randn(tx.shape, generator=gen,
                                                    device=dev)
     return code, coding.derate_match(code, 2.0 * y / s2).contiguous()
+
+
+@pytest.mark.parametrize("rate,z,snr_db,precision", [
+    ("r12", 16, 2.0, None), ("r12", 32, 2.0, None), ("r34", 16, 4.0, None),
+    # 85 KB of state for four codewords of the earlier design
+    ("r12", 64, 2.0, None),
+    # 5G's largest lifting size: rows past one block (ldpc_minsum_kernel_any)
+    ("r12", 384, 3.0, None),
+    ("r12", 16, 2.0, "int8"), ("r34", 8, 4.0, "int8"),
+])
+def test_ldpc_kernels_any_lifting_size(dev, rate, z, snr_db, precision):
+    """The fp32 decoder at any z (a block per codeword), the int8 one at
+    z <= 32 (lanes past z idle): posteriors and iteration counts equal to
+    the twin's."""
+    code = coding.make_code(rate, z=z)
+    gen = ofdm.make_generator(z, dev)
+    bits = torch.randint(0, 2, (64, code.k), generator=gen, device=dev)
+    tx = coding.rate_match(code, coding.encode(code, bits)).float()
+    s2 = 10.0 ** (-snr_db / 10.0)
+    y = (2 * tx - 1) + math.sqrt(s2) * torch.randn(tx.shape, generator=gen,
+                                                   device=dev)
+    llr = coding.derate_match(code, 2.0 * y / s2).contiguous()
+    post, iters = ldpc.ldpc_decode(llr, code, precision=precision)
+    post_t, iters_t = ldpc.ldpc_decode_torch(llr, code, precision=precision)
+    assert torch.equal(iters, iters_t)
+    assert torch.equal(post, post_t)
+    assert len(torch.unique(iters)) > 1
 
 
 @pytest.mark.parametrize("rate,snr_db,gain,n_cw", [
@@ -414,6 +449,8 @@ def test_te_gemm_quant_kernel_matches_twin(dev, m, k, n, epilogue, bias,
     (16, 256, 256, 64, False, "int8", torch.bfloat16),
     (4, 128, 128, 48, True, "int8", torch.float32),  # D zero-padded to 64
     (8, 64, 64, 80, False, "fp8", torch.float32),    # D zero-padded to 128
+    (4, 128, 128, 384, True, "int8", torch.float32),  # two slabs of 256
+    (2, 70, 90, 300, False, "fp8", torch.bfloat16),
 ])
 def test_mha_quant_kernel_matches_twin(dev, bh, sq, sk, d, causal,
                                        precision, out_dtype):
@@ -464,6 +501,9 @@ def test_fc_softmax_kernel_matches_twin(dev, m, k, n, bias, dtype):
     (3, 5, 7, 70, 100, torch.float32),      # ragged C, F and pixels
     (1, 32, 16, 512, 512, torch.bfloat16),
     (1, 16, 16, 256, 768, torch.float32),   # F > 512: NJ = 32
+    (1, 8, 8, 256, 1536, torch.float32),    # a cluster of 2 blocks
+    (2, 5, 7, 70, 4096, torch.float32),     # a cluster of 4, ragged
+    (1, 8, 8, 64, 1100, torch.bfloat16),
 ])
 def test_dwconv_block_kernel_matches_twin(dev, b, h, w, c, f, dtype):
     gen = ofdm.make_generator(b + h + c + f, dev)
@@ -515,12 +555,12 @@ def test_block_wrappers_reject_bad_inputs_on_card(dev):
         te_gemm.te_gemm_quant(x, torch.ones(8, 300, device=dev),
                               torch.zeros(3, device=dev),
                               epilogue="softmax")
-    with pytest.raises(ValueError, match="F=1100"):
+    with pytest.raises(ValueError, match="F=9000"):
         dwconv_block.dwconv_block(
             torch.zeros(1, 4, 4, 8, device=dev),
             torch.zeros(3, 3, 8, device=dev),
-            torch.zeros(8, 1100, device=dev), torch.zeros(1100, device=dev),
-            torch.zeros(1100, device=dev))
+            torch.zeros(8, 9000, device=dev), torch.zeros(9000, device=dev),
+            torch.zeros(9000, device=dev))
     q = torch.zeros(2, 8, 300, device=dev)
-    with pytest.raises(ValueError, match="D=300"):
-        mha.mha_quant(q, q, q)
+    with pytest.raises(TypeError):
+        mha.mha_quantized(q, q, q, *(torch.ones(2, 1, device=dev),) * 3)

@@ -135,10 +135,45 @@ def test_max_iters_and_cuda_contract():
                                 coding.make_code("r12"), max_iters=3,
                                 precision="int8")
     assert (iters == 3).all()
-    # the kernel takes one warp lane per lifted row: z == 32 only
-    with pytest.raises(ValueError, match="z == 32"):
-        ldpc.ldpc_decode_cuda(torch.zeros(1, 24 * 16),
-                              coding.make_code("r12", z=16))
+    # the int8 kernel takes one warp lane per lifted row: z <= 32 only
+    # (the fp32 kernel spreads a codeword over a block and takes any z)
+    with pytest.raises(ValueError, match="z <= 32"):
+        ldpc.ldpc_decode_cuda(torch.zeros(1, 24 * 64),
+                              coding.make_code("r12", z=64),
+                              precision="int8")
+
+
+@pytest.mark.parametrize("precision", [None, "int8"], ids=["fp32", "int8"])
+def test_twins_decode_z16_as_jnp_path(precision):
+    """Lifting size z = 16 (the reference's own tests decode it; the CUDA
+    kernels take it too): iteration counts and hard bits equal to the
+    jnp path's, posteriors within 1e-4 for fp32 (XLA contracts
+    multiply-adds) and bit for bit for int8."""
+    code_r = ref_coding.make_code("r12", z=16)
+    code = coding.make_code("r12", z=16)
+    assert code.layers() == code_r.layers()
+    rng = np.random.default_rng(12)
+    bits = rng.integers(0, 2, (16, code.k)).astype(np.int32)
+    tx = np.asarray(jax.jit(lambda b: ref_coding.rate_match(
+        code_r, ref_coding.encode(code_r, b)))(jnp.asarray(bits)))
+    s2 = 10.0 ** (-1.0 / 10.0)
+    y = (2 * tx - 1) + np.sqrt(s2) * rng.standard_normal(tx.shape)
+    llr = np.concatenate(
+        [(2.0 * y / s2).astype(np.float32),
+         np.zeros((16, code.n_mother - code.e_bits), np.float32)], axis=1)
+    post, iters = ldpc.ldpc_decode(torch.from_numpy(llr), code,
+                                   precision=precision)
+    post_r, iters_r = ref_ldpc.ldpc_decode_jnp(jnp.asarray(llr), code_r,
+                                               precision=precision)
+    post, iters = post.numpy(), iters.numpy()
+    assert np.array_equal(iters, np.asarray(iters_r))
+    assert len(np.unique(iters)) > 1
+    assert np.array_equal(post > 0, np.asarray(post_r) > 0)
+    if precision is None:
+        np.testing.assert_allclose(post, np.asarray(post_r), rtol=0,
+                                   atol=1e-4)
+    else:
+        assert np.array_equal(post, np.asarray(post_r))
 
 
 

@@ -215,6 +215,30 @@ def test_mha_quantized_padded_head_dim_matches_reference_kernel(precision, d):
 
 
 @pytest.mark.parametrize("precision", _PRECISIONS)
+def test_mha_quantized_wide_head_dim_matches_reference_kernel(precision):
+    """D = 300, past the widest instance: the CUDA wrapper pads nothing
+    (``mha.pad_head_dim`` keeps it) and the kernel splits the output's D
+    into slabs of 256, each with the whole D's scores; the twin on the
+    codes as they are, and each slab of it, against the reference."""
+    q, k, v = _rand(40, *[(2, 64, 300)] * 3)
+    jq = [jnp.asarray(a) for a in (q, k, v)]
+    codes = [_to_torch(a) for a in
+             ref_mha.quantize_mha_operands(*jq, precision)]
+    want = np.asarray(ref_mha.mha_quant(*jq, precision=precision,
+                                        causal=True, bq=32, bkv=32,
+                                        interpret=True))
+    assert mha.pad_head_dim(*codes[:3])[0] is codes[0]
+    got = mha.mha_quantized(*codes, causal=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    for d0 in (0, 256):
+        slab = mha.mha_quantized_torch(
+            codes[0], codes[1], codes[2][..., d0:d0 + 256].contiguous(),
+            *codes[3:], causal=True, scale=300 ** -0.5)
+        np.testing.assert_allclose(slab.numpy(), want[..., d0:d0 + 256],
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("precision", _PRECISIONS)
 def test_quantize_mha_operands_matches_reference(precision):
     q, k, v = _rand(6, *[(2, 128, 64)] * 3)
     port = mha.quantize_mha_operands(

@@ -19,6 +19,8 @@ than its column tile in a second pass; the twin against the reference
 kernel holding the whole row), and head dimensions with no kernel
 instance (48, 80: ``mha.pad_head_dim`` then the twin at the true D's
 scale, against the reference kernel at the unpadded D), to rtol 1e-5.
+So is ``mha``'s route for D = 300 (rows aligned to 16 bytes, output
+slabs of the whole D's scores), to rtol 1e-5.
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -197,8 +199,46 @@ def test_mha_padded_head_dim_matches_reference_kernel(d, causal):
 
 
 def test_pad_head_dim_keeps_instances_and_refuses_wider():
+    """Instances and D past the widest (the quantized kernel splits such a
+    D into slabs) are kept as given; the rest pads to the next instance."""
     q = torch.ones(1, 4, 64)
     assert mha.pad_head_dim(q, q)[0] is q
     assert mha.pad_head_dim(torch.ones(1, 4, 200))[0].shape[-1] == 256
-    with pytest.raises(ValueError, match="D=300"):
-        mha.pad_head_dim(torch.ones(1, 4, 300))
+    wide = torch.ones(1, 4, 300)
+    assert mha.pad_head_dim(wide)[0] is wide
+
+
+@pytest.mark.parametrize("dtype,dp", [(torch.float32, 300),
+                                      (torch.bfloat16, 304)],
+                         ids=["fp32", "bf16"])
+def test_align_head_dim_pads_to_16_byte_rows(dtype, dp):
+    """``csrc/mha.cu`` takes any D from rows of a multiple of 16 bytes:
+    fp32 D = 300 is one already, bf16's gets 4 zero dims."""
+    q = torch.randn(2, 8, 300).to(dtype)
+    got = mha.align_head_dim(q, q)
+    assert got[0].shape[-1] == dp
+    assert torch.equal(got[0][..., :300], q) and not got[0][..., 300:].any()
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_mha_route_d300_matches_reference_kernel(causal):
+    """D = 300, wider than any TPU tile and than one CUDA block's output
+    slab: the CUDA wrapper's route (align the rows, then the kernel over
+    slabs of D, each with the whole D's scores) is the twin on the
+    aligned operands at the true D's scale, cut back to D."""
+    rng = np.random.default_rng(31)
+    q, k, v = (_rand(rng, 2, 64, 300) for _ in range(3))
+    want = np.asarray(ref_mha.mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        bq=32, bkv=32, interpret=True))
+    qa, ka, va = mha.align_head_dim(*(torch.from_numpy(a) for a in (q, k, v)))
+    got = mha.mha_torch(qa, ka, va, causal=causal,
+                        scale=300 ** -0.5)[..., :300].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+    # each output slab of the kernel's D split is the slab of the whole
+    for d0 in range(0, 300, 128):
+        slab = mha.mha_torch(qa, ka, va[..., d0:d0 + 128], causal=causal,
+                             scale=300 ** -0.5).numpy()
+        np.testing.assert_allclose(slab, want[..., d0:d0 + 128], rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(want).max()))
