@@ -15,9 +15,10 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    2x2-16QAM, 4x8-64QAM, SISO-256QAM) at batch 8, ``sic_detect_demap``
    (the MU-MIMO 4x4-16QAM grid, 2x2-16QAM, 4x8-64QAM) at batch 8,
    ``ldpc_decode`` and the int8 ``ldpc_decode_q`` (r12 and r34, 216
-   codewords, at a converging and a non-converging SNR, and r12 at
-   lifting sizes z = 16 and, fp32 only, 384; int8 also at a saturating
-   one; the fp32 posteriors bit for bit), ``te_gemm`` (every GEMM shape
+   codewords, at a converging and a non-converging SNR, r12 at lifting
+   sizes z = 16, 384 and 512 (int8 also 64), and an r34 code with layers
+   of 18 edges; int8 also at a saturating point; posteriors and iteration
+   counts bit for bit), ``te_gemm`` (every GEMM shape
    of DeepRx and CE-ViT at
    batch 8, every epilogue, softmax rows of 300, 600 and 1000 columns,
    bf16, Fig. 10's FC GEMM and a ragged case), ``mha``
@@ -33,7 +34,8 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    block, the reference's test shapes, a ragged row, bf16, a cluster of
    one block, a ragged bf16 row, a 600-column row) and ``dwconv_block``
    (the paper's 32 x 16 x 512 -> 512 block, the reference's test shapes,
-   ragged C and F, bf16, F = 768 and 1536).
+   ragged C and F, bf16, F = 768 and, in two passes, 1536, 8200 and
+   12288).
    Each kernel's time per call (CUDA events around the wrapper, so launch
    overhead included) and device time (CUPTI), its plain twin's time, a
    library yardstick's where one PyTorch call computes the same thing
@@ -515,6 +517,28 @@ def _code_llrs(code, n_cw: int, snr_db: float, dev):
     return coding.derate_match(code, 2.0 * y / s2).contiguous()
 
 
+# (rate, z, make_code's other arguments, (fp32 SNRs, int8 (SNR, gain)
+# points)): the registered z = 32 codes, then other lifting sizes (to 64
+# the segment kernels, z = 384 (5G's largest) and 512 the row kernels
+# with the messages in the workspace), then a code with layers of 17-18
+# edges (the row kernels too)
+LDPC_CODES = (
+    ("r12", 32, {}, ((3.0, -6.0), ((3.0, 1.0), (-6.0, 1.0), (3.0, 8.0)))),
+    ("r34", 32, {}, ((6.0, -6.0), ((6.0, 1.0), (-6.0, 1.0)))),
+    ("r12", 16, {}, ((3.0,), ((3.0, 1.0),))),
+    ("r12", 64, {}, ((), ((3.0, 1.0),))),
+    ("r12", 384, {}, ((3.0,), ((3.0, 1.0),))),
+    ("r12", 512, {}, ((3.0,), ((3.0, 1.0),))),
+    ("r34", 32, {"k_b": 16, "col_degree": 8}, ((6.0,), ((6.0, 1.0),))),
+)
+
+
+def _code_label(rate: str, code, kw: dict) -> str:
+    widest = max(map(len, code.layers()))
+    return (f"{rate}{'' if code.z == 32 else f' z={code.z}'}"
+            f"{f' {widest}-edge layers' if kw else ''}")
+
+
 def check_ldpc(dev) -> list:
     import torch
 
@@ -522,17 +546,17 @@ def check_ldpc(dev) -> list:
     from repro_torch.phy import coding
 
     cases = []
-    # z = 384 (5G's largest lifting size) runs ldpc_minsum_kernel_any
-    for rate, z, snrs in (("r12", 32, (3.0, -6.0)), ("r34", 32, (6.0, -6.0)),
-                          ("r12", 16, (3.0,)), ("r12", 384, (3.0,))):
-        code = coding.make_code(rate, z=z)
+    for rate, z, kw, snrs in LDPC_CODES:
+        if not snrs[0]:
+            continue
+        code = coding.make_code(rate, z=z, **kw)
         n_edges = sum(len(e) for e in code.layers())
-        for snr in snrs:
+        for snr in snrs[0]:
             llr = _code_llrs(code, 216, snr, dev)
             post, iters = ldpc.ldpc_decode(llr, code)
             post_t, iters_t = ldpc.ldpc_decode_torch(llr, code)
             torch.cuda.synchronize()
-            label = f"{rate}{'' if z == 32 else f' z={z}'}@{snr}dB"
+            label = f"{_code_label(rate, code, kw)}@{snr}dB"
             check(torch.equal(iters, iters_t),
                   f"ldpc[{label}] iteration counts differ")
             check(torch.equal(post > 0, post_t > 0),
@@ -549,8 +573,8 @@ def check_ldpc(dev) -> list:
             bms, by = bound(nbytes, flops)
             run = lambda: ldpc.ldpc_decode(llr, code)
             cases.append(dict(
-                shape=f"{rate}{'' if z == 32 else f' z={z}'} {snr:+.0f}dB "
-                      f"216cw", max_abs_err=err,
+                shape=f"{_code_label(rate, code, kw)} {snr:+.0f}dB 216cw",
+                max_abs_err=err,
                 tolerance="hard bits, posteriors and iteration counts exact",
                 iters_hist=torch.bincount(iters.long(),
                                           minlength=13).tolist(),
@@ -575,11 +599,8 @@ def check_ldpc_q(dev) -> list:
     from repro_torch.phy import coding
 
     cases = []
-    for rate, z, points in (
-            ("r12", 32, ((3.0, 1.0), (-6.0, 1.0), (3.0, 8.0))),
-            ("r34", 32, ((6.0, 1.0), (-6.0, 1.0))),
-            ("r12", 16, ((3.0, 1.0),))):
-        code = coding.make_code(rate, z=z)
+    for rate, z, kw, (_, points) in LDPC_CODES:
+        code = coding.make_code(rate, z=z, **kw)
         n_edges = sum(len(e) for e in code.layers())
         for snr, gain in points:
             llr = (_code_llrs(code, 216, snr, dev) * gain).contiguous()
@@ -588,7 +609,7 @@ def check_ldpc_q(dev) -> list:
             post_t, iters_t = ldpc.ldpc_decode_torch(llr, code,
                                                      precision="int8")
             torch.cuda.synchronize()
-            label = (f"{rate}{'' if z == 32 else f' z={z}'} {snr:+.0f}dB"
+            label = (f"{_code_label(rate, code, kw)} {snr:+.0f}dB"
                      f"{' x8' if gain != 1 else ''}")
             check(torch.equal(iters, iters_t),
                   f"ldpc int8[{label}] iteration counts differ")
@@ -999,16 +1020,20 @@ def _dw_operands(dev, b: int, h: int, w: int, c: int, f: int, dtype):
 
 
 # (label, B, H, W, C, F, dtype name); the first row is the paper's block,
-# the blocks path's shape
+# the blocks path's shape (a cluster of 8 slabs of 64 channels)
 DWCONV_CASES = (
     ("paper block", 1, 32, 16, 512, 512, "float32"),
     ("reference test", 2, 16, 8, 128, 128, "float32"),
     ("reference test", 2, 32, 16, 256, 128, "float32"),
     ("ragged", 3, 5, 7, 70, 100, "float32"),
     ("paper block bf16", 1, 32, 16, 512, 512, "bfloat16"),
-    ("F=768", 1, 16, 16, 256, 768, "float32"),
-    ("F=1536 (a cluster of 2)", 1, 16, 16, 256, 1536, "float32"),
+    ("F=768 (a cluster of 6)", 1, 16, 16, 256, 768, "float32"),
+    ("F=1536 (two passes)", 1, 16, 16, 256, 1536, "float32"),
+    ("F=8200 (two passes)", 1, 16, 16, 256, 8200, "float32"),
+    ("F=12288 bf16 (two passes)", 1, 8, 8, 64, 12288, "bfloat16"),
 )
+# the tile pass and, above F = 1024, the row-wise LayerNorm pass
+DWCONV_SYMBOLS = ("dwconv_block_kernel_tile", "dwconv_block_kernel_norm")
 
 
 def _dw_bytes_flops(x, b, h, w, c, f, out_item) -> tuple:
@@ -1040,7 +1065,7 @@ def check_dwconv_block(dev) -> list:
         cases.append(dict(
             shape=f"{label} B={b} {h}x{w}x{c} -> {f} {dt}", max_abs_err=err,
             tolerance=_tolerance(dtype)[1], ms=time_ms(run),
-            device_us=device_us(run, KERNEL_SYMBOLS["dwconv_block"]),
+            device_us=device_us(run, DWCONV_SYMBOLS),
             host_us=host_us(run), plain_ms=time_ms(twin), **library(None),
             bound_ms=bms, bound_by=by,
         ))

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
-// kernels (te_gemm.cu, te_gemm_quant.cu, fc_softmax.cu, mha.cu) and the
-// kernels that size their shared memory per device: per-device
+// kernels (te_gemm.cu, te_gemm_quant.cu, fc_softmax.cu, mha.cu,
+// dwconv_block.cu) and used in part by ls_che.cu (cp.async),
+// ldpc_minsum.cu and mha_quant.cu (shared-memory limits): per-device
 // launch facts, asynchronous copies into shared memory, the proxy fence
 // that makes them visible to the tensor cores, descriptors of
 // 128-byte-swizzled shared-memory tiles, and the warpgroup matrix
@@ -229,6 +230,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// the box of a 4-D tensor map at (c0 inner, c1, c2, c3 outer)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Host side: cuTensorMapEncodeTiled, looked up through the runtime's
 // entry-point query once (null if it is not found)
 using TmaEncode = CUresult (*)(
@@ -251,12 +265,15 @@ inline TmaEncode tma_encoder() {
 
 // A 2-D row-major tensor of rows x cols elements of elem_bytes each, read
 // in boxes of box_rows x box_cols (box_cols * elem_bytes <= 128) into the
-// 128-byte-swizzled layout above, zero past its edges.  Needs a 16-byte
-// aligned base and row pitch; false if the encoder refuses.
-inline bool tma_map_2d(CUtensorMap* map, const void* base,
-                       CUtensorMapDataType type, int elem_bytes,
-                       uint64_t rows, uint64_t cols, uint32_t box_rows,
-                       uint32_t box_cols) {
+// 128-byte-swizzled layout above, zero past its edges; with
+// CU_TENSOR_MAP_SWIZZLE_NONE a box lands row-major as it is (box_cols <=
+// 256, box_cols * elem_bytes a multiple of 16).  Needs a 16-byte aligned
+// base and row pitch; false if the encoder refuses.
+inline bool tma_map_2d(
+    CUtensorMap* map, const void* base, CUtensorMapDataType type,
+    int elem_bytes, uint64_t rows, uint64_t cols, uint32_t box_rows,
+    uint32_t box_cols,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const TmaEncode encode = tma_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
@@ -264,8 +281,8 @@ inline bool tma_map_2d(CUtensorMap* map, const void* base,
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -6,21 +6,23 @@
 
 :func:`dwconv_block` runs the plain PyTorch twin (:func:`dwconv_block_torch`)
 only because the tensor it was given lies on the CPU; on a CUDA tensor it
-launches ``csrc/dwconv_block.cu`` (a block owns 8 pixels and all their F
-output channels up to 1024, a cluster of up to 8 blocks splits a wider F
-up to :data:`MAX_F`; the depthwise plane and the pointwise accumulator
-never reach device memory) or raises.
+launches ``csrc/dwconv_block.cu`` or raises: a block takes 64 pixels and a
+slab of F, the pointwise product on tf32 wgmmas (3xTF32) fed by a TMA
+ring; the slabs of a pixel tile meet for the LayerNorm in a cluster up to
+F = 1024, a wider F is normalised by a second, row-wise pass.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
 EPS = 1e-5
-MAX_F = 8192  # the widest output row: 8 blocks of a cluster, 1024 each
+_CLUSTER_F = 1024  # the widest row one cluster normalises (8 slabs of 128)
+_WIDE_SLAB = 128  # a wider row's slab: partial sums per (pixel, slab)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -49,18 +51,26 @@ def dwconv_block_torch(x_padded: torch.Tensor, dw: torch.Tensor,
 def _lib():
     fn = _build.library("dwconv_block").dwconv_block_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose data starts on 16 bytes (the kernel's
+    copies are 16 bytes wide)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def dwconv_block_cuda(x_padded: torch.Tensor, dw: torch.Tensor,
                       pw: torch.Tensor, gamma: torch.Tensor,
                       beta: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """Launch ``csrc/dwconv_block.cu``: one block per 8 pixels of an
-    image (a cluster of ceil(F / 1024) blocks above F = 1024); the filters
-    in fp32."""
+    """Launch ``csrc/dwconv_block.cu`` (the filters in fp32).  C is padded
+    with zero channels to 16 bytes of x and pw's rows with zero columns
+    to a multiple of 4, where they are not already, so that the kernel's
+    copies are 16 bytes; the padding adds zeros to every sum."""
     if x_padded.ndim != 4 or x_padded.shape[1] < 3 or x_padded.shape[2] < 3:
         raise ValueError(f"dwconv_block: x {tuple(x_padded.shape)} is not "
                          f"(B, H+2, W+2, C)")
@@ -75,10 +85,6 @@ def dwconv_block_cuda(x_padded: torch.Tensor, dw: torch.Tensor,
     if min(b, c, f) == 0:
         raise ValueError(f"dwconv_block: empty operand "
                          f"{tuple(x_padded.shape)} -> F={f}")
-    if f > MAX_F:
-        raise ValueError(f"dwconv_block kernel holds at most {MAX_F} output "
-                         f"channels (a cluster of 8 blocks of 1024), got "
-                         f"F={f}")
     if x_padded.dtype not in _DTYPE_CODE:
         raise TypeError(f"dwconv_block kernel takes float32 or bfloat16, "
                         f"got {x_padded.dtype}")
@@ -86,11 +92,28 @@ def dwconv_block_cuda(x_padded: torch.Tensor, dw: torch.Tensor,
     _build.require_cuda("dwconv_block", x=(x_padded, x_padded.dtype),
                         dw=(dw, f32), pw=(pw, f32), gamma=(gamma, f32),
                         beta=(beta, f32))
+    ve = 16 // x_padded.element_size()
+    if c % ve:
+        pad_c = ve - c % ve
+        x_padded = F.pad(x_padded, (0, pad_c))
+        dw, pw = F.pad(dw, (0, pad_c)), F.pad(pw, (0, 0, 0, pad_c))
+    if f % 4:
+        pw = F.pad(pw, (0, 4 - f % 4))
+    x_padded, dw, pw = map(_aligned, (x_padded, dw, pw))
     out = torch.empty((b, h, w, f), dtype=x_padded.dtype,
                       device=x_padded.device)
+    stats = z = None
+    if f > _CLUSTER_F:
+        rows = b * h * w
+        stats = torch.empty(rows * -(-f // _WIDE_SLAB), dtype=f32,
+                            device=out.device)
+        if out.dtype != f32:
+            z = torch.empty(rows * f, dtype=f32, device=out.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = _lib()(x_padded.data_ptr(), dw.data_ptr(), pw.data_ptr(),
-                 gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), b, h, w,
-                 c, f, eps, _DTYPE_CODE[x_padded.dtype],
+                 pw.shape[1], gamma.data_ptr(), beta.data_ptr(),
+                 out.data_ptr(), ptr(z), ptr(stats), b, h, w,
+                 x_padded.shape[-1], f, eps, _DTYPE_CODE[x_padded.dtype],
                  _build.stream_of(x_padded))
     _build.launches["dwconv_block"] += 1
     _build.check(err, "dwconv_block")

@@ -11,16 +11,17 @@ exit) and the per-codeword iteration count is an output.
 :func:`ldpc_decode` runs the plain PyTorch twin (:func:`ldpc_decode_torch`,
 the reference core's arithmetic) only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches ``csrc/ldpc_minsum.cu`` (one block
-per codeword, any z whose state fits the device's shared memory) or
-raises.
+per codeword, any code: past what one block's registers and shared memory
+hold, the check messages go to a global workspace) or raises.
 
 ``precision="int8"|"fp8"`` selects the integer datapath (the same for both
 1-byte policies): channel LLRs quantized onto the int8 grid
 (``round(v / llr_scale())``, half to even, clipped at +-127), int8 check
 messages, a 12-bit posterior saturating at +-``_SAT_V``, the fixed-point
 damping ``(mag * round(alpha*256)) >> 8``, and a dequantized posterior.
-Its twin is :func:`_decode_core_q`; its kernel ``ldpc_minsum_q_kernel`` in
-the same source (one warp per codeword: z <= :data:`MAX_Z_Q`).
+Its twin is :func:`_decode_core_q`; its kernels ``ldpc_minsum_q_kernel``
+and ``ldpc_minsum_q_kernel_any`` in the same source, the fp32 kernels'
+designs over the integer datapath.
 """
 from __future__ import annotations
 
@@ -34,10 +35,6 @@ from repro_torch.kernels import _build, quant
 
 DEFAULT_MAX_ITERS = 12
 DEFAULT_ALPHA = 0.8  # normalized-min-sum damping
-_CW_PER_BLOCK = 4  # CW_PER_BLOCK in csrc/ldpc_minsum.cu (int8 kernel)
-MAX_Z_Q = 32  # the int8 kernel's lifting sizes: one warp lane per row
-MAX_DEG_Q = 16  # and its widest layer (MAX_DEG_Q in the source)
-_REG_LAYERS = _REG_DEG = 16  # ldpc_minsum_kernel's codes (REG_* in the source)
 
 
 # ---------------------------------------------------------------------------
@@ -234,62 +231,29 @@ def _ldpc_lib(quantized: bool):
         fn = lib.ldpc_minsum_launch
         scalars = [ctypes.c_int] * 7 + [ctypes.c_float]
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + scalars + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + scalars + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _state_bytes(code, n_edges: int, max_deg: int, quantized: bool) -> int:
-    """Shared memory a block of the kernel holds, as the launcher sizes
-    it: the int8 kernel's four codewords (posterior and messages); for
-    fp32 one codeword: in ``ldpc_minsum_kernel`` (at most
-    :data:`_REG_LAYERS` layers of at most :data:`_REG_DEG` edges, z rows
-    of a power-of-two segment of lanes in one block of 1024 threads) the
-    posterior, in ``ldpc_minsum_kernel_any`` the posterior, messages, one
-    layer's t, rolled positions and layer offsets."""
-    if quantized:
-        return _CW_PER_BLOCK * (code.n_b + n_edges) * code.z * 4
-    seg = 4 if max_deg <= 4 else 8 if max_deg <= 8 else 16
-    if code.m_b <= _REG_LAYERS and max_deg <= _REG_DEG and \
-            code.z * seg <= 1024:
-        return 4 * code.n_b * code.z
-    return 4 * (code.z * (code.n_b + 2 * n_edges + max_deg) + code.m_b + 1)
-
-
-def _smem_optin(device: torch.device) -> int:
-    """The device's opt-in shared memory per block (227 KB on an H100)."""
-    props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin", 232448))
 
 
 def ldpc_decode_cuda(llr: torch.Tensor, code, *,
                      max_iters: int = DEFAULT_MAX_ITERS,
                      alpha: float = DEFAULT_ALPHA,
                      precision: Optional[str] = None):
-    """Launch ``csrc/ldpc_minsum.cu``: ``ldpc_minsum_kernel`` for fp32
-    (one block per codeword, any z), ``ldpc_minsum_q_kernel`` for the
-    int8 datapath (``precision="int8"|"fp8"``; one warp per codeword,
-    z <= 32)."""
+    """Launch ``csrc/ldpc_minsum.cu``, one block per codeword, for fp32 or
+    the int8 datapath (``precision="int8"|"fp8"``): the segment kernel
+    where the code fits one block's registers, else the row kernel, whose
+    check messages (and a posterior past the device's shared memory) go
+    to the workspace allocated here."""
     quantized = quant.is_quantized(precision)
-    if quantized and code.z > MAX_Z_Q:
-        raise ValueError(f"the int8 ldpc_minsum_q kernel takes z <= "
-                         f"{MAX_Z_Q} (one warp lane per lifted row), got "
-                         f"z={code.z}")
     if llr.ndim != 2 or llr.shape[1] != code.n_mother:
         raise ValueError(f"llr {tuple(llr.shape)} is not (B, {code.n_mother})")
     _build.require_cuda("ldpc_minsum", llr=(llr, torch.float32))
     off, cols, shifts, max_deg = _schedule(code, llr.device)
-    if quantized and max_deg > MAX_DEG_Q:
-        raise ValueError(f"the int8 ldpc_minsum_q kernel takes layers of at "
-                         f"most {MAX_DEG_Q} edges, got {max_deg}")
     n_edges = int(cols.numel())
-    state, optin = (_state_bytes(code, n_edges, max_deg, quantized),
-                    _smem_optin(llr.device))
-    if state > optin:
-        raise ValueError(f"{code.name}: {state} B of decoder state per block "
-                         f"exceeds the {optin} B of shared memory a block "
-                         f"may hold on this device")
     n_cw = llr.shape[0]
+    ws = torch.empty(n_cw * (n_edges + code.n_b) * code.z, device=llr.device,
+                     dtype=torch.int32 if quantized else torch.float32)
     post = torch.empty_like(llr)
     iters = torch.empty(n_cw, dtype=torch.int32, device=llr.device)
     if quantized:
@@ -299,8 +263,9 @@ def ldpc_decode_cuda(llr: torch.Tensor, code, *,
         scalars = (int(max_iters), float(alpha))
     err = _ldpc_lib(quantized)(
         llr.data_ptr(), post.data_ptr(), iters.data_ptr(), off.data_ptr(),
-        cols.data_ptr(), shifts.data_ptr(), n_cw, code.n_b, code.z,
-        code.m_b, n_edges, max_deg, *scalars, _build.stream_of(llr),
+        cols.data_ptr(), shifts.data_ptr(), ws.data_ptr(),
+        n_cw, code.n_b, code.z, code.m_b, n_edges, max_deg, *scalars,
+        _build.stream_of(llr),
     )
     _build.launches["ldpc_decode_q" if quantized else "ldpc_decode"] += 1
     _build.check(err, "ldpc_minsum")

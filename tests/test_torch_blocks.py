@@ -95,14 +95,16 @@ def test_dwconv_block_matches_reference(h, w, c, f):
     assert np.all(got >= 0)  # ReLU'd
 
 
-def test_dwconv_block_twin_wide_row_matches_reference_kernel():
-    """F = 1536, wider than one CUDA block holds (there a cluster of two
-    blocks splits the row and meets for the LayerNorm): the twin against
-    the reference kernel in interpret mode, which holds the whole row."""
-    args = _dw_inputs(15, 1, 4, 4, 128, 1536)
+@pytest.mark.parametrize("c,f", [(128, 1536), (16, 8200)])
+def test_dwconv_block_twin_wide_row_matches_reference_kernel(c, f):
+    """F = 1536 and 8200, wider than one CUDA cluster normalises (there
+    the tiles write pre-norm rows and a second, row-wise pass takes the
+    LayerNorm): the twin against the reference kernel in interpret mode,
+    which holds the whole row."""
+    args = _dw_inputs(15, 1, 4, 4, c, f)
     want = np.asarray(ref_dw.dwconv_block(*_j(*args), interpret=True))
     got = dwconv_block.dwconv_block(*_t(*args)).numpy()
-    assert got.shape == (1, 4, 4, 1536)
+    assert got.shape == (1, 4, 4, f)
     np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
     assert np.all(got >= 0)
 

@@ -332,19 +332,32 @@ def _code_llrs(rate, n_cw, snr_db, dev, seed=7):
     return code, coding.derate_match(code, 2.0 * y / s2).contiguous()
 
 
-@pytest.mark.parametrize("rate,z,snr_db,precision", [
-    ("r12", 16, 2.0, None), ("r12", 32, 2.0, None), ("r34", 16, 4.0, None),
+# a code with layers of 17-18 edges: past the segment kernels' 16
+_WIDE = {"k_b": 16, "col_degree": 8}
+
+
+@pytest.mark.parametrize("rate,z,kw,snr_db,precision", [
+    ("r12", 16, {}, 2.0, None), ("r12", 32, {}, 2.0, None),
+    ("r34", 16, {}, 4.0, None),
     # 85 KB of state for four codewords of the earlier design
-    ("r12", 64, 2.0, None),
-    # 5G's largest lifting size: rows past one block (ldpc_minsum_kernel_any)
-    ("r12", 384, 3.0, None),
-    ("r12", 16, 2.0, "int8"), ("r34", 8, 4.0, "int8"),
+    ("r12", 64, {}, 2.0, None),
+    # 5G's largest lifting size: rows past one block (the row kernels,
+    # check messages in the global workspace)
+    ("r12", 384, {}, 3.0, None), ("r12", 512, {}, 3.0, None),
+    ("r34", 32, _WIDE, 6.0, None),
+    ("r12", 16, {}, 2.0, "int8"), ("r34", 8, {}, 4.0, "int8"),
+    ("r12", 32, {}, 2.0, "int8"), ("r12", 64, {}, 2.0, "int8"),
+    ("r12", 384, {}, 3.0, "int8"), ("r12", 512, {}, 3.0, "int8"),
+    ("r34", 32, _WIDE, 6.0, "int8"),
 ])
-def test_ldpc_kernels_any_lifting_size(dev, rate, z, snr_db, precision):
-    """The fp32 decoder at any z (a block per codeword), the int8 one at
-    z <= 32 (lanes past z idle): posteriors and iteration counts equal to
-    the twin's."""
-    code = coding.make_code(rate, z=z)
+def test_ldpc_kernels_any_lifting_size(dev, rate, z, kw, snr_db, precision):
+    """Both decoders at any z and any layer width (a block per codeword;
+    past the segment kernels' codes, the row kernels with the messages
+    in a workspace): posteriors and iteration counts equal to the
+    twin's."""
+    code = coding.make_code(rate, z=z, **kw)
+    if kw:
+        assert max(map(len, code.layers())) > 16
     gen = ofdm.make_generator(z, dev)
     bits = torch.randint(0, 2, (64, code.k), generator=gen, device=dev)
     tx = coding.rate_match(code, coding.encode(code, bits)).float()
@@ -362,7 +375,7 @@ def test_ldpc_kernels_any_lifting_size(dev, rate, z, snr_db, precision):
 @pytest.mark.parametrize("rate,snr_db,gain,n_cw", [
     ("r12", 3.0, 1.0, 216), ("r12", -6.0, 1.0, 216), ("r34", 6.0, 1.0, 216),
     ("r34", -6.0, 1.0, 216), ("r12", 3.0, 8.0, 216),  # saturating
-    ("r34", 6.0, 1.0, 5),  # a ragged last block of codewords
+    ("r34", 6.0, 1.0, 5),  # a few codewords
 ])
 def test_int8_ldpc_kernel_matches_twin_exactly(dev, rate, snr_db, gain,
                                                n_cw):
@@ -500,10 +513,14 @@ def test_fc_softmax_kernel_matches_twin(dev, m, k, n, bias, dtype):
     (2, 16, 8, 128, 128, torch.float32),
     (3, 5, 7, 70, 100, torch.float32),      # ragged C, F and pixels
     (1, 32, 16, 512, 512, torch.bfloat16),
-    (1, 16, 16, 256, 768, torch.float32),   # F > 512: NJ = 32
-    (1, 8, 8, 256, 1536, torch.float32),    # a cluster of 2 blocks
-    (2, 5, 7, 70, 4096, torch.float32),     # a cluster of 4, ragged
+    (1, 16, 16, 256, 768, torch.float32),   # slabs of 128, a cluster of 6
+    (1, 8, 8, 256, 1536, torch.float32),    # past 1024: two passes
+    (2, 5, 7, 70, 4096, torch.float32),     # two passes, ragged
     (1, 8, 8, 64, 1100, torch.bfloat16),
+    (1, 4, 4, 16, 8200, torch.float32),     # past a cluster of 8: two passes
+    (1, 8, 8, 64, 12288, torch.bfloat16),
+    (2, 9, 33, 13, 7, torch.bfloat16),      # C and F padded by the wrapper
+    (1, 3, 100, 24, 40, torch.float32),     # tiles of 1 x 64 pixels
 ])
 def test_dwconv_block_kernel_matches_twin(dev, b, h, w, c, f, dtype):
     gen = ofdm.make_generator(b + h + c + f, dev)
@@ -555,11 +572,11 @@ def test_block_wrappers_reject_bad_inputs_on_card(dev):
         te_gemm.te_gemm_quant(x, torch.ones(8, 300, device=dev),
                               torch.zeros(3, device=dev),
                               epilogue="softmax")
-    with pytest.raises(ValueError, match="F=9000"):
+    with pytest.raises(ValueError, match="do not fit"):
         dwconv_block.dwconv_block(
             torch.zeros(1, 4, 4, 8, device=dev),
             torch.zeros(3, 3, 8, device=dev),
-            torch.zeros(8, 9000, device=dev), torch.zeros(9000, device=dev),
+            torch.zeros(8, 9000, device=dev), torch.zeros(9001, device=dev),
             torch.zeros(9000, device=dev))
     q = torch.zeros(2, 8, 300, device=dev)
     with pytest.raises(TypeError):

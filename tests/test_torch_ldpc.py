@@ -135,28 +135,32 @@ def test_max_iters_and_cuda_contract():
                                 coding.make_code("r12"), max_iters=3,
                                 precision="int8")
     assert (iters == 3).all()
-    # the int8 kernel takes one warp lane per lifted row: z <= 32 only
-    # (the fp32 kernel spreads a codeword over a block and takes any z)
-    with pytest.raises(ValueError, match="z <= 32"):
+    # both kernels take any z: at z = 64 the int8 CUDA entry refuses a
+    # CPU tensor for its device alone
+    with pytest.raises(ValueError, match="expected a CUDA device"):
         ldpc.ldpc_decode_cuda(torch.zeros(1, 24 * 64),
                               coding.make_code("r12", z=64),
                               precision="int8")
 
 
-@pytest.mark.parametrize("precision", [None, "int8"], ids=["fp32", "int8"])
-def test_twins_decode_z16_as_jnp_path(precision):
-    """Lifting size z = 16 (the reference's own tests decode it; the CUDA
-    kernels take it too): iteration counts and hard bits equal to the
-    jnp path's, posteriors within 1e-4 for fp32 (XLA contracts
-    multiply-adds) and bit for bit for int8."""
-    code_r = ref_coding.make_code("r12", z=16)
-    code = coding.make_code("r12", z=16)
+@pytest.mark.parametrize("z,snr_db,precision", [
+    (16, 1.0, None), (16, 1.0, "int8"), (64, 3.0, None), (64, 3.0, "int8"),
+], ids=["fp32", "int8", "z64-fp32", "z64-int8"])
+def test_twins_decode_z16_as_jnp_path(z, snr_db, precision):
+    """Lifting sizes z = 16 (the reference's own tests decode it) and 64
+    (past the earlier int8 kernel's z <= 32; the CUDA kernels take both),
+    each at an SNR where the codewords stop after different numbers of
+    sweeps: iteration counts and hard bits equal to the jnp path's,
+    posteriors within 1e-4 for fp32 (XLA contracts multiply-adds) and bit
+    for bit for int8."""
+    code_r = ref_coding.make_code("r12", z=z)
+    code = coding.make_code("r12", z=z)
     assert code.layers() == code_r.layers()
     rng = np.random.default_rng(12)
     bits = rng.integers(0, 2, (16, code.k)).astype(np.int32)
     tx = np.asarray(jax.jit(lambda b: ref_coding.rate_match(
         code_r, ref_coding.encode(code_r, b)))(jnp.asarray(bits)))
-    s2 = 10.0 ** (-1.0 / 10.0)
+    s2 = 10.0 ** (-snr_db / 10.0)
     y = (2 * tx - 1) + np.sqrt(s2) * rng.standard_normal(tx.shape)
     llr = np.concatenate(
         [(2.0 * y / s2).astype(np.float32),
