@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core
 // kernels (te_gemm.cu, te_gemm_quant.cu, fc_softmax.cu, mha.cu,
-// dwconv_block.cu) and used in part by ls_che.cu (cp.async),
-// ldpc_minsum.cu and mha_quant.cu (shared-memory limits): per-device
+// mha_quant.cu, dwconv_block.cu) and used in part by ls_che.cu
+// (cp.async), ldpc_minsum.cu and detect_demap.cu (shared-memory limits):
+// per-device
 // launch facts, asynchronous copies into shared memory, the proxy fence
 // that makes them visible to the tensor cores, descriptors of
 // 128-byte-swizzled shared-memory tiles, and the warpgroup matrix

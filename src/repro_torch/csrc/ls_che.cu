@@ -53,12 +53,14 @@ __device__ __forceinline__ void cmac(float2& acc, float2 c, float2 o) {
   acc.y += c.x * o.y + c.y * o.x;
 }
 
-template <int TPO>
+// WIDE: a slot of more than 32 symbols, whose mask takes 64-bit words
+template <int TPO, bool WIDE>
 __global__ void __launch_bounds__(NT)
 ls_che_kernel(const float2* __restrict__ y, const float2* __restrict__ op,
+              unsigned long long mask0,
+              const unsigned long long* __restrict__ mask_rest, int words,
               float2* __restrict__ h, int n_rows, int n_sym, int n_sc,
-              int n_rx, int n_tx, int n_p, int stride, unsigned psym_mask,
-              float inv_psym) {
+              int n_rx, int n_tx, int n_p, int stride, float inv_psym) {
   __shared__ __align__(16) float2 op_s[PC][SC];
   __shared__ float2 comb_s[RB][PC + 1];  // + 1: rows start on other banks
   const int tid = threadIdx.x;
@@ -92,12 +94,25 @@ ls_che_kernel(const float2* __restrict__ y, const float2* __restrict__ op,
       const int row = row0 + rr, b = row / n_rx, r = row % n_rx;
       const int sc = t * stride + (p0 + p) * spacing;
       float sr = 0.f, si = 0.f;
-      for (unsigned mask = psym_mask; mask != 0u; mask &= mask - 1u) {
-        const int sym = __ffs(mask) - 1;
-        const float2 v =
-            y[((size_t)(b * n_sym + sym) * n_sc + sc) * n_rx + r];
-        sr += v.x;
-        si += v.y;
+      if constexpr (WIDE) {
+        for (int w = 0; w < words; ++w) {
+          unsigned long long mask = w == 0 ? mask0 : mask_rest[w - 1];
+          for (; mask != 0ull; mask &= mask - 1ull) {
+            const int sym = 64 * w + __ffsll((long long)mask) - 1;
+            const float2 v =
+                y[((size_t)(b * n_sym + sym) * n_sc + sc) * n_rx + r];
+            sr += v.x;
+            si += v.y;
+          }
+        }
+      } else {
+        for (unsigned mask = (unsigned)mask0; mask != 0u; mask &= mask - 1u) {
+          const int sym = __ffs(mask) - 1;
+          const float2 v =
+              y[((size_t)(b * n_sym + sym) * n_sc + sc) * n_rx + r];
+          sr += v.x;
+          si += v.y;
+        }
       }
       comb_s[rr][p] = make_float2(sr * inv_psym, si * inv_psym);
     }
@@ -141,23 +156,34 @@ ls_che_kernel(const float2* __restrict__ y, const float2* __restrict__ op,
 }  // namespace
 
 // y (batch, n_sym, n_sc, n_rx) complex64; op (n_tx, n_p, n_sc) complex64;
-// h (batch, n_sc, n_rx, n_tx) complex64.  psym_mask has bit k set for each
-// pilot symbol k (< 32).  Returns the launch's cudaError_t.
+// the pilot symbols as a mask of ceil(n_sym / 64) 64-bit words, bit k of
+// word w for symbol 64 w + k (summed in ascending order): word 0 by value,
+// so a slot of up to 64 symbols reads no mask from memory (up to 32, the
+// kernel scans one 32-bit word), the others in mask_rest on the device;
+// n_psym the number of bits set; h (batch, n_sc, n_rx, n_tx) complex64.
+// Returns the launch's cudaError_t.
 extern "C" int ls_che_launch(const void* y, const void* op, void* h,
                              int batch, int n_sym, int n_sc, int n_rx,
-                             int n_tx, int stride, unsigned psym_mask,
+                             int n_tx, int stride,
+                             unsigned long long mask0,
+                             const unsigned long long* mask_rest,
                              int n_psym, void* stream) {
   const int n_p = n_sc / (stride * n_tx);
   const int n_rows = batch * n_rx;
-  if (n_p <= 0 || n_rows <= 0 || psym_mask == 0u)
+  const int words = (n_sym + 63) / 64;
+  if (n_p <= 0 || n_rows <= 0 || n_psym <= 0 || n_sym <= 0 ||
+      (words > 1 && mask_rest == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n_sc + SC - 1) / SC, n_tx, (n_rows + RB - 1) / RB);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   // two threads an output where a block has at most 128 outputs
-  auto kernel = n_rows * SC <= NT / 2 ? ls_che_kernel<2> : ls_che_kernel<1>;
+  auto kernel = n_sym > 32 ? (n_rows * SC <= NT / 2 ? ls_che_kernel<2, true>
+                                                     : ls_che_kernel<1, true>)
+                            : (n_rows * SC <= NT / 2 ? ls_che_kernel<2, false>
+                                                     : ls_che_kernel<1, false>);
   kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(y), static_cast<const float2*>(op),
-      static_cast<float2*>(h), n_rows, n_sym, n_sc, n_rx, n_tx, n_p, stride,
-      psym_mask, 1.0f / (float)n_psym);
+      static_cast<const float2*>(y), static_cast<const float2*>(op), mask0,
+      mask_rest, words, static_cast<float2*>(h), n_rows, n_sym, n_sc, n_rx,
+      n_tx, n_p, stride, 1.0f / (float)n_psym);
   return (int)cudaGetLastError();
 }

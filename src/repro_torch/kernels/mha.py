@@ -15,10 +15,10 @@ The quantized attention (``mha_quant`` of the reference) splits as the
 reference's does: :func:`quantize_mha_operands` (torch ops: int8 / e4m3
 codes with one fp32 scale per (batch*head) row), then
 :func:`mha_quantized` on the codes, which launches ``csrc/mha_quant.cu``
-on a CUDA tensor and runs :func:`mha_quantized_torch` on a CPU one.  Its
-kernels have instances for D in :data:`HEAD_DIMS`; any other D up to the
-widest is zero-padded to the next (:func:`pad_head_dim`), and a wider D
-runs the kernel that splits the output's D into slabs of 256.
+on a CUDA tensor and runs :func:`mha_quantized_torch` on a CPU one.  It
+takes any D: the kernel tiles the output's D over a grid axis, and the
+wrapper zero-pads the codes' D only to a multiple of 16, the TMA copies'
+row pitch (:func:`pad_head_dim`), run with the true D's scale.
 :func:`mha_quant` is the two in a row; :func:`mha_quant_torch` is the
 twin of the reference's ``mha_quant_jnp``.
 """
@@ -31,7 +31,7 @@ import torch
 from repro_torch.kernels import _build, quant
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the quantized kernel's instances
+CODE_PITCH = 16  # codes a row of the quantized kernel's operands rounds to
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
 
@@ -63,13 +63,14 @@ def _zero_pad(ts: tuple, dp: int) -> tuple:
 
 
 def pad_head_dim(*ts: torch.Tensor) -> tuple:
-    """Each (BH, S, D) operand zero-padded along D to the next instance of
-    the quantized kernel (as given when D is one, or wider than the widest:
-    that kernel splits such a D into slabs).  Zero dims add nothing to a
-    score and make zero output columns, so with the true D's scale the
-    padded attention cut back to D is the unpadded one."""
+    """Each (BH, S, D) code operand zero-padded along D to a multiple of
+    :data:`CODE_PITCH` (as given when D is one): the 16-byte row pitch of
+    the quantized kernel's TMA copies, which read zeros past it up to the
+    next 32-code wgmma k-step.  Zero dims add nothing to a score and make
+    zero output columns, so with the true D's scale the padded attention
+    cut back to D is the unpadded one."""
     d = ts[0].shape[-1]
-    return _zero_pad(ts, next((i for i in HEAD_DIMS if i >= d), d))
+    return _zero_pad(ts, -(-d // CODE_PITCH) * CODE_PITCH)
 
 
 def align_head_dim(*ts: torch.Tensor) -> tuple:
@@ -179,7 +180,7 @@ def mha_quantized_torch(qq: torch.Tensor, kq: torch.Tensor,
 def _quant_lib():
     fn = _build.library("mha_quant").mha_quant_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
             [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -190,9 +191,10 @@ def mha_quantized_cuda(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
                        *, causal: bool = True,
                        out_dtype: torch.dtype = torch.float32
                        ) -> torch.Tensor:
-    """Launch ``csrc/mha_quant.cu``: one block per (bh, 64-row query
-    tile; 32 rows at D >= 256); the codes zero-padded along D to the next
-    instance, or, above 256, a block per output slab of 256 columns."""
+    """Launch ``csrc/mha_quant.cu``: a warpgroup per (bh, 64-row query
+    tile, output slab of D), a cluster splitting the keys when that grid
+    is small; the codes zero-padded along D to a multiple of 16, the
+    output at the true D."""
     if qq.ndim != 3 or kq.ndim != 3 or tuple(kq.shape) != tuple(vq.shape) \
             or kq.shape[0] != qq.shape[0] or kq.shape[2] != qq.shape[2]:
         raise ValueError(f"mha_quant: q {tuple(qq.shape)}, k "
@@ -217,16 +219,19 @@ def mha_quantized_cuda(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,
                         vq=(vq, qq.dtype), qs=(qs, torch.float32),
                         ks=(ks, torch.float32), vs=(vs, torch.float32))
     qq, kq, vq = pad_head_dim(qq, kq, vq)
+    # TMA reads from 16-byte aligned bases (a view may start off one)
+    qq, kq, vq = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (qq, kq, vq))
     dp = qq.shape[-1]
-    out = torch.empty((bh, sq, dp), dtype=out_dtype, device=qq.device)
+    out = torch.empty((bh, sq, d), dtype=out_dtype, device=qq.device)
     err = _quant_lib()(
         qq.data_ptr(), kq.data_ptr(), vq.data_ptr(), qs.data_ptr(),
-        ks.data_ptr(), vs.data_ptr(), out.data_ptr(), bh, sq, sk, dp,
+        ks.data_ptr(), vs.data_ptr(), out.data_ptr(), bh, sq, sk, dp, d,
         int(causal), d ** -0.5, _QTYPE_CODE[qq.dtype],
         _DTYPE_CODE[out_dtype], _build.stream_of(qq))
     _build.launches["mha_quant"] += 1
     _build.check(err, "mha_quant")
-    return out if dp == d else out[..., :d].contiguous()
+    return out
 
 
 def mha_quantized(qq: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor,

@@ -4,10 +4,13 @@
   divide and frequency interpolation, folded into one complex GEMM against
   the static operator of :func:`make_ls_interp_operator`.  On a CUDA
   tensor: ``csrc/ls_che.cu``.
-* ``mmse_detect_demap``: per RE the regularized Gram, an in-register
-  unpivoted Gauss solve of the augmented system [H^H y | G], unbiasing and
-  max-log LLRs, with no Gram / equalized-symbol grid in memory.  On a CUDA
-  tensor: ``detect_demap_kernel`` of ``csrc/detect_demap.cu``.
+* ``mmse_detect_demap``: the regularized Gram and an unpivoted Gauss
+  solve of the augmented system [H^H y | G], unbiasing and max-log LLRs,
+  with no Gram / equalized-symbol grid in memory.  On a CUDA tensor:
+  ``detect_demap_kernel`` of ``csrc/detect_demap.cu``, which factors each
+  subcarrier's system once and applies it to every symbol; any
+  ``(n_rx, n_tx)`` (a shape with no compiled instance runs with runtime
+  sizes).
 * ``sic_detect_demap``: successive interference cancellation, the MU-MIMO
   near-far receiver.  Stage ``k`` runs the same solve over the streams
   ``k..n_tx-1`` not cancelled yet, keeps stream ``k``'s estimate and LLRs,
@@ -227,9 +230,6 @@ def sic_detect_demap_torch(y, h, noise_var, modem):
 # fused equalize -> demap: CUDA kernel
 # ---------------------------------------------------------------------------
 
-_DEMAP_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 4))
-
-
 @functools.lru_cache(maxsize=None)
 def _levels_on(levels: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(levels, dtype=torch.float32, device=device)
@@ -239,22 +239,33 @@ def _demap_lib(entry: str):
     fn = getattr(_build.library("detect_demap"), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + \
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(sic: bool, b: int, n_sym: int, n_sc: int, n_rx: int,
+                      n_tx: int) -> int:
+    """Floats of the workspace a launch needs (``detect_demap_workspace``
+    of the source): 0 for the compiled antenna shapes and for the shapes
+    whose runtime-sized state fits a block's shared memory."""
+    fn = _build.library("detect_demap").detect_demap_workspace
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_longlong
+    return int(fn(int(sic), b, n_sym, n_sc, n_rx, n_tx))
+
+
 def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
-    """Launch ``entry`` of ``csrc/detect_demap.cu``: one thread per RE."""
+    """Launch ``entry`` of ``csrc/detect_demap.cu`` at any (n_rx, n_tx),
+    with the workspace the source asks for."""
     b, n_sym, n_sc, n_rx = y.shape
     n_tx = h.shape[-1]
     nb = modem.bits_per_symbol // 2
-    if (n_rx, n_tx) not in _DEMAP_SHAPES or not 1 <= nb <= 4:
-        raise ValueError(
-            f"detect_demap kernels have no instance for n_rx={n_rx}, "
-            f"n_tx={n_tx}, {nb} bits per axis; instances: {_DEMAP_SHAPES} "
-            "x 1..4 bits"
-        )
+    if not 1 <= nb <= 4:
+        raise ValueError(f"detect_demap kernels take 1..4 bits per axis, "
+                         f"not {nb}")
     if tuple(h.shape) != (b, n_sc, n_rx, n_tx):
         raise ValueError(f"h {tuple(h.shape)} != {(b, n_sc, n_rx, n_tx)}")
     if noise_var.numel() != 1:
@@ -269,25 +280,33 @@ def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
                          device=y.device)
     llr = torch.empty((b, n_sym, n_sc, n_tx, 2 * nb), dtype=torch.float32,
                       device=y.device)
+    n_ws = _workspace_floats(entry == "sic_demap_launch", b, n_sym, n_sc,
+                             n_rx, n_tx)
+    ws = (torch.empty(n_ws, dtype=torch.float32, device=y.device)
+          if n_ws else None)
     err = _demap_lib(entry)(
         y.data_ptr(), h.data_ptr(), noise_var.data_ptr(), lv.data_ptr(),
         float(modem.norm), float(np.sqrt(modem.norm)), x_hat.data_ptr(),
-        nv_eff.data_ptr(), llr.data_ptr(), b, n_sym, n_sc, n_rx, n_tx, nb,
-        _build.stream_of(y))
+        nv_eff.data_ptr(), llr.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, n_sym, n_sc, n_rx, n_tx,
+        nb, _build.stream_of(y))
     _build.launches[counter] += 1
     _build.check(err, entry)
     return x_hat, nv_eff, llr
 
 
 def mmse_detect_demap_cuda(y, h, noise_var, modem):
-    """Launch ``detect_demap_kernel``: one thread per RE."""
+    """Launch ``detect_demap_kernel``: a block per (batch row, 16
+    subcarriers) factors each subcarrier's system once and applies it to
+    every symbol's RE."""
     return _demap_cuda("detect_demap_launch", "mmse_detect_demap", y, h,
                        noise_var, modem)
 
 
 def sic_detect_demap_cuda(y, h, noise_var, modem):
     """Launch ``sic_demap_kernel``: one thread per RE, every cancellation
-    stage in registers."""
+    stage in registers (for a shape with no compiled instance, in shared
+    memory or the workspace)."""
     return _demap_cuda("sic_demap_launch", "sic_detect_demap", y, h,
                        noise_var, modem)
 
@@ -395,30 +414,46 @@ def _ls_lib():
     fn = _build.library("ls_che").ls_che_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
-            [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _symbol_mask(symbols: tuple, n_sym: int, device: torch.device) -> tuple:
+    """The pilot symbols as a mask of 64-bit words, bit k of word w for
+    symbol 64 w + k: word 0 (the kernel takes it by value) and the others
+    on ``device`` (None for a slot of up to 64 symbols)."""
+    words = [sum(1 << (s - 64 * w) for s in symbols if s // 64 == w)
+             for w in range(-(-n_sym // 64))]
+    rest = (torch.tensor([w - (1 << 64) if w >= 1 << 63 else w
+                          for w in words[1:]], dtype=torch.int64,
+                         device=device) if len(words) > 1 else None)
+    return words[0], rest
+
+
 def ls_che_cuda(y, pilot_symbols: tuple, pilot_stride: int, op):
     """Launch ``csrc/ls_che.cu``: one block per slab of 16 subcarriers
-    of one tx and up to 64 (batch, rx) rows."""
+    of one tx and up to 64 (batch, rx) rows; the pilot symbols (any
+    indices) go to the kernel as a mask of ``n_sym`` bits."""
     b, n_sym, n_sc, n_rx = y.shape
     n_tx, n_p, n_sc_op = op.shape
     if n_sc_op != n_sc or n_p * pilot_stride * n_tx != n_sc:
         raise ValueError(f"operator {tuple(op.shape)} does not fit a "
                          f"{n_sc}-subcarrier grid at stride {pilot_stride}")
-    if not pilot_symbols or max(pilot_symbols) >= min(n_sym, 32) or \
-            len(set(pilot_symbols)) != len(pilot_symbols):
+    symbols = tuple(sorted(int(s) for s in pilot_symbols))
+    if not symbols or symbols[0] < 0 or symbols[-1] >= n_sym or \
+            len(set(symbols)) != len(symbols):
         raise ValueError(f"bad pilot symbols {pilot_symbols} for "
                          f"{n_sym} symbols")
     _build.require_cuda("ls_che", y=(y, torch.complex64),
                         op=(op, torch.complex64))
-    mask = sum(1 << s for s in pilot_symbols)
+    mask0, rest = _symbol_mask(symbols, n_sym, y.device)
     h = torch.empty((b, n_sc, n_rx, n_tx), dtype=torch.complex64,
                     device=y.device)
     err = _ls_lib()(y.data_ptr(), op.data_ptr(), h.data_ptr(), b, n_sym,
-                    n_sc, n_rx, n_tx, pilot_stride, mask, len(pilot_symbols),
+                    n_sc, n_rx, n_tx, pilot_stride, mask0,
+                    None if rest is None else rest.data_ptr(), len(symbols),
                     _build.stream_of(y))
     _build.launches["ls_che"] += 1
     _build.check(err, "ls_che")

@@ -228,6 +228,32 @@ def test_ls_che_grid_split_matches_twin(dev, name, batch):
                                atol=1e-6)
 
 
+def test_ls_che_late_pilot_matches_twin(dev):
+    """Pilot symbols at any index and in any number (a 40-symbol slot,
+    pilots at 35 and 3 given out of order, then all 40; a 72-symbol slot
+    with 70): the wrapper hands the kernel a mask of n_sym bits."""
+    gen = ofdm.make_generator(35, dev)
+    y = torch.complex(torch.randn(2, 40, 256, 2, generator=gen, device=dev),
+                      torch.randn(2, 40, 256, 2, generator=gen, device=dev))
+    seq = torch.exp(1j * torch.linspace(0.0, 6.0, 256)).numpy()
+    op = torch.from_numpy(rx_fused.make_ls_interp_operator(
+        256, 2, 4, seq)).to(dev)
+    for psym in ((35, 3), tuple(range(39, -1, -1))):  # every symbol a pilot
+        args = (y, psym, 4, op)
+        n0 = _build.launches["ls_che"]
+        got = rx_fused.ls_che(*args)
+        assert _build.launches["ls_che"] == n0 + 1
+        torch.testing.assert_close(got, rx_fused.ls_che_torch(*args),
+                                   rtol=1e-5, atol=1e-6)
+    # symbols past 63: mask words past the first come from the device
+    y72 = torch.complex(torch.randn(1, 72, 256, 2, generator=gen, device=dev),
+                        torch.randn(1, 72, 256, 2, generator=gen, device=dev))
+    args = (y72, tuple(range(1, 71)), 4, op)
+    torch.testing.assert_close(rx_fused.ls_che(*args),
+                               rx_fused.ls_che_torch(*args), rtol=1e-5,
+                               atol=1e-6)
+
+
 def test_neural_wrappers_reject_bad_inputs_on_card(dev):
     x = torch.zeros(4, 8, device=dev)
     with pytest.raises(ValueError, match=r"is not \(M, K\)"):
@@ -319,6 +345,39 @@ def test_sic_kernel_ragged_batch(dev):
     _assert_sic_matches_twin(rx_fused.sic_detect_demap(y, h, nv, modem),
                              rx_fused.sic_detect_demap_torch(y, h, nv, modem),
                              modem)
+
+
+@pytest.mark.parametrize("b,n_sc,n_rx,n_tx,modem_name", [
+    (2, 64, 2, 1, "qpsk"), (2, 64, 4, 2, "qam16"), (2, 64, 3, 3, "qam64"),
+    (2, 64, 8, 6, "qam16"), (3, 100, 3, 3, "qam256"),  # ragged tiles
+    (3, 100, 1, 1, "qam16"), (3, 100, 2, 2, "qpsk"),
+    (3, 100, 8, 4, "qam64"), (3, 100, 4, 4, "qam16"),
+    (1, 16, 20, 20, "qpsk")])  # state past shared memory: the workspace
+def test_demap_kernels_any_shape_bit_exact(dev, b, n_sc, n_rx, n_tx,
+                                           modem_name):
+    """Joint and SIC at any (n_rx, n_tx): the compiled instances and the
+    runtime-sized route (its state in shared memory, or in the wrapper's
+    workspace where a block's would not fit) hold the twins bit for bit
+    (the library is built with -fmad=false), at batches whose subcarriers
+    end in a ragged tile."""
+    gen = ofdm.make_generator(b * 100 + n_rx * 10 + n_tx, dev)
+    cg = lambda *s: torch.complex(torch.randn(*s, generator=gen, device=dev),
+                                  torch.randn(*s, generator=gen, device=dev))
+    y, h = cg(b, 14, n_sc, n_rx), cg(b, n_sc, n_rx, n_tx)
+    nv = torch.tensor(0.05, device=dev)
+    modem = ofdm.make_modem(modem_name)
+    for kernel, twin, counter in (
+            (rx_fused.mmse_detect_demap, rx_fused.mmse_detect_demap_torch,
+             "mmse_detect_demap"),
+            (rx_fused.sic_detect_demap, rx_fused.sic_detect_demap_torch,
+             "sic_detect_demap")):
+        n0 = _build.launches[counter]
+        got = kernel(y, h, nv, modem)
+        assert _build.launches[counter] == n0 + 1
+        want = twin(y, h, nv, modem)
+        for g_, w_ in zip(got, want):
+            assert g_.shape == w_.shape
+            assert torch.equal(g_, w_), counter
 
 
 def _code_llrs(rate, n_cw, snr_db, dev, seed=7):
@@ -462,8 +521,15 @@ def test_te_gemm_quant_kernel_matches_twin(dev, m, k, n, epilogue, bias,
     (16, 256, 256, 64, False, "int8", torch.bfloat16),
     (4, 128, 128, 48, True, "int8", torch.float32),  # D zero-padded to 64
     (8, 64, 64, 80, False, "fp8", torch.float32),    # D zero-padded to 128
-    (4, 128, 128, 384, True, "int8", torch.float32),  # two slabs of 256
+    (4, 128, 128, 384, True, "int8", torch.float32),  # three slabs of 128
     (2, 70, 90, 300, False, "fp8", torch.bfloat16),
+    (3, 70, 130, 64, False, "int8", torch.float32),   # ragged Sq, Sk
+    (3, 130, 70, 16, True, "fp8", torch.bfloat16),    # causal, Sq > Sk
+    (2, 100, 150, 48, True, "fp8", torch.float32),    # causal, Sq < Sk
+    (2, 90, 200, 384, False, "fp8", torch.float32),
+    (4, 64, 64, 300, True, "int8", torch.float32),
+    (2, 130, 66, 80, True, "int8", torch.bfloat16),
+    (1, 64, 512, 16, False, "int8", torch.float32),   # a cluster of 8
 ])
 def test_mha_quant_kernel_matches_twin(dev, bh, sq, sk, d, causal,
                                        precision, out_dtype):

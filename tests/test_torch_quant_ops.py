@@ -197,9 +197,10 @@ def test_mha_quantized_matches_reference_kernel(precision, causal):
 @pytest.mark.parametrize("d", [48, 80])
 @pytest.mark.parametrize("precision", _PRECISIONS)
 def test_mha_quantized_padded_head_dim_matches_reference_kernel(precision, d):
-    """A head dimension with no kernel instance: the codes zero-padded
-    along D (``mha.pad_head_dim``, as the CUDA wrapper does) and the twin
-    at the true D's scale, against the reference kernel at D."""
+    """A head dimension of no earlier kernel instance: the codes through
+    ``mha.pad_head_dim`` (as the CUDA wrapper does; both D already have a
+    16-byte row) and the twin at the true D's scale, against the reference
+    kernel at D."""
     q, k, v = _rand(20 + d, *[(2, 64, d)] * 3)
     jq = [jnp.asarray(a) for a in (q, k, v)]
     codes = [_to_torch(a) for a in
@@ -208,7 +209,7 @@ def test_mha_quantized_padded_head_dim_matches_reference_kernel(precision, d):
                                         causal=True, bq=32, bkv=32,
                                         interpret=True))
     padded = mha.pad_head_dim(*codes[:3])
-    assert padded[0].shape[-1] == {48: 64, 80: 128}[d]
+    assert padded[0].shape[-1] == {48: 48, 80: 80}[d]
     got = mha.mha_quantized_torch(*padded, *codes[3:], causal=True,
                                   scale=d ** -0.5)[..., :d]
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
@@ -216,10 +217,10 @@ def test_mha_quantized_padded_head_dim_matches_reference_kernel(precision, d):
 
 @pytest.mark.parametrize("precision", _PRECISIONS)
 def test_mha_quantized_wide_head_dim_matches_reference_kernel(precision):
-    """D = 300, past the widest instance: the CUDA wrapper pads nothing
-    (``mha.pad_head_dim`` keeps it) and the kernel splits the output's D
-    into slabs of 256, each with the whole D's scores; the twin on the
-    codes as they are, and each slab of it, against the reference."""
+    """D = 300, wider than one output slab: the CUDA wrapper pads the codes
+    to 304 (a 16-byte row) and the kernel splits the output's D into slabs
+    of 128, each with the whole D's scores; the twin on the padded codes
+    cut back to D, and each slab of it, against the reference."""
     q, k, v = _rand(40, *[(2, 64, 300)] * 3)
     jq = [jnp.asarray(a) for a in (q, k, v)]
     codes = [_to_torch(a) for a in
@@ -227,15 +228,43 @@ def test_mha_quantized_wide_head_dim_matches_reference_kernel(precision):
     want = np.asarray(ref_mha.mha_quant(*jq, precision=precision,
                                         causal=True, bq=32, bkv=32,
                                         interpret=True))
-    assert mha.pad_head_dim(*codes[:3])[0] is codes[0]
+    padded = mha.pad_head_dim(*codes[:3])
+    assert padded[0].shape[-1] == 304
+    got = mha.mha_quantized_torch(*padded, *codes[3:], causal=True,
+                                  scale=300 ** -0.5)[..., :300]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     got = mha.mha_quantized(*codes, causal=True)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
-    for d0 in (0, 256):
+    for d0 in (0, 128, 256):
         slab = mha.mha_quantized_torch(
-            codes[0], codes[1], codes[2][..., d0:d0 + 256].contiguous(),
+            padded[0], padded[1], padded[2][..., d0:d0 + 128].contiguous(),
             *codes[3:], causal=True, scale=300 ** -0.5)
-        np.testing.assert_allclose(slab.numpy(), want[..., d0:d0 + 256],
-                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            slab.numpy()[..., :min(128, 300 - d0)], want[..., d0:d0 + 128],
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [20, 100])
+@pytest.mark.parametrize("precision", _PRECISIONS)
+def test_mha_quantized_code_pitch_padding_matches_reference_jnp(precision,
+                                                                d):
+    """The CUDA wrapper's D padding (to a multiple of 16 codes, the TMA
+    copies' 16-byte row pitch; the kernel's 32-code k-steps read zeros past
+    it): the padded codes through the twin at the true D's scale, cut back
+    to D, against the reference's ``mha_quant_jnp`` on the unpadded
+    operands, causal with Sq != Sk."""
+    q, k, v = _rand(60 + d, (3, 40, d), (3, 72, d), (3, 72, d))
+    jq = [jnp.asarray(a) for a in (q, k, v)]
+    want = np.asarray(ref_mha.mha_quant_jnp(*jq, precision=precision,
+                                            causal=True))
+    codes = mha.quantize_mha_operands(
+        *(torch.from_numpy(a) for a in (q, k, v)), precision)
+    padded = mha.pad_head_dim(*codes[:3])
+    assert padded[0].shape[-1] == -(-d // 16) * 16
+    assert not padded[1][..., d:].to(torch.float32).any()
+    got = mha.mha_quantized_torch(*padded, *codes[3:], causal=True,
+                                  scale=d ** -0.5)[..., :d]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("precision", _PRECISIONS)

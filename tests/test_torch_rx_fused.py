@@ -15,6 +15,8 @@ bits (borderline LLRs near zero may flip).  The CUDA kernels are checked
 against these twins on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``).
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +29,10 @@ from repro_torch.phy import ofdm
 
 _SHAPES = [(1, 1), (2, 2), (4, 4), (8, 4)]
 _MODEMS = ["qpsk", "qam16", "qam64", "qam256"]
+# every modem at the shapes with compiled kernel instances, one each at
+# shapes the kernels take by their runtime-sized route
+_DEMAP_CASES = [(r, t, m) for r, t in _SHAPES for m in _MODEMS] + [
+    (2, 1, "qpsk"), (4, 2, "qam16"), (3, 3, "qam64"), (8, 6, "qam16")]
 _N_SC = 64
 _PSYM = (2, 11)
 
@@ -69,8 +75,7 @@ def _assert_detect_close(got, want):
     assert np.mean(np.sign(llr) == np.sign(llrr)) >= 0.999
 
 
-@pytest.mark.parametrize("modem_name", _MODEMS)
-@pytest.mark.parametrize("n_rx,n_tx", _SHAPES)
+@pytest.mark.parametrize("n_rx,n_tx,modem_name", _DEMAP_CASES)
 def test_detect_demap_twin_matches_jnp(n_rx, n_tx, modem_name):
     y, h, nv = _detect_inputs(n_rx, n_tx, modem_name, seed=n_rx * 10 + n_tx)
     want = ref_rx.mmse_detect_demap_jnp(
@@ -87,9 +92,9 @@ def test_detect_demap_twin_matches_pallas_interpret():
     _assert_detect_close(_port_detect(y, h, nv, "qam16"), want)
 
 
-def _ls_inputs(n_tx, n_rx, seed, b=2, n_sc=_N_SC):
+def _ls_inputs(n_tx, n_rx, seed, b=2, n_sc=_N_SC, n_sym=14):
     rng = np.random.default_rng(seed)
-    y = _cgauss(rng, (b, 14, n_sc, n_rx))
+    y = _cgauss(rng, (b, n_sym, n_sc, n_rx))
     g = ref_ofdm.GridConfig(n_subcarriers=n_sc, fft_size=n_sc, n_tx=n_tx,
                             n_rx=n_rx)
     seq = np.asarray(ref_ofdm.pilot_sequence(g))
@@ -105,6 +110,19 @@ def test_ls_che_twin_matches_jnp(n_rx, n_tx):
     want = np.asarray(ref_rx.ls_che_jnp(jnp.asarray(y), _PSYM, stride,
                                         jnp.asarray(op)))
     assert got.shape == want.shape == (2, 256, n_rx, n_tx)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_ls_che_twin_matches_jnp_past_symbol_31():
+    """Pilot symbols at any index: a slot of 40 symbols with a pilot at
+    symbol 35 (the CUDA wrapper hands the kernel a mask of n_sym bits) is
+    held to the reference like any other."""
+    psym = (3, 35)
+    y, op, stride = _ls_inputs(2, 2, seed=35, n_sc=256, n_sym=40)
+    got = rx_fused.ls_che(torch.from_numpy(y), psym, stride,
+                          torch.from_numpy(op)).numpy()
+    want = np.asarray(ref_rx.ls_che_jnp(jnp.asarray(y), psym, stride,
+                                        jnp.asarray(op)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -133,11 +151,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         rx_fused.mmse_detect_demap_cuda(
             torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
             ofdm.make_modem("qpsk"))
-    with pytest.raises(ValueError, match="no instance"):
+    # any antenna shape reaches the same device check (no shape cap); a
+    # bits-per-axis count past the kernels' 1..4 is refused before it
+    with pytest.raises(ValueError, match="CUDA"):
         rx_fused.mmse_detect_demap_cuda(
             torch.zeros(1, 14, 8, 3, dtype=torch.complex64),
             torch.zeros(1, 8, 3, 3, dtype=torch.complex64),
             torch.tensor(0.1), ofdm.make_modem("qpsk"))
+    wide = types.SimpleNamespace(bits_per_symbol=10, levels=(0.0,) * 32,
+                                 norm=1.0)
+    with pytest.raises(ValueError, match="1..4 bits"):
+        rx_fused.mmse_detect_demap_cuda(
+            torch.zeros(1, 14, 8, 3, dtype=torch.complex64),
+            torch.zeros(1, 8, 3, 3, dtype=torch.complex64),
+            torch.tensor(0.1), wide)
     # SIC runs its plain twin on a CPU tensor, and its CUDA entry refuses
     # CPU tensors like the joint one's
     out = rx_fused.sic_detect_demap(torch.from_numpy(y), torch.from_numpy(h),

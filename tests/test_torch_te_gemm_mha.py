@@ -17,8 +17,8 @@ Two routes the CUDA wrappers add around their kernels are checked here by
 their arithmetic: a softmax row of N = 600 (the kernel ends rows wider
 than its column tile in a second pass; the twin against the reference
 kernel holding the whole row), and head dimensions with no kernel
-instance (48, 80: ``mha.pad_head_dim`` then the twin at the true D's
-scale, against the reference kernel at the unpadded D), to rtol 1e-5.
+instance (48, 80: ``mha.pad_head_dim``, which keeps them, then the twin
+at the true D's scale, against the reference kernel), to rtol 1e-5.
 So is ``mha``'s route for D = 300 (rows aligned to 16 bytes, output
 slabs of the whole D's scores), to rtol 1e-5.
 """
@@ -189,7 +189,7 @@ def test_mha_padded_head_dim_matches_reference_kernel(d, causal):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         bq=32, bkv=32, interpret=True))
     qp, kp, vp = mha.pad_head_dim(*(torch.from_numpy(a) for a in (q, k, v)))
-    assert qp.shape[-1] == {48: 64, 80: 128}[d]
+    assert qp.shape[-1] == {48: 48, 80: 80}[d]
     assert torch.equal(qp[..., :d], torch.from_numpy(q))
     assert not qp[..., d:].any()
     got = mha.mha_torch(qp, kp, vp, causal=causal,
@@ -199,13 +199,15 @@ def test_mha_padded_head_dim_matches_reference_kernel(d, causal):
 
 
 def test_pad_head_dim_keeps_instances_and_refuses_wider():
-    """Instances and D past the widest (the quantized kernel splits such a
-    D into slabs) are kept as given; the rest pads to the next instance."""
+    """A D that is a multiple of 16 (the quantized kernel's 16-byte row
+    pitch for its codes) is kept as given, however wide; any other D pads
+    to the next multiple of 16."""
     q = torch.ones(1, 4, 64)
     assert mha.pad_head_dim(q, q)[0] is q
-    assert mha.pad_head_dim(torch.ones(1, 4, 200))[0].shape[-1] == 256
-    wide = torch.ones(1, 4, 300)
+    assert mha.pad_head_dim(torch.ones(1, 4, 200))[0].shape[-1] == 208
+    wide = torch.ones(1, 4, 384)
     assert mha.pad_head_dim(wide)[0] is wide
+    assert mha.pad_head_dim(torch.ones(1, 4, 300))[0].shape[-1] == 304
 
 
 @pytest.mark.parametrize("dtype,dp", [(torch.float32, 300),
