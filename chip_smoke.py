@@ -16,7 +16,7 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    2x2-16QAM, 4x8-64QAM, SISO-256QAM, then 2x1, 4x2, 3x3 and 8x6 antenna
    shapes, which have no compiled instance) at batch 8, ``sic_detect_demap``
    (the MU-MIMO 4x4-16QAM grid, 2x2-16QAM, 4x8-64QAM and the same four
-   shapes) at batch 8, both bit for bit,
+   shapes) at batch 8, and the MU grid at batch 2, both bit for bit,
    ``ldpc_decode`` and the int8 ``ldpc_decode_q`` (r12 and r34, 216
    codewords, at a converging and a non-converging SNR, r12 at lifting
    sizes z = 16, 384 and 512 (int8 also 64), and an r34 code with layers
@@ -386,19 +386,44 @@ def check_ls_che(dev) -> list:
     return cases
 
 
-def _detect_flops(n_rx: int, n_tx: int, nb: int) -> float:
-    """fp32 operations per RE of the fused detect+demap, counted from the
-    algorithm (complex multiply-add = 8, reciprocal of a complex pivot =
-    6, per level: subtract, square, compare)."""
-    nrhs = 1 + n_tx
+# fp32 operations of the MMSE solves, counted from the algorithm: complex
+# multiply-add = 8, complex multiply = 6, reciprocal of a complex pivot =
+# 6, per level: subtract, square, compare
+
+def _gram_flops(n_rx: int, n_tx: int) -> float:
+    """The Hermitian Gram of H's n_tx columns: its upper triangle."""
+    return 8.0 * n_rx * n_tx * (n_tx + 1) / 2
+
+
+def _factor_flops(m: int) -> float:
+    """An m-stream system eliminated in place: pivot reciprocals,
+    multipliers and the rows below each pivot."""
+    return sum(6 + (m - kd - 1) * (6 + 8 * (m - kd)) for kd in range(m))
+
+
+def _column_flops(m: int, down_to: int = 0) -> float:
+    """One right-hand side through the stored factors: forward elimination,
+    then back substitution from row m - 1 down to row ``down_to``."""
+    return 4.0 * m * (m - 1) + sum(8 * (m - kd - 1) + 6
+                                   for kd in range(down_to, m))
+
+
+def _demap_flops(nb: int) -> float:
+    """One stream unbiased and its 2 nb max-log LLRs."""
     n_lv = 2 ** nb
-    f = 8.0 * n_tx * n_tx * n_rx + 8.0 * n_tx * n_rx
-    for kd in range(n_tx):
-        below = n_tx - kd - 1
-        f += 6 + below * (6 + 8 * ((n_tx - kd) + nrhs))
-        f += nrhs * (8 * below + 6)
-    f += n_tx * (6 + 2 * (3 * n_lv + nb * (n_lv + 1)))
-    return f
+    return 6 + 2 * (3 * n_lv + nb * (n_lv + 1))
+
+
+def _detect_flops(n_rx: int, n_tx: int, nb: int, n_sym: int) -> float:
+    """fp32 operations per RE of the fused detect+demap.  What depends on
+    the subcarrier alone (the Gram, its elimination, the n_tx bias columns)
+    is done once per (batch row, subcarrier) and spread over its n_sym
+    REs; an RE adds H^H y, its solve and the demap of every stream."""
+    per_sc = (_gram_flops(n_rx, n_tx) + _factor_flops(n_tx)
+              + sum(_column_flops(n_tx, u) for u in range(n_tx)))
+    per_re = (8.0 * n_tx * n_rx + _column_flops(n_tx)
+              + n_tx * _demap_flops(nb))
+    return per_re + per_sc / n_sym
 
 
 # detect+demap cases past the registered scenarios: antenna shapes with
@@ -455,7 +480,7 @@ def check_detect_demap(dev) -> list:
         n_re = b * n_sym * n_sc
         nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4
                   + n_re * n_tx * (8 + 4 + 4 * 2 * nb))
-        bms, by = bound(nbytes, n_re * _detect_flops(n_rx, n_tx, nb))
+        bms, by = bound(nbytes, n_re * _detect_flops(n_rx, n_tx, nb, n_sym))
         run = lambda: rx_fused.mmse_detect_demap(*args)
         cases.append(dict(
             shape=f"{name} B=8", max_abs_err=err, bit_exact=exact,
@@ -470,13 +495,21 @@ def check_detect_demap(dev) -> list:
     return cases
 
 
-def _sic_flops(n_rx: int, n_tx: int, nb: int) -> float:
-    """fp32 operations per RE of SIC, the reference's count
-    (``sic_demap_stage``): each stage's shrinking Gram + solve + rhs, one
-    stream demapped per stage, and the hard-remodulated cancellation."""
-    solve = sum(8.0 * (m * m * n_rx + m ** 3 + m * n_rx)
-                for m in range(1, n_tx + 1))
-    return solve + n_tx * 2 ** nb * 8.0 + (n_tx - 1) * 8.0 * n_rx
+def _sic_flops(n_rx: int, n_tx: int, nb: int, n_sym: int) -> float:
+    """fp32 operations per RE of SIC.  Stage k's suffix Gram is a block of
+    the full Gram, and its system and bias column 0 depend on the
+    subcarrier alone: the Gram and every stage's elimination and bias
+    column are done once per (batch row, subcarrier) and spread over its
+    n_sym REs.  An RE adds, per stage, H[:, k:]^H y_res, its solve, the
+    demap of stream k, and but for the last stage the hard decision on
+    each axis and the cancellation."""
+    n_lv = 2 ** nb
+    per_sc = _gram_flops(n_rx, n_tx) + sum(
+        _factor_flops(m) + _column_flops(m) for m in range(1, n_tx + 1))
+    per_re = sum(8.0 * m * n_rx + _column_flops(m) + _demap_flops(nb)
+                 for m in range(1, n_tx + 1))
+    per_re += (n_tx - 1) * (2 * (3 * n_lv + 2) + 8.0 * n_rx)
+    return per_re + per_sc / n_sym
 
 
 def _sic_decisions(x_hat, modem):
@@ -497,12 +530,17 @@ def check_sic(dev) -> list:
 
     cases = []
     inputs = dict(_demap_inputs(dev))
-    for name in ("mimo4x4-qam16-mu-snr18", "mimo2x2-qam16-r12-snr17",
+    mu = "mimo4x4-qam16-mu-snr18"
+    # the MU grid also at a served batch of 2: the factor phase's fixed
+    # cost a block against few symbols' REs
+    for name in (mu, f"{mu} B=2", "mimo2x2-qam16-r12-snr17",
                  "mimo4x8-qam64-snr24", *(
                      label for label in inputs if "no instance" in label)):
         if name not in inputs:  # the MU grid is SIC's alone
-            scn = scenarios.get_scenario(name)
-            slot = scn.make_batch(ofdm.make_generator(2, dev), 8)
+            grid, _, batch = name.partition(" B=")
+            scn = scenarios.get_scenario(grid)
+            slot = scn.make_batch(ofdm.make_generator(2, dev),
+                                  int(batch or 8))
             inputs[name] = (_grid_y(slot), slot["h"][:, 0].contiguous(),
                             slot["noise_var"], scn.modem)
         args = inputs[name]
@@ -524,13 +562,18 @@ def check_sic(dev) -> list:
         n_re = b * n_sym * n_sc
         nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4
                   + n_re * n_tx * (8 + 4 + 4 * 2 * nb))
-        bms, by = bound(nbytes, n_re * _sic_flops(n_rx, n_tx, nb))
+        bms, by = bound(nbytes, n_re * _sic_flops(n_rx, n_tx, nb, n_sym))
         run = lambda: rx_fused.sic_detect_demap(*args)
+        # one stream has nothing to cancel: the wrapper then launches the
+        # joint receiver's kernel
+        symbol = KERNEL_SYMBOLS["sic_detect_demap" if n_tx > 1
+                                else "mmse_detect_demap"]
         cases.append(dict(
-            shape=f"{name} B=8", max_abs_err=err, bit_exact=exact,
+            shape=f"{name.partition(' B=')[0]} B={b}", max_abs_err=err,
+            bit_exact=exact,
             tolerance="bit-exact (decisions, x_hat, nv_eff and LLRs equal)",
             ms=time_ms(run),
-            device_us=device_us(run, KERNEL_SYMBOLS["sic_detect_demap"]),
+            device_us=device_us(run, symbol),
             host_us=host_us(run),
             plain_ms=time_ms(lambda: rx_fused.sic_detect_demap_torch(*args),
                              reps=10),

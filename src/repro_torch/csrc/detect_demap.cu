@@ -20,16 +20,18 @@
 //
 // What bounds them: bytes, narrowly at the larger shapes.  A RE moves
 // 100-230 bytes (y, its share of H, x_hat, nv_eff and the LLR plane) and
-// costs up to a few thousand fp32 flops (SIC at 4x4 16-QAM ~2.3 kflop,
-// ~15 flop/byte, under the card's 20 flop/byte balance of 67 TFLOP/s over
-// 3.35 TB/s); on the small SISO and 2x2 grids the bytes dominate.  fp32
-// outside the tensor cores either way: the per-RE systems are small.
+// costs up to a few thousand fp32 flops (SIC at 4x4 16-QAM ~2.3 kflop as
+// the reference counts it, ~15 flop/byte, under the card's 20 flop/byte
+// balance of 67 TFLOP/s over 3.35 TB/s); on the small SISO and 2x2 grids
+// the bytes dominate.  fp32 outside the tensor cores either way: the
+// per-RE systems are small.
 //
-// The joint kernel factors once per subcarrier and applies per symbol, as
-// the TPU kernel broadcasts H over the symbols of its tile.  Everything
-// but the right-hand side H^H y depends on (b, sc) and nv alone, so a
-// block owns one batch row's tile of SCT subcarriers x all n_sym symbols
-// (subcarriers fastest, so y loads and output stores coalesce):
+// Both kernels factor once per subcarrier and apply per symbol, as the TPU
+// kernel broadcasts H over the symbols of its tile.  Everything but the
+// right-hand side H^H y depends on (b, sc) and nv alone, so a block owns
+// one batch row's tile of SCT subcarriers x all n_sym symbols
+// (subcarriers fastest, so y loads and output stores coalesce).  The
+// joint kernel:
 //   1a. one thread per subcarrier forms the Gram (nv on its diagonal) and
 //       eliminates it in place: the multipliers f[r][kd] below the
 //       diagonal, the eliminated upper rows above it, and the pivots'
@@ -40,34 +42,49 @@
 //       factors, down to row u, and keeps mu_u, ne_u and its noise scale
 //       (column 0 by the thread of 1a);
 //   2.  one thread per RE forms H^H y, forward-eliminates it with the
-//       stored f, back-substitutes, unbiases and demaps.  Where an RE's
-//       LLR row is wider than one 16-byte store, the block stages x_hat,
-//       nv_eff and the LLR rows in shared memory and writes each symbol's
-//       run of subcarriers with 16-byte stores; else each thread stores
-//       its row whole (neighbouring threads, neighbouring rows).
-// Every value is the per-RE chain's: the same operations on the same
-// operands in the same order (a column's elimination reads only A and
-// itself), so the factors are those each RE would recompute.
+//       stored f, back-substitutes, unbiases and demaps.
+// SIC's stage k is that joint problem on H[:, k:] with the residual as
+// its right-hand side, and only stream k's column of it is kept:
+//   1a. the block copies its H tile to shared memory (H is read once per
+//       (b, sc)), asynchronously, with y's loads in flight beside it;
+//   1b. one thread per (subcarrier, entry) forms the Gram of all n_tx
+//       streams: stage k's suffix Gram is its block [k:, k:], the same
+//       sums;
+//   1c. a warp per stage k, a lane per subcarrier, eliminates the
+//       stage's system (nv on its diagonal) and solves its bias column 0
+//       (mu, ne and the noise scale of stream k) in registers (in place
+//       for a runtime-sized stage of more than kRegStage streams); the
+//       stages depend on H alone, so they are factored side by side;
+//   2.  one thread per RE runs the stage chain on its residual:
+//       H[:, k:]^H y_res, forward elimination with stage k's multipliers,
+//       back substitution down to row 0, unbias and demap stream k, its
+//       hard decision and the cancellation.
+// The joint kernel stages an RE's LLR row wider than one 16-byte store in
+// shared memory and writes each symbol's run of subcarriers with 16-byte
+// stores; else, and in SIC, each thread keeps its RE's rows in registers
+// and stores each whole (neighbouring threads, neighbouring rows).  Every
+// value is the per-RE chain's: the same operations on the same operands
+// in the same order (a column's elimination reads only A and itself), so
+// the factors are those each RE would recompute.  SIC keeps its shared
+// state with subcarriers fastest (element e of subcarrier sc at
+// [e][SCT]), so a warp's 16 subcarriers read 16 neighbouring words.
 //
 // Shapes: <N_RX, N_TX, NB> instances for the registered antenna shapes
 // (1x1, 2x2, 4x4, 8x4) x 1..4 bits per axis keep every loop unrolled and
-// the per-RE vector in registers, with the factors in shared memory.  Any
+// the per-RE vectors in registers, with the factors in shared memory.  SIC
+// with one stream has no cancellation and runs the joint kernel.  Any
 // other (n_rx, n_tx) runs the <0, 0, 0> instance of the same kernel with
 // runtime loop bounds, its factors and per-RE vectors in shared memory
 // (in a workspace the wrapper allocates, sized by detect_demap_workspace,
-// where a block's would not fit), and its outputs stored directly.  SIC
-// keeps one thread per RE (every stage in registers, unrolled by template
-// recursion on k) for the registered shapes, and sic_demap_kernel_any
-// runs any other shape with each RE's stage system in shared memory (or
-// the workspace).  SIC's hard decision is _hard_axis's: levels in
-// the modem's order, a strict < so the first level wins a tie,
-// v = comp * scale and a true division best / scale.  A decision at a
-// level boundary changes every later stage's residual, so the operation
-// order is the reference core's throughout and the library is built with
-// -fmad=false: each product and sum rounds where the plain PyTorch twin's
-// does.  noise_var is read through a device pointer (no host read on the
-// hot path), and x_hat, nv_eff and the LLRs are written in the port's
-// final layouts.
+// where a block's would not fit), and its outputs stored directly.  SIC's
+// hard decision is _hard_axis's: levels in the modem's order, a strict <
+// so the first level wins a tie, v = comp * scale and a true division
+// best / scale.  A decision at a level boundary changes every later
+// stage's residual, so the operation order is the reference core's
+// throughout and the library is built with -fmad=false: each product and
+// sum rounds where the plain PyTorch twin's does.  noise_var is read
+// through a device pointer (no host read on the hot path), and x_hat,
+// nv_eff and the LLRs are written in the port's final layouts.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,13 +94,16 @@
 
 namespace {
 
-constexpr int SCT = 16;       // subcarriers a joint block
-constexpr int THREADS = 256;  // threads a joint block
-constexpr int SIC_THREADS = 128;
+constexpr int SCT = 16;       // subcarriers a block
+constexpr int THREADS = 256;  // threads a block
 constexpr int MAX_LEVELS = 16;
 // the runtime-sized routes keep a block's state in shared memory up to
 // this many bytes, else in the wrapper's workspace
 constexpr int kSharedRoute = 160 * 1024;
+// SIC's runtime-sized route factors a stage of up to this many streams in
+// registers (the largest whose factors fit them without spilling), a
+// larger one in place
+constexpr int kRegStage = 6;
 
 struct cf {
   float r, i;
@@ -121,7 +141,7 @@ struct Levels<0> {
 };
 
 // A complex vector: in registers for a compile-time N (indices known after
-// unrolling), else in memory at p
+// unrolling), else in memory at p, element k at p[k * s]
 template <int N>
 struct CVec {
   float2 v[N];
@@ -130,7 +150,19 @@ struct CVec {
 template <>
 struct CVec<0> {
   float2* p;
-  __device__ __forceinline__ float2& operator[](int k) { return p[k]; }
+  int s;
+  __device__ __forceinline__ float2& operator[](int k) const {
+    return p[k * s];
+  }
+};
+
+// A channel matrix read in place: element (r, t) at p[(r * ld + t) * s]
+struct HMat {
+  const float2* p;
+  int ld, s;
+  __device__ __forceinline__ float2 operator()(int r, int t) const {
+    return p[(r * ld + t) * s];
+  }
 };
 
 // The 2*nb max-log LLRs of one unbiased estimate (ux, uy) with noise scale
@@ -175,23 +207,6 @@ __device__ __forceinline__ void bias_terms(float z_mu, float norm, float& mu,
   nvs = fmaxf(ne * norm, 1e-6f);
 }
 
-// Unbias one stream and write its estimate, effective noise variance and
-// 2*nb LLRs; the unbiased estimate is returned in (ux, uy).
-template <class LV>
-__device__ __forceinline__ void unbias_demap(float z_r, float z_i, float z_mu,
-                                             const LV& lv, int nb, float norm,
-                                             float scale, float2* x_hat,
-                                             float* nv_eff, float* llr,
-                                             float& ux, float& uy) {
-  float mu, ne, nvs;
-  bias_terms(z_mu, norm, mu, ne, nvs);
-  ux = z_r / mu;
-  uy = z_i / mu;
-  *x_hat = make_float2(ux, uy);
-  *nv_eff = ne;
-  demap(ux, uy, lv, nb, scale, nvs, llr);
-}
-
 // nearest per-axis level of comp (unit-power domain), back in that domain
 template <class LV>
 __device__ __forceinline__ float hard_axis(float comp, const LV& lv, int nl,
@@ -210,125 +225,208 @@ __device__ __forceinline__ float hard_axis(float comp, const LV& lv, int nl,
   return best / scale;
 }
 
-// ---- the joint receiver: factor per subcarrier, apply per RE -------------
+// ---- factor per subcarrier, apply per RE ---------------------------------
 
-// floats of one subcarrier's factors: H copy [nr][m], A [m][m] (f below
-// the diagonal, eliminated rows above), G [m][m] (bias columns, solved in
-// place), the pivots' reciprocals [m] (complex), mu, ne, nvs [m] each;
+// One subcarrier's factors of an m-stream system: H copy [nr][m], A [m][m]
+// (f below the diagonal, eliminated rows above), G [m][gc] (the first gc
+// bias columns, solved in place), the pivots' reciprocals [m] (complex),
+// then mu, ne, nvs [gc] each.  Element j of each array lies at [j * s]:
+// the joint kernel keeps a subcarrier's factors together (s = 1), SIC a
+// stage's factors of the block's SCT subcarriers interleaved (s = SCT,
+// subcarrier scl at offset scl).
+struct Factors {
+  float2 *hs, *a, *g, *iv;
+  float* mu;
+  int m, gc, s;
+  __device__ __forceinline__ Factors(float* base, int nr, int m_, int gc_,
+                                     int s_ = 1, int scl = 0)
+      : m(m_), gc(gc_), s(s_) {
+    float2* p = reinterpret_cast<float2*>(base);
+    hs = p + scl;
+    a = hs + nr * m * s;
+    g = a + m * m * s;
+    iv = g + m * gc * s;
+    mu = reinterpret_cast<float*>(p + (nr * m + m * m + m * gc + m) * s) +
+         scl;
+  }
+  __device__ __forceinline__ float2& H(int r, int t) const {
+    return hs[(r * m + t) * s];
+  }
+  __device__ __forceinline__ float2& A(int r, int c) const {
+    return a[(r * m + c) * s];
+  }
+  __device__ __forceinline__ float2& G(int r, int c) const {
+    return g[(r * gc + c) * s];
+  }
+  __device__ __forceinline__ float2& IV(int k) const { return iv[k * s]; }
+  __device__ __forceinline__ float& MU(int j) const { return mu[j * s]; }
+};
+
+// floats of one subcarrier's joint factors (Factors with gc = m, s = 1),
 // rounded to 16 bytes
 __host__ __device__ __forceinline__ int factor_floats(int nr, int m) {
   return (2 * nr * m + 4 * m * m + 2 * m + 3 * m + 3) & ~3;
 }
 
-struct Factors {
-  float2* hs;  // [nr][m]
-  float2* a;   // [m][m]
-  float2* g;   // [m][m]
-  float2* iv;  // [m]
-  float* mu;   // [m], then ne [m], nvs [m]
-  __device__ __forceinline__ Factors(float* base, int nr, int m) {
-    hs = reinterpret_cast<float2*>(base);
-    a = hs + nr * m;
-    g = a + m * m;
-    iv = g + m * m;
-    mu = reinterpret_cast<float*>(iv + m);
-  }
+// floats a subcarrier of SIC's stage factors for m streams (Factors with
+// nr = 0, gc = 1): A [m][m], G [m], the reciprocals [m], mu, ne, nvs
+__host__ __device__ __forceinline__ int sic_stage_floats(int m) {
+  return 2 * m * m + 4 * m + 3;
+}
+
+// floats a subcarrier of SIC's tile: its H [nr][nt], its Gram [nt][nt]
+// and the stages k = 0..nt-1 (m = nt - k streams each) in that order
+__host__ __device__ __forceinline__ int sic_tile_floats(int nr, int nt) {
+  int f = 2 * nr * nt + 2 * nt * nt;
+  for (int m = 1; m <= nt; ++m) f += sic_stage_floats(m);
+  return f;
+}
+
+// A SIC stage's factors of one subcarrier in registers (a compile-time M,
+// every index known after unrolling), formed by one thread, then stored
+template <int M>
+struct RegFactors {
+  static constexpr int m = M, gc = 1;
+  float2 a[M][M], g[M], iv[M];
+  float mu[3];
+  __device__ __forceinline__ float2& A(int r, int c) { return a[r][c]; }
+  __device__ __forceinline__ float2& G(int r, int) { return g[r]; }
+  __device__ __forceinline__ float2& IV(int k) { return iv[k]; }
+  __device__ __forceinline__ float& MU(int j) { return mu[j]; }
 };
 
-// 1a: the Gram of H (b, sc) with nv on its diagonal, eliminated in place
-__device__ __forceinline__ void factor(const float2* __restrict__ hg,
-                                      Factors f, int nr, int m, float nv,
-                                      bool copy_h) {
+// Gram entry (t, u) of h's columns: sum_r conj(h[r][t]) h[r][u]
+__device__ __forceinline__ float2 gram_entry(HMat h, int nr, int t, int u) {
+  float sr = 0.f, si = 0.f;
+#pragma unroll
+  for (int r = 0; r < nr; ++r) {
+    const float2 ht = h(r, t), hu = h(r, u);
+    const cf p = cmul(ht.x, -ht.y, hu.x, hu.y);
+    sr = sr + p.r;
+    si = si + p.i;
+  }
+  return make_float2(sr, si);
+}
+
+// f's system from its Gram entries gram(t, u) with nv on the diagonal
+// (and its first gc bias columns), eliminated in place
+template <class F, class Gram>
+__device__ __forceinline__ void factor(F& f, Gram gram, float nv) {
+  const int m = f.m;
 #pragma unroll
   for (int t = 0; t < m; ++t) {
 #pragma unroll
     for (int u = 0; u < m; ++u) {
-      float sr = 0.f, si = 0.f;
-#pragma unroll
-      for (int r = 0; r < nr; ++r) {
-        const float2 ht = hg[r * m + t], hu = hg[r * m + u];
-        const cf p = cmul(ht.x, -ht.y, hu.x, hu.y);
-        sr = sr + p.r;
-        si = si + p.i;
-      }
-      f.g[t * m + u] = make_float2(sr, si);
-      f.a[t * m + u] = make_float2(t == u ? sr + nv : sr + 0.f, si + 0.f);
+      const float2 g = gram(t, u);
+      if (u < f.gc) f.G(t, u) = g;
+      f.A(t, u) = make_float2(t == u ? g.x + nv : g.x + 0.f, g.y + 0.f);
     }
-  }
-  if (copy_h) {
-#pragma unroll
-    for (int i = 0; i < nr * m; ++i) f.hs[i] = hg[i];
   }
 #pragma unroll
   for (int kd = 0; kd < m; ++kd) {
-    const float2 d = f.a[kd * m + kd];
+    const float2 d = f.A(kd, kd);
     const float den = d.x * d.x + d.y * d.y;
     const float ivr = d.x / den, ivi = -d.y / den;
-    f.iv[kd] = make_float2(ivr, ivi);
+    f.IV(kd) = make_float2(ivr, ivi);
 #pragma unroll
     for (int r = kd + 1; r < m; ++r) {
-      const float2 x = f.a[r * m + kd];
+      const float2 x = f.A(r, kd);
       const cf fr = cmul(x.x, x.y, ivr, ivi);
 #pragma unroll
       for (int u = kd; u < m; ++u) {
-        const float2 w = f.a[kd * m + u];
+        const float2 w = f.A(kd, u);
         const cf p = cmul(fr.r, fr.i, w.x, w.y);
-        const float2 o = f.a[r * m + u];
-        f.a[r * m + u] = make_float2(o.x - p.r, o.y - p.i);
+        const float2 o = f.A(r, u);
+        f.A(r, u) = make_float2(o.x - p.r, o.y - p.i);
       }
-      f.a[r * m + kd] = make_float2(fr.r, fr.i);  // the multiplier
+      f.A(r, kd) = make_float2(fr.r, fr.i);  // the multiplier
     }
   }
 }
 
-// 1b: bias column u, solved in place down to row u -> mu_u, ne_u, nvs_u
-__device__ __forceinline__ void bias_column(Factors f, int m, int u,
-                                            float norm) {
+// bias column u, solved in place down to row u -> mu_u, ne_u, nvs_u
+template <class F>
+__device__ __forceinline__ void bias_column(F& f, int u, float norm) {
+  const int m = f.m;
 #pragma unroll
   for (int kd = 0; kd < m; ++kd) {
-    const float2 bk = f.g[kd * m + u];
+    const float2 bk = f.G(kd, u);
 #pragma unroll
     for (int r = kd + 1; r < m; ++r) {
-      const float2 fr = f.a[r * m + kd];
+      const float2 fr = f.A(r, kd);
       const cf p = cmul(fr.x, fr.y, bk.x, bk.y);
-      const float2 o = f.g[r * m + u];
-      f.g[r * m + u] = make_float2(o.x - p.r, o.y - p.i);
+      const float2 o = f.G(r, u);
+      f.G(r, u) = make_float2(o.x - p.r, o.y - p.i);
     }
   }
+#pragma unroll
   for (int kd = m - 1; kd >= u; --kd) {
-    const float2 s0 = f.g[kd * m + u];
+    const float2 s0 = f.G(kd, u);
     float sr = s0.x, si = s0.y;
+#pragma unroll
     for (int v = kd + 1; v < m; ++v) {
-      const float2 w = f.a[kd * m + v], z = f.g[v * m + u];
+      const float2 w = f.A(kd, v), z = f.G(v, u);
       const cf p = cmul(w.x, w.y, z.x, z.y);
       sr = sr - p.r;
       si = si - p.i;
     }
-    const float2 iv = f.iv[kd];
+    const float2 iv = f.IV(kd);
     const cf z = cmul(sr, si, iv.x, iv.y);
-    f.g[kd * m + u] = make_float2(z.r, z.i);
+    f.G(kd, u) = make_float2(z.r, z.i);
   }
   float mu, ne, nvs;
-  bias_terms(f.g[u * m + u].x, norm, mu, ne, nvs);
-  f.mu[u] = mu;
-  f.mu[m + u] = ne;
-  f.mu[2 * m + u] = nvs;
+  bias_terms(f.G(u, u).x, norm, mu, ne, nvs);
+  f.MU(u) = mu;
+  f.MU(f.gc + u) = ne;
+  f.MU(2 * f.gc + u) = nvs;
 }
 
-// 2: one RE: H^H y, forward elimination with the stored multipliers, back
-// substitution, unbias and demap; outputs at xo [m], no [m], lo [m][2 nb]
-template <int NT, class LV>
-__device__ __forceinline__ void apply(const float2* __restrict__ yre,
-                                      const float2* hs, Factors f, CVec<NT>& z,
-                                      int nr, int m, const LV& lv, int nb,
-                                      float scale, float2* xo, float* no,
-                                      float* lo) {
+// A SIC stage of m streams of one subcarrier (Gram entries gram(t, u)):
+// factored and bias column 0 solved in registers where m <= M (a
+// compile-time size, every index known after unrolling), then stored to
+// f; a larger stage, which only the runtime-sized route (RT) has, in
+// place at f
+template <int M, bool RT, class Gram>
+__device__ __forceinline__ void factor_stage(int m, Factors f, Gram gram,
+                                             float nv, float norm) {
+  if constexpr (M > 0) {
+    if (m < M) {
+      factor_stage<M - 1, RT>(m, f, gram, nv, norm);
+      return;
+    }
+    if (!RT || m == M) {
+      RegFactors<M> rf;
+      factor(rf, gram, nv);
+      bias_column(rf, 0, norm);
+#pragma unroll
+      for (int t = 0; t < M; ++t) {
+#pragma unroll
+        for (int u = 0; u < M; ++u) f.A(t, u) = rf.a[t][u];
+        f.IV(t) = rf.iv[t];
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) f.MU(j) = rf.mu[j];
+      return;
+    }
+  }
+  if constexpr (RT) {
+    factor(f, gram, nv);
+    bias_column(f, 0, norm);
+  }
+}
+
+// one RE: z = H^H y over h's m columns, forward-eliminated with the stored
+// multipliers, back-substituted with the eliminated rows and reciprocals
+template <int NT, class YV>
+__device__ __forceinline__ void solve(HMat h, const YV& y, Factors f,
+                                      CVec<NT>& z, int nr) {
+  const int m = f.m;
 #pragma unroll
   for (int t = 0; t < m; ++t) {
     float sr = 0.f, si = 0.f;
 #pragma unroll
     for (int r = 0; r < nr; ++r) {
-      const float2 ht = hs[r * m + t], yv = yre[r];
+      const float2 ht = h(r, t), yv = y[r];
       const cf p = cmul(ht.x, -ht.y, yv.x, yv.y);
       sr = sr + p.r;
       si = si + p.i;
@@ -340,7 +438,7 @@ __device__ __forceinline__ void apply(const float2* __restrict__ yre,
     const float2 bk = z[kd];
 #pragma unroll
     for (int r = kd + 1; r < m; ++r) {
-      const float2 fr = f.a[r * m + kd];
+      const float2 fr = f.A(r, kd);
       const cf p = cmul(fr.x, fr.y, bk.x, bk.y);
       const float2 o = z[r];
       z[r] = make_float2(o.x - p.r, o.y - p.i);
@@ -352,23 +450,76 @@ __device__ __forceinline__ void apply(const float2* __restrict__ yre,
     float sr = s0.x, si = s0.y;
 #pragma unroll
     for (int v = kd + 1; v < m; ++v) {
-      const float2 w = f.a[kd * m + v], zv = z[v];
+      const float2 w = f.A(kd, v), zv = z[v];
       const cf p = cmul(w.x, w.y, zv.x, zv.y);
       sr = sr - p.r;
       si = si - p.i;
     }
-    const float2 iv = f.iv[kd];
+    const float2 iv = f.IV(kd);
     const cf zz = cmul(sr, si, iv.x, iv.y);
     z[kd] = make_float2(zz.r, zz.i);
   }
+}
+
+// Unbias stream t's solution zt with its stored bias terms and write its
+// estimate, effective noise variance and 2*nb LLRs; returns the estimate
+template <class LV>
+__device__ __forceinline__ float2 unbias_demap(Factors f, int t, float2 zt,
+                                               const LV& lv, int nb,
+                                               float scale, float2* xo,
+                                               float* no, float* lo) {
+  const float mu = f.MU(t);
+  const float ux = zt.x / mu, uy = zt.y / mu;
+  *xo = make_float2(ux, uy);
+  *no = f.MU(f.gc + t);
+  demap(ux, uy, lv, nb, scale, f.MU(2 * f.gc + t), lo);
+  return make_float2(ux, uy);
+}
+
+// the joint receiver's RE: solve, then unbias and demap every stream;
+// outputs at xo [m], no [m], lo [m][2 nb]
+template <int NT, class YV, class LV>
+__device__ __forceinline__ void apply(HMat h, const YV& y, Factors f,
+                                      CVec<NT>& z, int nr, const LV& lv,
+                                      int nb, float scale, float2* xo,
+                                      float* no, float* lo) {
+  solve(h, y, f, z, nr);
 #pragma unroll
-  for (int t = 0; t < m; ++t) {
-    const float mu = f.mu[t];
-    const float2 zt = z[t];
-    const float ux = zt.x / mu, uy = zt.y / mu;
-    xo[t] = make_float2(ux, uy);
-    no[t] = f.mu[m + t];
-    demap(ux, uy, lv, nb, scale, f.mu[2 * m + t], lo + t * 2 * nb);
+  for (int t = 0; t < f.m; ++t)
+    unbias_demap(f, t, z[t], lv, nb, scale, xo + t, no + t,
+                 lo + t * 2 * nb);
+}
+
+// SIC's RE: the nt stages on the residual y (its received samples on
+// entry), with the tile's H (hs: element (r, t) of subcarrier scl at
+// hs[(r * nt + t) * SCT + scl]) and stage factors (st: stage k's after
+// stage k - 1's, sic_stage_floats(nt - k) x SCT floats each); stream k's
+// outputs at xo [k], no [k], lo [k][2 nb]
+template <int NT, class YV, class LV>
+__device__ __forceinline__ void sic_apply(YV& y, const float2* hs, float* st,
+                                          int scl, CVec<NT>& z, int nr,
+                                          int nt, const LV& lv, int nb,
+                                          float scale, float2* xo, float* no,
+                                          float* lo) {
+#pragma unroll
+  for (int k = 0; k < nt; ++k) {
+    const int m = nt - k;
+    const Factors f(st, 0, m, 1, SCT, scl);
+    solve(HMat{hs + k * SCT + scl, nt, SCT}, y, f, z, nr);
+    const float2 u = unbias_demap(f, 0, z[0], lv, nb, scale, xo + k, no + k,
+                                  lo + k * 2 * nb);
+    if (k + 1 < nt) {
+      const float hx = hard_axis(u.x, lv, 1 << nb, scale);
+      const float hy = hard_axis(u.y, lv, 1 << nb, scale);
+#pragma unroll
+      for (int r = 0; r < nr; ++r) {
+        const float2 hk = hs[(r * nt + k) * SCT + scl];
+        const cf c = cmul(hk.x, hk.y, hx, hy);
+        const float2 o = y[r];
+        y[r] = make_float2(o.x - c.r, o.y - c.i);
+      }
+    }
+    st += SCT * sic_stage_floats(m);
   }
 }
 
@@ -412,18 +563,86 @@ __device__ __forceinline__ void store_row(float* dst, const float* src) {
   }
 }
 
-// An RE's LLR row wider than one 16-byte store is staged in shared memory
-// so that each symbol's run of subcarriers leaves in 16-byte stores
+// The joint kernel stages an RE's LLR row wider than one 16-byte store in
+// shared memory, so that each symbol's run of subcarriers leaves in
+// 16-byte stores; SIC keeps an RE's rows in registers and stores each
+// whole at the end of its chain (the staging pass cost more than it saved
+// at the served batches)
 template <int NT, int NB>
 __host__ __device__ constexpr bool staged() {
   return NT > 0 && NT * 2 * NB > 4;
 }
 
-// A block: batch row b, subcarriers [sc0, sc0 + SCT), every symbol.
-// <N_RX, N_TX, NB> > 0: a registered shape, factors (and where staged(),
-// the outputs) in shared memory, y and the per-RE vector in registers;
-// <0, 0, 0>: runtime sizes, factors and per-RE vectors in the workspace,
-// outputs stored directly.
+// floats of a runtime-sized route's state a block: SCT subcarriers'
+// factors (SIC: its tile) and THREADS REs' vectors (the solution z [nt]
+// and, for SIC, the residual [nr], complex)
+__host__ __device__ __forceinline__ long long route_floats(bool sic, int nr,
+                                                           int nt) {
+  return sic ? (long long)SCT * sic_tile_floats(nr, nt) +
+                   THREADS * 2 * (nr + nt)
+             : (long long)SCT * factor_floats(nr, nt) + THREADS * 2 * nt;
+}
+
+// A block's tile: batch row b, subcarriers [sc0, sc0 + nsc), every
+// symbol; its (b, sym) rows start at row0
+struct Tile {
+  int b, sc0, nsc;
+  size_t row0;
+  __device__ __forceinline__ explicit Tile(const DemapArgs& a) {
+    const int tiles = (a.n_sc + SCT - 1) / SCT;
+    b = blockIdx.x / tiles;
+    sc0 = (blockIdx.x % tiles) * SCT;
+    nsc = min(SCT, a.n_sc - sc0);
+    row0 = (size_t)b * a.n_sym;
+  }
+};
+
+// the 2^nb levels: a compile-time NB's in registers, else in lv_s (read
+// after the block's next barrier)
+template <int NB>
+__device__ __forceinline__ Levels<NB> load_levels(const DemapArgs& a,
+                                                  float* lv_s) {
+  Levels<NB> lv;
+  if constexpr (NB == 0) {
+    if (threadIdx.x < (1 << a.nb)) lv_s[threadIdx.x] = a.levels[threadIdx.x];
+    lv.p = lv_s;
+  } else {
+#pragma unroll
+    for (int j = 0; j < (1 << NB); ++j) lv.v[j] = a.levels[j];
+  }
+  return lv;
+}
+
+// a registered shape's y of this thread's RE of the chunk at c0, into
+// registers
+template <int NR>
+__device__ __forceinline__ void load_y(const DemapArgs& a, const Tile& t,
+                                       int c0, float2 (&y)[NR]) {
+  const int i = c0 + threadIdx.x, sym = i / SCT, scl = i % SCT;
+  if (sym < a.n_sym && scl < t.nsc) {
+    const float2* yre = a.y + ((t.row0 + sym) * a.n_sc + t.sc0 + scl) * NR;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) y[r] = yre[r];
+  }
+}
+
+// an RE's register rows to its x_hat, nv_eff and LLR rows
+template <int NT, int NB>
+__device__ __forceinline__ void store_re(const DemapArgs& a, size_t re,
+                                         const float2* xo, const float* no,
+                                         const float* lo) {
+  store_row<2 * NT>(reinterpret_cast<float*>(a.x_hat) + re * 2 * NT,
+                    reinterpret_cast<const float*>(xo));
+  store_row<NT>(a.nv_eff + re * NT, no);
+  store_row<NT * 2 * NB>(a.llr + re * NT * 2 * NB, lo);
+}
+
+// A block of either kernel: batch row b, subcarriers [sc0, sc0 + SCT),
+// every symbol.  <N_RX, N_TX, NB> > 0: a registered shape, factors (and
+// for the joint kernel where staged(), the outputs) in shared memory, y
+// and the per-RE vectors in registers; <0, 0, 0>: runtime sizes, factors
+// and per-RE vectors in shared memory or the workspace, outputs stored
+// directly.
 template <int NR, int NT, int NB>
 __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   constexpr bool RT = NT == 0;
@@ -434,48 +653,36 @@ __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   const int m = RT ? a.n_tx : NT;
   const int nb = RT ? a.nb : NB;
   const int tid = threadIdx.x;
-  const int tiles = (a.n_sc + SCT - 1) / SCT;
-  const int b = blockIdx.x / tiles;
-  const int sc0 = (blockIdx.x % tiles) * SCT;
-  const int nsc = min(SCT, a.n_sc - sc0);
+  const Tile tl(a);
   const int ff = factor_floats(nr, m);
   float* fbase = reinterpret_cast<float*>(smem4);
   if (RT && a.ws != nullptr)
-    fbase = a.ws + (size_t)blockIdx.x * (SCT * ff + THREADS * 2 * m);
-  const size_t row0 = (size_t)b * a.n_sym;  // (b, sym) rows
-  // a registered shape's y of this thread's RE of a chunk, in registers;
-  // the first chunk's loads are in flight while the factors are formed
+    fbase = a.ws + (size_t)blockIdx.x * route_floats(false, nr, m);
+  // the first chunk's y loads are in flight while the factors are formed
   float2 y_r[RT ? 1 : NR];
-  auto load_y = [&](int c0) {
-    const int i = c0 + tid, sym = i / SCT, scl = i % SCT;
-    if (sym < a.n_sym && scl < nsc) {
-      const float2* yre = a.y + ((row0 + sym) * a.n_sc + sc0 + scl) * NR;
-#pragma unroll
-      for (int r = 0; r < NR; ++r) y_r[r] = yre[r];
-    }
-  };
-  if constexpr (!RT) load_y(0);
+  if constexpr (!RT) load_y(a, tl, 0, y_r);
   const float nv = *a.nv;
-  if (RT && tid < (1 << nb)) lv_s[tid] = a.levels[tid];
-  Levels<NB> lv;
-  if constexpr (RT) {
-    lv.p = lv_s;
-  } else {
-#pragma unroll
-    for (int j = 0; j < (1 << NB); ++j) lv.v[j] = a.levels[j];
-  }
-  const float2* hb = a.h + ((size_t)b * a.n_sc + sc0) * nr * m;
+  const Levels<NB> lv = load_levels<NB>(a, lv_s);
+  const float2* hb = a.h + ((size_t)tl.b * a.n_sc + tl.sc0) * nr * m;
 
-  if (tid < nsc) {  // 1a, and bias column 0 by the same thread
-    const Factors f(fbase + tid * ff, nr, m);
-    factor(hb + tid * nr * m, f, nr, m, nv, !RT);
-    bias_column(f, m, 0, a.norm);
+  if (tid < tl.nsc) {  // 1a, and bias column 0 by the same thread
+    const Factors f(fbase + tid * ff, nr, m, m);
+    const HMat h{hb + tid * nr * m, m, 1};
+    factor(f, [&](int t, int u) { return gram_entry(h, nr, t, u); }, nv);
+    if constexpr (!RT) {
+#pragma unroll
+      for (int r = 0; r < nr; ++r)
+#pragma unroll
+        for (int t = 0; t < m; ++t) f.H(r, t) = h(r, t);
+    }
+    bias_column(f, 0, a.norm);
   }
   __syncthreads();
   if (m > 1) {  // 1b: the other bias columns
-    for (int w = tid; w < nsc * (m - 1); w += THREADS)
-      bias_column(Factors(fbase + (w / (m - 1)) * ff, nr, m), m,
-                  1 + w % (m - 1), a.norm);
+    for (int w = tid; w < tl.nsc * (m - 1); w += THREADS) {
+      const Factors f(fbase + (w / (m - 1)) * ff, nr, m, m);
+      bias_column(f, 1 + w % (m - 1), a.norm);
+    }
     __syncthreads();
   }
 
@@ -487,318 +694,141 @@ __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   for (int c0 = 0; c0 < a.n_sym * SCT; c0 += THREADS) {
     const int i = c0 + tid, sym = i / SCT, scl = i % SCT;
     if constexpr (!RT) {
-      if (c0 > 0) load_y(c0);
+      if (c0 > 0) load_y(a, tl, c0, y_r);
     }
-    if (sym < a.n_sym && scl < nsc) {
-      const Factors f(fbase + scl * ff, nr, m);
-      const size_t re = (row0 + sym) * a.n_sc + sc0 + scl;
-      CVec<NT> z;
+    if (sym < a.n_sym && scl < tl.nsc) {
+      const size_t re = (tl.row0 + sym) * a.n_sc + tl.sc0 + scl;
+      const Factors f(fbase + scl * ff, nr, m, m);
       if constexpr (RT) {
-        z.p = reinterpret_cast<float2*>(fbase + SCT * ff) + tid * m;
-        apply<NT>(a.y + re * nr, hb + scl * nr * m, f, z, nr, m, lv, nb,
-                  a.scale, a.x_hat + re * m, a.nv_eff + re * m,
-                  a.llr + re * wl);
+        CVec<0> z{reinterpret_cast<float2*>(fbase + SCT * ff) + tid * m, 1};
+        apply(HMat{hb + scl * nr * m, m, 1}, a.y + re * nr, f, z, nr, lv, nb,
+              a.scale, a.x_hat + re * m, a.nv_eff + re * wn,
+              a.llr + re * wl);
       } else if constexpr (STAGE) {
-        apply<NT>(y_r, f.hs, f, z, nr, m, lv, nb, a.scale,
-                  reinterpret_cast<float2*>(stage_x + tid * wx),
-                  stage_n + tid * wn, stage_l + tid * wl);
+        CVec<NT> z;
+        apply(HMat{f.hs, m, 1}, y_r, f, z, nr, lv, nb, a.scale,
+              reinterpret_cast<float2*>(stage_x + tid * wx),
+              stage_n + tid * wn, stage_l + tid * wl);
       } else {
+        CVec<NT> z;
         float2 xo[NT];
         float no[NT], lo[NT * 2 * NB];
-        apply<NT>(y_r, f.hs, f, z, nr, m, lv, nb, a.scale, xo, no, lo);
-        store_row<2 * NT>(reinterpret_cast<float*>(a.x_hat) + re * wx,
-                          reinterpret_cast<const float*>(xo));
-        store_row<NT>(a.nv_eff + re * wn, no);
-        store_row<NT * 2 * NB>(a.llr + re * wl, lo);
+        apply(HMat{f.hs, m, 1}, y_r, f, z, nr, lv, nb, a.scale, xo, no, lo);
+        store_re<NT, NB>(a, re, xo, no, lo);
       }
     }
     if constexpr (STAGE) {
       __syncthreads();  // the chunk's outputs are staged
       const int s0 = c0 / SCT, rows = min(a.n_sym, s0 + THREADS / SCT) - s0;
-      const size_t g0 = (row0 + s0) * a.n_sc + sc0;  // first RE of the chunk
+      const size_t g0 = (tl.row0 + s0) * a.n_sc + tl.sc0;  // its first RE
       store_rows(reinterpret_cast<float*>(a.x_hat) + g0 * wx, a.n_sc * wx,
-                 stage_x, SCT * wx, rows, nsc * wx);
+                 stage_x, SCT * wx, rows, tl.nsc * wx);
       store_rows(a.nv_eff + g0 * wn, a.n_sc * wn, stage_n, SCT * wn, rows,
-                 nsc * wn);
+                 tl.nsc * wn);
       store_rows(a.llr + g0 * wl, a.n_sc * wl, stage_l, SCT * wl, rows,
-                 nsc * wl);
+                 tl.nsc * wl);
       __syncthreads();  // the stage is free again
     }
   }
 }
 
-// ---- SIC ------------------------------------------------------------------
-
-// The regularized MMSE system over streams K..NT-1 of the channel (hr, hi)
-// [NR][NT] for one RE's received samples (yr, yi) [NR]: A = G + nv I with
-// G = H^H H, solved by unpivoted complex Gauss elimination (A is Hermitian
-// positive definite) for the augmented right-hand side [H^H y | G].  Only
-// the first NRHS columns are solved: column 0 gives the filter output,
-// column 1 + u the column u of A^-1 G (the bias diagonal of stream u is
-// Re z[u][1 + u]).  A column's elimination reads only A and itself, so a
-// narrower NRHS leaves the solved columns' values unchanged.
-template <int NR, int NT, int K, int NRHS>
-__device__ __forceinline__ void mmse_solve(const float (&yr)[NR],
-                                           const float (&yi)[NR],
-                                           const float (&hr)[NR][NT],
-                                           const float (&hi)[NR][NT],
-                                           float nv,
-                                           float (&zr)[NT - K][NRHS],
-                                           float (&zi)[NT - K][NRHS]) {
-  constexpr int M = NT - K;
-  float gr[M][M], gi[M][M];
-#pragma unroll
-  for (int t = 0; t < M; ++t) {
-#pragma unroll
-    for (int u = 0; u < M; ++u) {
-      float sr = 0.f, si = 0.f;
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const cf p = cmul(hr[r][K + t], -hi[r][K + t], hr[r][K + u],
-                          hi[r][K + u]);
-        sr = sr + p.r;
-        si = si + p.i;
-      }
-      gr[t][u] = sr;
-      gi[t][u] = si;
-    }
-  }
-
-  float ar[M][M], ai[M][M], br[M][NRHS], bi[M][NRHS];
-#pragma unroll
-  for (int t = 0; t < M; ++t) {
-#pragma unroll
-    for (int u = 0; u < M; ++u) {
-      ar[t][u] = t == u ? gr[t][u] + nv : gr[t][u] + 0.f;
-      ai[t][u] = gi[t][u] + 0.f;
-      if (1 + u < NRHS) {
-        br[t][1 + u] = gr[t][u];
-        bi[t][1 + u] = gi[t][u];
-      }
-    }
-    float sr = 0.f, si = 0.f;
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const cf p = cmul(hr[r][K + t], -hi[r][K + t], yr[r], yi[r]);
-      sr = sr + p.r;
-      si = si + p.i;
-    }
-    br[t][0] = sr;
-    bi[t][0] = si;
-  }
-
-#pragma unroll
-  for (int kd = 0; kd < M; ++kd) {
-    const float dr = ar[kd][kd], di = ai[kd][kd];
-    const float den = dr * dr + di * di;
-    const float ivr = dr / den, ivi = -di / den;
-#pragma unroll
-    for (int r = kd + 1; r < M; ++r) {
-      const cf f = cmul(ar[r][kd], ai[r][kd], ivr, ivi);
-#pragma unroll
-      for (int u = kd; u < M; ++u) {
-        const cf p = cmul(f.r, f.i, ar[kd][u], ai[kd][u]);
-        ar[r][u] = ar[r][u] - p.r;
-        ai[r][u] = ai[r][u] - p.i;
-      }
-#pragma unroll
-      for (int j = 0; j < NRHS; ++j) {
-        const cf p = cmul(f.r, f.i, br[kd][j], bi[kd][j]);
-        br[r][j] = br[r][j] - p.r;
-        bi[r][j] = bi[r][j] - p.i;
-      }
-    }
-  }
-#pragma unroll
-  for (int kd = M - 1; kd >= 0; --kd) {
-    const float dr = ar[kd][kd], di = ai[kd][kd];
-    const float den = dr * dr + di * di;
-    const float ivr = dr / den, ivi = -di / den;
-#pragma unroll
-    for (int j = 0; j < NRHS; ++j) {
-      float sr = br[kd][j], si = bi[kd][j];
-#pragma unroll
-      for (int u = kd + 1; u < M; ++u) {
-        const cf p = cmul(ar[kd][u], ai[kd][u], zr[u][j], zi[u][j]);
-        sr = sr - p.r;
-        si = si - p.i;
-      }
-      const cf z = cmul(sr, si, ivr, ivi);
-      zr[kd][j] = z.r;
-      zi[kd][j] = z.i;
-    }
-  }
-}
-
-// y and H of RE i (b, sym, sc) into registers
-template <int NR, int NT>
-__device__ __forceinline__ void load_re(const float2* __restrict__ y,
-                                        const float2* __restrict__ h, int i,
-                                        int n_sym, int n_sc,
-                                        float (&yr)[NR], float (&yi)[NR],
-                                        float (&hr)[NR][NT],
-                                        float (&hi)[NR][NT]) {
-  const int sc = i % n_sc;
-  const int b = i / (n_sym * n_sc);
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    const float2 v = y[(size_t)i * NR + r];
-    yr[r] = v.x;
-    yi[r] = v.y;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const float2 w = h[((size_t)b * n_sc + sc) * NR * NT + r * NT + t];
-      hr[r][t] = w.x;
-      hi[r][t] = w.y;
-    }
-  }
-}
-
-// SIC stage K and, recursively, the stages after it
-template <int NR, int NT, int NB, int K>
-__device__ __forceinline__ void sic_stage(float (&yr)[NR], float (&yi)[NR],
-                                          const float (&hr)[NR][NT],
-                                          const float (&hi)[NR][NT],
-                                          float nv, const Levels<NB>& lv,
-                                          float norm, float scale,
-                                          float2* x_hat, float* nv_eff,
-                                          float* llr) {
-  float zr[NT - K][2], zi[NT - K][2];
-  mmse_solve<NR, NT, K, 2>(yr, yi, hr, hi, nv, zr, zi);
-  float ux, uy;
-  unbias_demap(zr[0][0], zi[0][0], zr[0][1], lv, NB, norm, scale, x_hat + K,
-               nv_eff + K, llr + K * 2 * NB, ux, uy);
-  if constexpr (K + 1 < NT) {
-    const float hx = hard_axis(ux, lv, 1 << NB, scale);
-    const float hy = hard_axis(uy, lv, 1 << NB, scale);
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const cf c = cmul(hr[r][K], hi[r][K], hx, hy);
-      yr[r] = yr[r] - c.r;
-      yi[r] = yi[r] - c.i;
-    }
-    sic_stage<NR, NT, NB, K + 1>(yr, yi, hr, hi, nv, lv, norm, scale, x_hat,
-                                 nv_eff, llr);
-  }
-}
-
-// one thread per RE, every stage in registers
 template <int NR, int NT, int NB>
-__global__ void sic_demap_kernel(DemapArgs a) {
-  const int n_re = a.batch * a.n_sym * a.n_sc;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_re) return;
-  const float nv = *a.nv;
-  Levels<NB> lv;
-#pragma unroll
-  for (int j = 0; j < (1 << NB); ++j) lv.v[j] = a.levels[j];
-  float yr[NR], yi[NR], hr[NR][NT], hi[NR][NT];
-  load_re<NR, NT>(a.y, a.h, i, a.n_sym, a.n_sc, yr, yi, hr, hi);
-  sic_stage<NR, NT, NB, 0>(yr, yi, hr, hi, nv, lv, a.norm, a.scale,
-                           a.x_hat + (size_t)i * NT,
-                           a.nv_eff + (size_t)i * NT,
-                           a.llr + (size_t)i * NT * 2 * NB);
-}
-
-// floats of one SIC RE's state: the residual [nr], the stage's system
-// A [m][m] and its two right-hand sides [m][2] (solved in place), complex
-__host__ __device__ __forceinline__ int sic_floats(int nr, int m) {
-  return 2 * (nr + m * m + 2 * m);
-}
-
-// any shape: one thread per RE, runtime loops over mmse_solve's
-// operations (NRHS = 2) on the RE's state (in shared memory, or in the
-// workspace where a block's would not fit)
-__global__ void __launch_bounds__(SIC_THREADS)
-sic_demap_kernel_any(DemapArgs a) {
+__global__ void __launch_bounds__(THREADS) sic_demap_kernel(DemapArgs a) {
+  constexpr bool RT = NT == 0;
   extern __shared__ float4 smem4[];
-  const int n_re = a.batch * a.n_sym * a.n_sc;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_re) return;
-  const int nr = a.n_rx, nt = a.n_tx, nb = a.nb;
+  __shared__ float lv_s[MAX_LEVELS];
+  const int nr = RT ? a.n_rx : NR;
+  const int m = RT ? a.n_tx : NT;
+  const int nb = RT ? a.nb : NB;
+  const int tid = threadIdx.x;
+  const Tile tl(a);
+  float* fbase = reinterpret_cast<float*>(smem4);
+  if (RT && a.ws != nullptr)
+    fbase = a.ws + (size_t)blockIdx.x * route_floats(true, nr, m);
+  // the first chunk's y loads are in flight while the factors are formed
+  float2 y_r[RT ? 1 : NR];
+  if constexpr (!RT) load_y(a, tl, 0, y_r);
   const float nv = *a.nv;
-  const Levels<0> lv{a.levels};
-  const int sc = i % a.n_sc, b = i / (a.n_sym * a.n_sc);
-  const float2* h = a.h + ((size_t)b * a.n_sc + sc) * nr * nt;
-  const int per = sic_floats(nr, nt);
-  float2* yres = reinterpret_cast<float2*>(
-      a.ws != nullptr ? a.ws + (size_t)i * per
-                      : reinterpret_cast<float*>(smem4) + threadIdx.x * per);
-  float2* A = yres + nr;
-  for (int r = 0; r < nr; ++r) yres[r] = a.y[(size_t)i * nr + r];
-  for (int k = 0; k < nt; ++k) {
-    const int m = nt - k;
-    float2* B = A + m * m;  // [m][2]
-    for (int t = 0; t < m; ++t) {
-      for (int u = 0; u < m; ++u) {
-        float sr = 0.f, si = 0.f;
-        for (int r = 0; r < nr; ++r) {
-          const float2 ht = h[r * nt + k + t], hu = h[r * nt + k + u];
-          const cf p = cmul(ht.x, -ht.y, hu.x, hu.y);
-          sr = sr + p.r;
-          si = si + p.i;
-        }
-        A[t * m + u] = make_float2(t == u ? sr + nv : sr + 0.f, si + 0.f);
-        if (u == 0) B[t * 2 + 1] = make_float2(sr, si);
-      }
-      float sr = 0.f, si = 0.f;
-      for (int r = 0; r < nr; ++r) {
-        const float2 ht = h[r * nt + k + t], yv = yres[r];
-        const cf p = cmul(ht.x, -ht.y, yv.x, yv.y);
-        sr = sr + p.r;
-        si = si + p.i;
-      }
-      B[t * 2] = make_float2(sr, si);
+  const Levels<NB> lv = load_levels<NB>(a, lv_s);
+  const float2* hb = a.h + ((size_t)tl.b * a.n_sc + tl.sc0) * nr * m;
+  // the tile: H and its Gram, element e of subcarrier scl at
+  // [e * SCT + scl] (H's e = r * m + t, the Gram's e = t * m + u), then
+  // the stages' factors; the runtime-sized route's per-RE vectors after
+  // the tile, the residual and z of thread tid at [element][THREADS]
+  float2* hs = reinterpret_cast<float2*>(fbase);
+  float2* gs = hs + SCT * nr * m;
+  float* st = reinterpret_cast<float*>(gs + SCT * m * m);
+  float2* vre =
+      reinterpret_cast<float2*>(fbase + SCT * sic_tile_floats(nr, m)) + tid;
+
+  // 1a: H into shared memory (and the runtime-sized route's first y into
+  // its residual), asynchronously where the state is there
+  const bool async = a.ws == nullptr;
+  auto copy_in = [&](float2* dst, const float2* src) {
+    if (async)
+      hopper::cp_async8(hopper::smem_u32(dst), src, 8);
+    else
+      *dst = *src;
+  };
+  if constexpr (RT) {
+    const int sym = tid / SCT, scl = tid % SCT;
+    if (sym < a.n_sym && scl < tl.nsc)
+      for (int r = 0; r < nr; ++r)
+        copy_in(vre + r * THREADS,
+                a.y + ((tl.row0 + sym) * a.n_sc + tl.sc0 + scl) * nr + r);
+  }
+  const int ne = nr * m;
+  for (int i = tid; i < tl.nsc * ne; i += THREADS)
+    copy_in(hs + (i % ne) * SCT + i / ne, hb + i);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  // 1b: the Gram of all m streams, an entry a thread; stage k's suffix
+  // Gram is its block [k:, k:] (the same sums)
+  for (int w = tid; w < tl.nsc * m * m; w += THREADS) {
+    const int scl = w % tl.nsc, e = w / tl.nsc;
+    gs[e * SCT + scl] = gram_entry(HMat{hs + scl, m, SCT}, nr, e / m, e % m);
+  }
+  __syncthreads();
+  // 1c: a warp per stage k, a lane per subcarrier: the stage's system
+  // eliminated, its bias column 0 solved
+  for (int w = tid; w < 32 * m; w += THREADS) {
+    const int scl = w % 32, k = w / 32;
+    if (scl < tl.nsc) {
+      float* sk = st;
+      for (int j = 0; j < k; ++j) sk += SCT * sic_stage_floats(m - j);
+      const float2* gk = gs + (k * m + k) * SCT + scl;
+      factor_stage<RT ? kRegStage : NT, RT>(
+          m - k, Factors(sk, 0, m - k, 1, SCT, scl),
+          [&](int t, int u) { return gk[(t * m + u) * SCT]; }, nv, a.norm);
     }
-    for (int kd = 0; kd < m; ++kd) {
-      const float2 d = A[kd * m + kd];
-      const float den = d.x * d.x + d.y * d.y;
-      const float ivr = d.x / den, ivi = -d.y / den;
-      for (int r = kd + 1; r < m; ++r) {
-        const float2 x = A[r * m + kd];
-        const cf f = cmul(x.x, x.y, ivr, ivi);
-        for (int u = kd; u < m; ++u) {
-          const float2 w = A[kd * m + u];
-          const cf p = cmul(f.r, f.i, w.x, w.y);
-          const float2 o = A[r * m + u];
-          A[r * m + u] = make_float2(o.x - p.r, o.y - p.i);
-        }
-        for (int j = 0; j < 2; ++j) {
-          const float2 w = B[kd * 2 + j];
-          const cf p = cmul(f.r, f.i, w.x, w.y);
-          const float2 o = B[r * 2 + j];
-          B[r * 2 + j] = make_float2(o.x - p.r, o.y - p.i);
-        }
-      }
+  }
+  __syncthreads();
+
+  // 2: THREADS REs at a time, (symbol, subcarrier) with subcarriers
+  // fastest, each running its stage chain; an RE's rows stay in registers
+  // and are stored whole (SIC is never staged)
+  for (int c0 = 0; c0 < a.n_sym * SCT; c0 += THREADS) {
+    const int i = c0 + tid, sym = i / SCT, scl = i % SCT;
+    if constexpr (!RT) {
+      if (c0 > 0) load_y(a, tl, c0, y_r);
     }
-    for (int kd = m - 1; kd >= 0; --kd) {
-      const float2 d = A[kd * m + kd];
-      const float den = d.x * d.x + d.y * d.y;
-      const float ivr = d.x / den, ivi = -d.y / den;
-      for (int j = 0; j < 2; ++j) {
-        const float2 s0 = B[kd * 2 + j];
-        float sr = s0.x, si = s0.y;
-        for (int u = kd + 1; u < m; ++u) {
-          const float2 w = A[kd * m + u], z = B[u * 2 + j];
-          const cf p = cmul(w.x, w.y, z.x, z.y);
-          sr = sr - p.r;
-          si = si - p.i;
-        }
-        const cf z = cmul(sr, si, ivr, ivi);
-        B[kd * 2 + j] = make_float2(z.r, z.i);
-      }
-    }
-    float ux, uy;
-    const size_t o = (size_t)i * nt + k;
-    unbias_demap(B[0].x, B[0].y, B[1].x, lv, nb, a.norm, a.scale,
-                 a.x_hat + o, a.nv_eff + o, a.llr + o * 2 * nb, ux, uy);
-    if (k + 1 < nt) {
-      const float hx = hard_axis(ux, lv, 1 << nb, a.scale);
-      const float hy = hard_axis(uy, lv, 1 << nb, a.scale);
-      for (int r = 0; r < nr; ++r) {
-        const float2 hk = h[r * nt + k];
-        const cf c = cmul(hk.x, hk.y, hx, hy);
-        yres[r] = make_float2(yres[r].x - c.r, yres[r].y - c.i);
+    if (sym < a.n_sym && scl < tl.nsc) {
+      const size_t re = (tl.row0 + sym) * a.n_sc + tl.sc0 + scl;
+      if constexpr (RT) {
+        const CVec<0> yres{vre, THREADS};
+        CVec<0> z{vre + nr * THREADS, THREADS};
+        if (c0 > 0)
+          for (int r = 0; r < nr; ++r) yres[r] = a.y[re * nr + r];
+        sic_apply(yres, hs, st, scl, z, nr, m, lv, nb, a.scale,
+                  a.x_hat + re * m, a.nv_eff + re * m,
+                  a.llr + re * m * 2 * nb);
+      } else {
+        CVec<NT> z;
+        float2 xo[NT];
+        float no[NT], lo[NT * 2 * NB];
+        sic_apply(y_r, hs, st, scl, z, nr, m, lv, nb, a.scale, xo, no, lo);
+        store_re<NT, NB>(a, re, xo, no, lo);
       }
     }
   }
@@ -811,29 +841,18 @@ bool registered(int n_rx, int n_tx) {
          (n_rx == 4 && n_tx == 4) || (n_rx == 8 && n_tx == 4);
 }
 
-long long joint_blocks(const DemapArgs& a) {
-  return (long long)a.batch * ((a.n_sc + SCT - 1) / SCT);
-}
-
-// shared memory of a registered joint instance: SCT subcarriers' factors
-// and, where staged, THREADS REs' outputs
-template <int NR, int NT, int NB>
-int joint_smem() {
+// shared memory of a registered instance: SCT subcarriers' factors (SIC:
+// its tile) and, where the joint kernel stages, THREADS REs' outputs
+template <bool SIC, int NR, int NT, int NB>
+int instance_smem() {
+  if constexpr (SIC) return 4 * SCT * sic_tile_floats(NR, NT);
   return 4 * (SCT * factor_floats(NR, NT) +
               (staged<NT, NB>() ? THREADS * NT * (3 + 2 * NB) : 0));
 }
 
-// a runtime-sized route's state a block: the joint route's SCT
-// subcarriers' factors and THREADS per-RE vectors, or SIC's per-RE state
-long long route_bytes(bool sic, int n_rx, int n_tx) {
-  return 4LL * (sic ? (long long)SIC_THREADS * sic_floats(n_rx, n_tx)
-                    : (long long)SCT * factor_floats(n_rx, n_tx) +
-                          THREADS * 2 * n_tx);
-}
-
-// dynamic shared memory of a launch: a registered joint instance's
-// factors (and staged outputs), a runtime-sized route's state where it
-// fits; raises the kernel's limit once per device where that is over 48 KB
+// dynamic shared memory of a launch: a registered instance's factors (and
+// staged outputs), a runtime-sized route's state where it fits; raises the
+// kernel's limit once per device where that is over 48 KB
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem, int limit,
                        std::atomic<unsigned long long>& done) {
@@ -842,59 +861,41 @@ cudaError_t allow_smem(Kernel kernel, int smem, int limit,
                                     hopper::current_device());
 }
 
-template <int NR, int NT, int NB>
-int launch_joint(const DemapArgs& a, cudaStream_t s) {
+template <bool SIC, int NR, int NT, int NB>
+int launch(const DemapArgs& a, cudaStream_t s) {
   auto kernel = detect_demap_kernel<NR, NT, NB>;
+  if constexpr (SIC) kernel = sic_demap_kernel<NR, NT, NB>;
   int smem = 0, limit = 0;
   if constexpr (NT == 0) {
-    smem = a.ws == nullptr ? (int)route_bytes(false, a.n_rx, a.n_tx) : 0;
+    smem = a.ws == nullptr ? 4 * (int)route_floats(SIC, a.n_rx, a.n_tx) : 0;
     limit = kSharedRoute;
   } else {
-    smem = limit = joint_smem<NR, NT, NB>();
+    smem = limit = instance_smem<SIC, NR, NT, NB>();
   }
   static std::atomic<unsigned long long> smem_set{0};  // per device
   const cudaError_t err = allow_smem(kernel, smem, limit, smem_set);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)joint_blocks(a), THREADS, smem, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <int NR, int NT, int NB>
-int launch_sic(const DemapArgs& a, cudaStream_t s) {
-  const long long n_re = (long long)a.batch * a.n_sym * a.n_sc;
-  const unsigned blocks = (unsigned)((n_re + SIC_THREADS - 1) / SIC_THREADS);
-  if constexpr (NT == 0) {
-    const int smem =
-        a.ws == nullptr ? (int)route_bytes(true, a.n_rx, a.n_tx) : 0;
-    static std::atomic<unsigned long long> smem_set{0};  // per device
-    const cudaError_t err =
-        allow_smem(sic_demap_kernel_any, smem, kSharedRoute, smem_set);
-    if (err != cudaSuccess) return (int)err;
-    sic_demap_kernel_any<<<blocks, SIC_THREADS, smem, s>>>(a);
-  } else {
-    sic_demap_kernel<NR, NT, NB><<<blocks, SIC_THREADS, 0, s>>>(a);
-  }
+  const long long blocks = (long long)a.batch * ((a.n_sc + SCT - 1) / SCT);
+  kernel<<<(unsigned)blocks, THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool SIC, int NR, int NT>
 int launch_nb(const DemapArgs& a, cudaStream_t s) {
   switch (a.nb) {
-    case 1: return SIC ? launch_sic<NR, NT, 1>(a, s) : launch_joint<NR, NT, 1>(a, s);
-    case 2: return SIC ? launch_sic<NR, NT, 2>(a, s) : launch_joint<NR, NT, 2>(a, s);
-    case 3: return SIC ? launch_sic<NR, NT, 3>(a, s) : launch_joint<NR, NT, 3>(a, s);
-    default: return SIC ? launch_sic<NR, NT, 4>(a, s) : launch_joint<NR, NT, 4>(a, s);
+    case 1: return launch<SIC, NR, NT, 1>(a, s);
+    case 2: return launch<SIC, NR, NT, 2>(a, s);
+    case 3: return launch<SIC, NR, NT, 3>(a, s);
+    default: return launch<SIC, NR, NT, 4>(a, s);
   }
 }
 
 long long workspace_floats(bool sic, int batch, int n_sym, int n_sc,
                            int n_rx, int n_tx) {
-  if (registered(n_rx, n_tx) || route_bytes(sic, n_rx, n_tx) <= kSharedRoute)
-    return 0;
-  if (sic)
-    return (long long)batch * n_sym * n_sc * sic_floats(n_rx, n_tx);
-  return (long long)batch * ((n_sc + SCT - 1) / SCT) *
-         (SCT * factor_floats(n_rx, n_tx) + THREADS * 2 * n_tx);
+  sic = sic && n_tx > 1;  // one stream runs the joint kernel (dispatch)
+  const long long floats = route_floats(sic, n_rx, n_tx);
+  if (registered(n_rx, n_tx) || 4 * floats <= kSharedRoute) return 0;
+  return (long long)batch * ((n_sc + SCT - 1) / SCT) * floats;
 }
 
 template <bool SIC>
@@ -905,6 +906,15 @@ int dispatch(const void* y, const void* h, const float* nv,
   if (batch <= 0 || n_sym <= 0 || n_sc <= 0 || n_rx <= 0 || n_tx <= 0 ||
       nb < 1 || nb > 4)
     return (int)cudaErrorInvalidValue;
+  // one stream leaves nothing to cancel: SIC's only stage is the joint
+  // problem, the same operations on the same operands, and its kernel
+  // does it in fewer phases
+  if constexpr (SIC) {
+    if (n_tx == 1)
+      return dispatch<false>(y, h, nv, levels, norm, scale, x_hat, nv_eff,
+                             llr, ws, batch, n_sym, n_sc, n_rx, n_tx, nb,
+                             stream);
+  }
   const long long n_re = (long long)batch * n_sym * n_sc;
   if (n_re * n_tx * 2 * nb > 0x7fffffffLL ||
       (workspace_floats(SIC, batch, n_sym, n_sc, n_rx, n_tx) > 0 &&
@@ -927,11 +937,13 @@ int dispatch(const void* y, const void* h, const float* nv,
                     n_tx,
                     nb};
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_rx == 1 && n_tx == 1) return launch_nb<SIC, 1, 1>(a, s);
+  if constexpr (!SIC) {
+    if (n_rx == 1 && n_tx == 1) return launch_nb<SIC, 1, 1>(a, s);
+  }
   if (n_rx == 2 && n_tx == 2) return launch_nb<SIC, 2, 2>(a, s);
   if (n_rx == 4 && n_tx == 4) return launch_nb<SIC, 4, 4>(a, s);
   if (n_rx == 8 && n_tx == 4) return launch_nb<SIC, 8, 4>(a, s);
-  return SIC ? launch_sic<0, 0, 0>(a, s) : launch_joint<0, 0, 0>(a, s);
+  return launch<SIC, 0, 0, 0>(a, s);
 }
 
 }  // namespace

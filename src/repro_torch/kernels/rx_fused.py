@@ -15,7 +15,9 @@
   near-far receiver.  Stage ``k`` runs the same solve over the streams
   ``k..n_tx-1`` not cancelled yet, keeps stream ``k``'s estimate and LLRs,
   hard-remodulates it and subtracts its contribution from the residual.
-  On a CUDA tensor: ``sic_demap_kernel`` of the same source.
+  On a CUDA tensor: ``sic_demap_kernel`` of the same source, which
+  factors each stage's system once per subcarrier and runs the stage
+  chain per RE.
 
 Each wrapper runs its plain PyTorch twin (``*_torch``, the same arithmetic
 in the same order) only because the tensor it was given lies on the CPU;
@@ -304,9 +306,12 @@ def mmse_detect_demap_cuda(y, h, noise_var, modem):
 
 
 def sic_detect_demap_cuda(y, h, noise_var, modem):
-    """Launch ``sic_demap_kernel``: one thread per RE, every cancellation
-    stage in registers (for a shape with no compiled instance, in shared
-    memory or the workspace)."""
+    """Launch ``sic_demap_kernel``: a block per (batch row, 16
+    subcarriers) factors every stage's system of each subcarrier once,
+    then one thread per RE runs the stages on its residual (for a shape
+    with no compiled instance, its vectors in shared memory or the
+    workspace).  One stream has nothing to cancel; ``sic_demap_launch``
+    then runs ``detect_demap_kernel``, the same operations."""
     return _demap_cuda("sic_demap_launch", "sic_detect_demap", y, h,
                        noise_var, modem)
 
