@@ -13,10 +13,12 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
 3. Kernel vs plain twin, on the card, at the main paths' shapes:
    ``ls_che`` (SISO, 2x2 and the 4x4 MU grids, and a 40-symbol 2x2 slot
    with a pilot at symbol 35), ``mmse_detect_demap`` (SISO-16QAM,
-   2x2-16QAM, 4x8-64QAM, SISO-256QAM, then 2x1, 4x2, 3x3 and 8x6 antenna
-   shapes, which have no compiled instance) at batch 8, ``sic_detect_demap``
-   (the MU-MIMO 4x4-16QAM grid, 2x2-16QAM, 4x8-64QAM and the same four
-   shapes) at batch 8, and the MU grid at batch 2, both bit for bit,
+   2x2-16QAM, 4x8-64QAM, SISO-256QAM, SISO-1024QAM (5 bits per axis, a
+   modem built by hand), then 2x1, 4x2, 3x3 and 8x6 antenna shapes,
+   which have no compiled instance) at batch 8, ``sic_detect_demap`` (the
+   MU-MIMO 4x4-16QAM grid, 2x2-16QAM, 4x8-64QAM, SISO-1024QAM and the
+   same four shapes) at batch 8, and the MU grid at batch 2, both bit for
+   bit,
    ``ldpc_decode`` and the int8 ``ldpc_decode_q`` (r12 and r34, 216
    codewords, at a converging and a non-converging SNR, r12 at lifting
    sizes z = 16, 384 and 512 (int8 also 64), and an r34 code with layers
@@ -50,9 +52,22 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    peak for the operands' type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 1,979
    TOP/s int8 / fp8) are printed.  A CUPTI trace with none of a case's
    kernels is retaken up to three times, then the run fails.
-4. Closed loops, each with the kernels' launch counts zeroed just before
-   and read just after, jobs conserved exactly, and every kernel of the
-   path launched: ``SlotScheduler("siso-coded", fused)`` for 50 TTIs and
+4. Closed loops served through the executable registry
+   (``repro_torch.serve.exec_registry``): every rung's receive chain is
+   captured as a CUDA graph when the scheduler is built
+   (``prebuild=True``, a registry of the path's own), and each batch is
+   staged into the graph's inputs and replayed.  Each loop runs with the
+   kernels' launch counts zeroed just before and read just after.  A
+   wrapper counts its launch when Python calls it, which a capture does
+   and a replay does not, so the registry adds each step's captured
+   launches per replay: these counts must equal captures times replays
+   (a check of the bookkeeping only), with one capture per rung and jobs
+   conserved exactly.  The evidence that the graphs ran the kernels is
+   measured: ten more steady ticks of every path run under a CUPTI trace,
+   in which every kernel of the path must appear (by its device symbol),
+   no more often than that window's replays account for, and a kernel
+   the path must not run must not appear.  The paths:
+   ``SlotScheduler("siso-coded", fused)`` for 50 TTIs and
    ``"mimo2x2-coded"`` for 10 (the classical receiver: ``ls_che``, detect
    + demap, LDPC), then the neural receivers on ``"siso-coded"`` for 20
    TTIs each: ``receiver="cevit", options={"fused_rx": True}`` (TE GEMM,
@@ -63,15 +78,21 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    10 TTIs (``ls_che``, SIC, LDPC), and the int8 datapath, ``"siso-coded"``
    with ``{"fused": True, "precision": "int8"}`` for 20 (``ls_che``,
    detect + demap, the int8 LDPC, and the fp32 LDPC not once).  One
-   served batch of each path is compared with the plain twins on the CPU:
-   the classical ones must decode identically (CRC flags, payloads,
-   iteration counts), the neural ones must agree in LLR signs (>= 99.9%),
-   values (rtol 1e-3, atol 1e-5 of the largest |LLR|) and CRC flags.  The
-   CRC pass rate of one MU batch through the SIC and the joint-LMMSE
-   receivers is printed, not gated.  Ten more ticks of the SISO
-   classical, CE-ViT, DeepRx, SIC and int8 paths run under
-   ``torch.profiler`` for the device's busy and idle time and the split of
-   device time by kernel.
+   batch of each path is served by graph replay and must equal the eager
+   ``pipeline.run`` of the same batch bit for bit; it is then compared
+   with the plain twins on the CPU: the classical ones must decode
+   identically (CRC flags, payloads, iteration counts), the neural ones
+   must agree in LLR signs (>= 99.9%), values (rtol 1e-3, atol 1e-5 of
+   the largest |LLR|) and CRC flags.  Each path prints its compile fields
+   (captures, their seconds, cache hits), its registry steady tick and,
+   on one padded batch, the registry window beside the eager
+   ``pipeline.run`` (median host ms, turn by turn).  The CRC pass rate of
+   one MU batch through the SIC and the joint-LMMSE receivers is printed,
+   not gated.  For the SISO classical, CE-ViT, DeepRx, SIC and int8 paths
+   a host split is printed, not gated (ten ticks' wall, registry windows
+   and slot generation; each stage's eager host time; the host reads of
+   a batch); the traced ticks of every path also give the device's busy
+   and idle time and the split of device time by kernel.
 5. The blocks path, with the launch counts zeroed just before and read
    just after: the paper's three AI-PHY compute blocks (Fig. 10) at full
    width, each through its sequential plan (separate ops; the FC GEMM on
@@ -234,10 +255,15 @@ def library(fn) -> dict:
 
 def profile_ticks(sch, n_ticks: int) -> dict:
     """Host wall time, device busy time and its split by kernel over
-    ``n_ticks`` steady ticks of a scheduler (CUPTI trace)."""
+    ``n_ticks`` steady ticks of a scheduler (CUPTI trace), and each ported
+    kernel's launches as that trace records them (``traced_launches``, by
+    :data:`KERNEL_SYMBOLS`) beside the count derived from the captures'
+    launches times the graph replays in the window
+    (``derived_launches``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    derived0 = derived_launches(sch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -255,12 +281,16 @@ def profile_ticks(sch, n_ticks: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     ours = {k: sum(us for name, us in by_name.items() if pat in name)
             for k, pat in KERNEL_SYMBOLS.items()}
+    traced = {k: sum(1 for name, _ in events if pat in name)
+              for k, pat in KERNEL_SYMBOLS.items()}
     return {
         "ticks": n_ticks, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "device_events": len(events),
         "ported_kernels_ms": {k: v / 1e3 for k, v in ours.items()},
+        "traced_launches": {k: n for k, n in traced.items() if n},
+        "derived_launches": dict(+(derived_launches(sch) - derived0)),
         "top_device_ms": [(name[:60], us / 1e3) for name, us in top],
     }
 
@@ -431,11 +461,24 @@ def _detect_flops(n_rx: int, n_tx: int, nb: int, n_sym: int) -> float:
 # random 256-subcarrier slot at batch 8
 DEMAP_ANY_SHAPES = ((2, 1, "qpsk"), (4, 2, "qam16"), (3, 3, "qam64"),
                     (8, 6, "qam16"))
+QAM1024 = "siso-qam1024"  # 5 bits per axis: the runtime-sized route
+
+
+def _qam1024_modem():
+    """1024-QAM built the way qam256 is: binary-reflected Gray over 32
+    amplitudes, levels[gray(k)] = 2k - 31, norm 2 (32^2 - 1) / 3."""
+    from repro_torch.phy import ofdm
+
+    levels = [0.0] * 32
+    for k in range(32):
+        levels[k ^ (k >> 1)] = 2.0 * k - 31.0
+    return ofdm.Modem("qam1024", 10, tuple(levels), 682.0)
 
 
 def _demap_inputs(dev):
     """(label, (y, h, noise_var, modem)) of every detect+demap case: the
-    registered scenarios' slots, then :data:`DEMAP_ANY_SHAPES`."""
+    registered scenarios' slots, a SISO 1024-QAM slot, then
+    :data:`DEMAP_ANY_SHAPES`."""
     import torch
 
     from repro_torch.phy import ofdm, scenarios
@@ -446,6 +489,21 @@ def _demap_inputs(dev):
         slot = scn.make_batch(ofdm.make_generator(2, dev), 8)
         yield name, (_grid_y(slot), slot["h"][:, 0].contiguous(),
                      slot["noise_var"], scn.modem)
+    # siso-qam256-r34-snr28's grid carrying 1024-QAM at 34 dB
+    scn = scenarios.get_scenario("siso-qam256-r34-snr28")
+    modem = _qam1024_modem()
+    gen = _gen(dev, 1024)
+    g = scn.grid
+    bits = torch.randint(0, 2, (8, g.n_symbols, g.n_subcarriers, 1, 10),
+                         generator=gen, device=dev, dtype=torch.int32)
+    h = ofdm.tdl_channel(gen, g, 8)  # (8, 1, 1, n_sc)
+    h = torch.movedim(h, -1, 1).contiguous()  # (8, n_sc, 1, 1)
+    nv = torch.tensor(10.0 ** -3.4, device=dev)
+    y = torch.einsum("bsrt,bmst->bmsr", h, modem.mod(bits))
+    y = y + torch.complex(torch.randn(y.shape, generator=gen, device=dev),
+                          torch.randn(y.shape, generator=gen, device=dev)
+                          ) * torch.sqrt(nv / 2.0)
+    yield QAM1024, (y.contiguous(), h, nv, modem)
     for n_rx, n_tx, modem in DEMAP_ANY_SHAPES:
         gen = _gen(dev, 10 * n_rx + n_tx)
         cg = lambda *s: torch.complex(
@@ -534,7 +592,7 @@ def check_sic(dev) -> list:
     # the MU grid also at a served batch of 2: the factor phase's fixed
     # cost a block against few symbols' REs
     for name in (mu, f"{mu} B=2", "mimo2x2-qam16-r12-snr17",
-                 "mimo4x8-qam64-snr24", *(
+                 "mimo4x8-qam64-snr24", QAM1024, *(
                      label for label in inputs if "no instance" in label)):
         if name not in inputs:  # the MU grid is SIC's alone
             grid, _, batch = name.partition(" B=")
@@ -1197,20 +1255,77 @@ PROFILED = ("siso-coded classical", "siso-coded cevit", "siso-coded deeprx",
 
 def drive(ladder: str, n_ticks: int, dev, receiver: str = "classical",
           options=None) -> tuple:
-    """One closed-loop run with the launch counts zeroed just before it and
-    read just after; returns (scheduler, report, launches)."""
+    """One closed-loop run served through the executable registry (every
+    rung's CUDA graph captured before the first TTI, in a registry of the
+    path's own), with the launch counts zeroed just before it and read
+    just after; returns (scheduler, report, launches)."""
     from repro_torch.kernels import _build
-    from repro_torch.serve import SlotScheduler
+    from repro_torch.serve import ExecRegistry, SlotScheduler
 
     sch = SlotScheduler(ladder, receiver=receiver,
                         options={"fused": True} if options is None
                         else options, n_users=8,
                         batch_size=8, arrival_rate=0.8, max_retx=2, seed=0,
-                        device=dev)
+                        prebuild=True, registry=ExecRegistry(), device=dev)
     _build.reset_launches()
     rep = sch.run(n_ticks)
     launches = dict(_build.launches)
     return sch, rep, launches
+
+
+def derived_launches(sch):
+    """Each kernel's launches as the registry accounts them: every
+    captured step's launches times its replays so far (a Counter)."""
+    import collections
+
+    want = collections.Counter()
+    for runner in sch.runners:
+        for st in runner._steps.values():
+            want.update({k: n * st.replays
+                         for k, n in st.launch_delta.items()})
+    return want
+
+
+def check_replay_launches(sch, launches: dict) -> dict:
+    """Every rung served by one captured graph, and (a cross-check of the
+    bookkeeping, not evidence that a kernel ran: see
+    :func:`check_traced_launches`) the path's launch counts each step's
+    captured launches times its replays; returns the replays per rung."""
+    replays = {}
+    for scn, runner in zip(sch.rungs, sch.runners):
+        steps = list(runner._steps.values())
+        check(len(steps) == 1 and all(st.graph is not None for st in steps),
+              f"{scn.name}: not served by one captured graph")
+        replays[scn.name] = sum(st.replays for st in steps)
+    want = derived_launches(sch)
+    check(dict(+want) == {k: n for k, n in launches.items() if n},
+          f"launches {launches} != captures x replays {dict(want)}")
+    return replays
+
+
+def trace_replayed_ticks(sch, label: str, needs: tuple) -> dict:
+    """The measured evidence that a path's replayed graphs ran its
+    kernels: :func:`profile_ticks` over 10 steady ticks, taken again (up
+    to :data:`TRACE_TRIES` times) while a kernel of ``needs`` is missing
+    from the trace.  Fails unless the window replayed graphs, each kernel
+    of ``needs`` appears in the trace at least once and at most as often
+    as the replays in the window account for (a launch outside a graph
+    would exceed that), and no kernel of :data:`FORBIDDEN` appears."""
+    for _ in range(TRACE_TRIES):
+        prof = profile_ticks(sch, 10)
+        traced, derived = prof["traced_launches"], prof["derived_launches"]
+        if all(traced.get(k, 0) for k in needs):
+            break
+    check(bool(derived), f"{label}: the traced ticks replayed no graph")
+    for k in needs:
+        check(0 < traced.get(k, 0) <= derived.get(k, 0),
+              f"{label}: {KERNEL_SYMBOLS[k]} traced {traced.get(k, 0)} "
+              f"times in replayed ticks that account for "
+              f"{derived.get(k, 0)}")
+    for k in FORBIDDEN.get(label, ()):
+        check(traced.get(k, 0) == 0,
+              f"{label}: {KERNEL_SYMBOLS[k]} traced {traced.get(k)} times")
+    return prof
 
 
 def check_conservation(sch, rep) -> None:
@@ -1227,23 +1342,42 @@ def check_conservation(sch, rep) -> None:
 
 
 def _fresh_batch(scn, dev) -> dict:
-    """Eight fresh first-transmission slots of ``scn`` on ``dev``."""
+    """Eight fresh first-transmission slots of ``scn`` on ``dev``, with the
+    zeroed combining prior a new HARQ process stages (the served schema)."""
+    import numpy as np
+
+    from repro_torch.phy import coding
     from repro_torch.serve import runtime
 
     factory = runtime.TorchSlotFactory(dev)
-    return runtime.stack_slots([factory(100 + i, scn, 1, rv=0)
-                                for i in range(8)])
+    slots = []
+    for i in range(8):
+        slot = factory(100 + i, scn, 1, rv=0)
+        slot["prior_llr"] = np.zeros(
+            (1, coding.codewords_per_slot(scn), scn.code.n_mother),
+            np.float32)
+        slots.append(slot)
+    return runtime.stack_slots(slots)
 
 
 def _served_batch(sch, dev) -> tuple:
-    """One fresh batch of the lowest rung served on the kernels: (the
-    batch on the CPU, the served state, the rung)."""
+    """One fresh batch of the lowest rung served by graph replay, held bit
+    for bit to the eager ``pipeline.run`` of the same batch: (the batch on
+    the CPU, the replayed state, the rung)."""
     import torch
 
     scn = sch.rungs[0]
     batch = _fresh_batch(scn, dev)
-    got = sch.runners[0].pipeline.run(batch)
+    runner = sch.runners[0]
+    got = {k: v.clone() if isinstance(v, torch.Tensor) else v
+           for k, v in runner._step(batch).items()}
+    eager = runner.pipeline.run(batch)
     torch.cuda.synchronize()
+    for k, v in eager.items():
+        if isinstance(v, torch.Tensor):
+            check(torch.equal(got[k], v),
+                  f"{runner.pipeline.name}: replayed {k} differs from the "
+                  "eager run of the same batch")
     keys = [k for k in ("h_hat", "x_hat", "nv_eff", "llr", "cw_llr")
             if k in got]
     for k in keys:
@@ -1253,6 +1387,99 @@ def _served_batch(sch, dev) -> tuple:
     cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
            for k, v in batch.items()}
     return cpu, got, scn
+
+
+def _median_ms(fn, reps: int = 20) -> float:
+    """Median host ms of ``fn()`` closed by a device synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def registry_vs_eager(sch, dev) -> dict:
+    """One padded batch of the lowest rung: the registry's window (staging
+    copies, replay, synchronize) against the eager ``pipeline.run`` of the
+    same batch, median host ms of 20 each, turn by turn."""
+    batch = _fresh_batch(sch.rungs[0], dev)
+    runner = sch.runners[0]
+    registry = [_median_ms(lambda: runner._step(batch), 10)]
+    eager = [_median_ms(lambda: runner.pipeline.run(batch), 10)]
+    eager.append(_median_ms(lambda: runner.pipeline.run(batch), 10))
+    registry.append(_median_ms(lambda: runner._step(batch), 10))
+    return {"registry_batch_ms": statistics.fmean(registry),
+            "eager_batch_ms": statistics.fmean(eager)}
+
+
+def host_split(sch, dev, n_ticks: int = 10) -> dict:
+    """Where a served tick's host time goes (printed, not gated): over
+    ``n_ticks`` ticks, the tick wall, the registry windows and slot
+    generation (``CellLoop.make_slot``); on one padded batch, each stage's
+    ``apply`` run eagerly (host ms, no synchronize: the launch cost the
+    graph removes), and the host reads after a replay: the metrics
+    (``BatchRunner.run_batch``) and the HARQ feedback's ``crc_ok`` and
+    ``cw_llr`` (``SlotScheduler.tick``)."""
+    import torch
+
+    from repro_torch.phy import link
+
+    loop = sch.loop
+    make_slot = loop.make_slot
+    slot_s = [0.0]
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return make_slot(*a, **kw)
+        finally:
+            slot_s[0] += time.perf_counter() - t0
+
+    loop.make_slot = timed
+    window0 = sum(r.wall_s for r in sch.runners)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(n_ticks):
+            sch.tick()
+        torch.cuda.synchronize()
+    finally:
+        del loop.make_slot
+    wall = time.perf_counter() - t0
+    window = sum(r.wall_s for r in sch.runners) - window0
+
+    runner = sch.runners[0]
+    batch = _fresh_batch(sch.rungs[0], dev)
+    stage_ms = {st.name: [] for st in runner.pipeline.stages}
+    with torch.no_grad():
+        for _ in range(6):
+            state = dict(batch)
+            torch.cuda.synchronize()
+            for st in runner.pipeline.stages:
+                t1 = time.perf_counter()
+                state = st.apply(state)
+                stage_ms[st.name].append((time.perf_counter() - t1) * 1e3)
+    stage_ms = {k: statistics.median(v[1:]) for k, v in stage_ms.items()}
+    state = runner._step(batch)
+    scn = runner.pipeline.scenario
+    metrics_ms = _median_ms(lambda: {
+        k: v.cpu().numpy() for k, v in link.slot_metrics(
+            state, scn, per_slot=True).items()})
+    feedback_ms = _median_ms(lambda: (state["crc_ok"].cpu().numpy(),
+                                      state["cw_llr"].cpu().numpy()))
+    return {
+        "ticks": n_ticks, "tick_ms": wall / n_ticks * 1e3,
+        "registry_window_ms_per_tick": window / n_ticks * 1e3,
+        "make_slot_ms_per_tick": slot_s[0] / n_ticks * 1e3,
+        "eager_stage_host_ms": stage_ms,
+        "eager_host_ms": sum(stage_ms.values()),
+        "metrics_read_ms": metrics_ms, "feedback_read_ms": feedback_ms,
+    }
 
 
 def check_neural_batch_against_twins(sch, dev, receiver: str,
@@ -1513,20 +1740,31 @@ def main() -> int:
                   + "".join(f" {k}={c[k]}" for k in EXTRA_FIELDS if k in c),
                   flush=True)
 
-    by_path = {}
+    by_path, traced_by_path = {}, {}
     for label, ladder, receiver, options, n_ticks, needs in PATHS:
         sch, rep, launches = drive(ladder, n_ticks, dev, receiver, options)
         by_path[label] = launches
-        print(f"path {label}: launches {launches}, steady tick "
+        print(f"path {label}: launches {launches}, registry steady tick "
               f"{rep.steady_tick_s * 1e3:.3f} ms, first tick "
-              f"{rep.first_tick_s * 1e3:.3f} ms", flush=True)
+              f"{rep.first_tick_s * 1e3:.3f} ms; captures "
+              f"{rep.executables_compiled} in {rep.compile_time_s:.3f} s, "
+              f"cache hits {rep.cache_hits}", flush=True)
         print(rep.summary(), flush=True)
         check_conservation(sch, rep)
+        check(rep.executables_compiled == len(sch.rungs)
+              and rep.compile_time_s > 0,
+              f"{label}: {rep.executables_compiled} captures for "
+              f"{len(sch.rungs)} rungs")
+        replays = check_replay_launches(sch, launches)
+        print(f"path {label}: graph replays by rung {replays}", flush=True)
         for k in needs:
             check(launches.get(k, 0) > 0, f"{k} never launched on {label}")
         for k in FORBIDDEN.get(label, ()):
             check(launches.get(k, 0) == 0,
                   f"{k} launched {launches.get(k)} times on {label}")
+        prof = trace_replayed_ticks(sch, label, needs)
+        traced_by_path[label] = prof["traced_launches"]
+        print(f"profiled {label} ticks: {json.dumps(prof)}", flush=True)
         if receiver != "classical":
             served = check_neural_batch_against_twins(sch, dev, receiver,
                                                       options)
@@ -1536,9 +1774,11 @@ def main() -> int:
         if options.get("sic"):
             print(f"one MU batch, SIC vs joint LMMSE (not gated): "
                   f"{sic_vs_lmmse(sch, dev)}", flush=True)
+        print(f"path {label} batch, registry vs eager: "
+              f"{json.dumps(registry_vs_eager(sch, dev))}", flush=True)
         if label in PROFILED:
-            prof = profile_ticks(sch, 10)
-            print(f"profiled {label} ticks: {json.dumps(prof)}", flush=True)
+            print(f"host split {label} (not gated): "
+                  f"{json.dumps(host_split(sch, dev))}", flush=True)
 
     ops_in = _blocks_operands(dev)
     plans, quantized, launches = drive_blocks(dev, ops_in)
@@ -1567,6 +1807,13 @@ def main() -> int:
             launches_path=first,
             launches_by_path={label: n.get(name, 0)
                               for label, n in by_path.items()},
+            launches_counted_as={
+                label: ("captured launches x graph replays"
+                        if label in traced_by_path else "wrapper calls")
+                for label in by_path},
+            traced_launches_by_path={
+                label: n.get(name, 0)
+                for label, n in traced_by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],

@@ -76,7 +76,10 @@
 // other (n_rx, n_tx) runs the <0, 0, 0> instance of the same kernel with
 // runtime loop bounds, its factors and per-RE vectors in shared memory
 // (in a workspace the wrapper allocates, sized by detect_demap_workspace,
-// where a block's would not fit), and its outputs stored directly.  SIC's
+// where a block's would not fit), and its outputs stored directly; its
+// 2^nb levels sit in dynamic shared memory after that state, so it also
+// runs every modem of more than 4 bits per axis (1024-QAM and up, to
+// kMaxNb), at any antenna shape.  SIC's
 // hard decision is _hard_axis's: levels in the modem's order, a strict <
 // so the first level wins a tie, v = comp * scale and a true division
 // best / scale.  A decision at a level boundary changes every later
@@ -96,7 +99,11 @@ namespace {
 
 constexpr int SCT = 16;       // subcarriers a block
 constexpr int THREADS = 256;  // threads a block
-constexpr int MAX_LEVELS = 16;
+// bits per axis of the compiled <N_RX, N_TX, NB> instances
+constexpr int kMaxCompiledNb = 4;
+// bits per axis the runtime-sized <0, 0, 0> instance takes: its 2^nb
+// levels (64 KB at 14) fit shared memory beside kSharedRoute's state
+constexpr int kMaxNb = 14;
 // the runtime-sized routes keep a block's state in shared memory up to
 // this many bytes, else in the wrapper's workspace
 constexpr int kSharedRoute = 160 * 1024;
@@ -597,14 +604,19 @@ struct Tile {
   }
 };
 
-// the 2^nb levels: a compile-time NB's in registers, else in lv_s (read
-// after the block's next barrier)
+// the 2^nb levels: a compile-time NB's in registers, else in the dynamic
+// shared memory after the route's state (read after the block's next
+// barrier)
 template <int NB>
 __device__ __forceinline__ Levels<NB> load_levels(const DemapArgs& a,
-                                                  float* lv_s) {
+                                                  bool sic) {
   Levels<NB> lv;
   if constexpr (NB == 0) {
-    if (threadIdx.x < (1 << a.nb)) lv_s[threadIdx.x] = a.levels[threadIdx.x];
+    extern __shared__ float4 smem4[];
+    float* lv_s = reinterpret_cast<float*>(smem4) +
+                  (a.ws ? 0 : route_floats(sic, a.n_rx, a.n_tx));
+    for (int j = threadIdx.x; j < (1 << a.nb); j += THREADS)
+      lv_s[j] = a.levels[j];
     lv.p = lv_s;
   } else {
 #pragma unroll
@@ -648,7 +660,6 @@ __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   constexpr bool RT = NT == 0;
   constexpr bool STAGE = staged<NT, NB>();
   extern __shared__ float4 smem4[];
-  __shared__ float lv_s[MAX_LEVELS];
   const int nr = RT ? a.n_rx : NR;
   const int m = RT ? a.n_tx : NT;
   const int nb = RT ? a.nb : NB;
@@ -662,7 +673,7 @@ __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   float2 y_r[RT ? 1 : NR];
   if constexpr (!RT) load_y(a, tl, 0, y_r);
   const float nv = *a.nv;
-  const Levels<NB> lv = load_levels<NB>(a, lv_s);
+  const Levels<NB> lv = load_levels<NB>(a, false);
   const float2* hb = a.h + ((size_t)tl.b * a.n_sc + tl.sc0) * nr * m;
 
   if (tid < tl.nsc) {  // 1a, and bias column 0 by the same thread
@@ -736,7 +747,6 @@ template <int NR, int NT, int NB>
 __global__ void __launch_bounds__(THREADS) sic_demap_kernel(DemapArgs a) {
   constexpr bool RT = NT == 0;
   extern __shared__ float4 smem4[];
-  __shared__ float lv_s[MAX_LEVELS];
   const int nr = RT ? a.n_rx : NR;
   const int m = RT ? a.n_tx : NT;
   const int nb = RT ? a.nb : NB;
@@ -749,7 +759,7 @@ __global__ void __launch_bounds__(THREADS) sic_demap_kernel(DemapArgs a) {
   float2 y_r[RT ? 1 : NR];
   if constexpr (!RT) load_y(a, tl, 0, y_r);
   const float nv = *a.nv;
-  const Levels<NB> lv = load_levels<NB>(a, lv_s);
+  const Levels<NB> lv = load_levels<NB>(a, true);
   const float2* hb = a.h + ((size_t)tl.b * a.n_sc + tl.sc0) * nr * m;
   // the tile: H and its Gram, element e of subcarrier scl at
   // [e * SCT + scl] (H's e = r * m + t, the Gram's e = t * m + u), then
@@ -867,8 +877,10 @@ int launch(const DemapArgs& a, cudaStream_t s) {
   if constexpr (SIC) kernel = sic_demap_kernel<NR, NT, NB>;
   int smem = 0, limit = 0;
   if constexpr (NT == 0) {
-    smem = a.ws == nullptr ? 4 * (int)route_floats(SIC, a.n_rx, a.n_tx) : 0;
-    limit = kSharedRoute;
+    smem = 4 * ((a.ws == nullptr ? (int)route_floats(SIC, a.n_rx, a.n_tx)
+                                 : 0) +
+                (1 << a.nb));
+    limit = kSharedRoute + 4 * (1 << kMaxNb);
   } else {
     smem = limit = instance_smem<SIC, NR, NT, NB>();
   }
@@ -882,6 +894,7 @@ int launch(const DemapArgs& a, cudaStream_t s) {
 
 template <bool SIC, int NR, int NT>
 int launch_nb(const DemapArgs& a, cudaStream_t s) {
+  static_assert(kMaxCompiledNb == 4, "one case per compiled width");
   switch (a.nb) {
     case 1: return launch<SIC, NR, NT, 1>(a, s);
     case 2: return launch<SIC, NR, NT, 2>(a, s);
@@ -891,10 +904,12 @@ int launch_nb(const DemapArgs& a, cudaStream_t s) {
 }
 
 long long workspace_floats(bool sic, int batch, int n_sym, int n_sc,
-                           int n_rx, int n_tx) {
+                           int n_rx, int n_tx, int nb) {
   sic = sic && n_tx > 1;  // one stream runs the joint kernel (dispatch)
   const long long floats = route_floats(sic, n_rx, n_tx);
-  if (registered(n_rx, n_tx) || 4 * floats <= kSharedRoute) return 0;
+  if ((registered(n_rx, n_tx) && nb <= kMaxCompiledNb) ||
+      4 * floats <= kSharedRoute)
+    return 0;
   return (long long)batch * ((n_sc + SCT - 1) / SCT) * floats;
 }
 
@@ -904,7 +919,7 @@ int dispatch(const void* y, const void* h, const float* nv,
              float* nv_eff, float* llr, float* ws, int batch, int n_sym,
              int n_sc, int n_rx, int n_tx, int nb, void* stream) {
   if (batch <= 0 || n_sym <= 0 || n_sc <= 0 || n_rx <= 0 || n_tx <= 0 ||
-      nb < 1 || nb > 4)
+      nb < 1 || nb > kMaxNb)
     return (int)cudaErrorInvalidValue;
   // one stream leaves nothing to cancel: SIC's only stage is the joint
   // problem, the same operations on the same operands, and its kernel
@@ -917,7 +932,7 @@ int dispatch(const void* y, const void* h, const float* nv,
   }
   const long long n_re = (long long)batch * n_sym * n_sc;
   if (n_re * n_tx * 2 * nb > 0x7fffffffLL ||
-      (workspace_floats(SIC, batch, n_sym, n_sc, n_rx, n_tx) > 0 &&
+      (workspace_floats(SIC, batch, n_sym, n_sc, n_rx, n_tx, nb) > 0 &&
        ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const DemapArgs a{static_cast<const float2*>(y),
@@ -937,6 +952,7 @@ int dispatch(const void* y, const void* h, const float* nv,
                     n_tx,
                     nb};
   cudaStream_t s = (cudaStream_t)stream;
+  if (nb > kMaxCompiledNb) return launch<SIC, 0, 0, 0>(a, s);
   if constexpr (!SIC) {
     if (n_rx == 1 && n_tx == 1) return launch_nb<SIC, 1, 1>(a, s);
   }
@@ -949,11 +965,12 @@ int dispatch(const void* y, const void* h, const float* nv,
 }  // namespace
 
 // Floats of the workspace a launch needs (0 for the registered antenna
-// shapes, and for other shapes whose state fits a block's shared memory);
-// sic selects sic_demap_launch's.
+// shapes' compiled instances, and for any launch whose runtime-sized state
+// fits a block's shared memory); sic selects sic_demap_launch's.
 extern "C" long long detect_demap_workspace(int sic, int batch, int n_sym,
-                                            int n_sc, int n_rx, int n_tx) {
-  return workspace_floats(sic != 0, batch, n_sym, n_sc, n_rx, n_tx);
+                                            int n_sc, int n_rx, int n_tx,
+                                            int nb) {
+  return workspace_floats(sic != 0, batch, n_sym, n_sc, n_rx, n_tx, nb);
 }
 
 // y (B, n_sym, n_sc, n_rx) complex64; h (B, n_sc, n_rx, n_tx) complex64;
@@ -961,7 +978,9 @@ extern "C" long long detect_demap_workspace(int sic, int batch, int n_sym,
 // x_hat (B, n_sym, n_sc, n_tx) complex64, nv_eff (B, n_sym, n_sc, n_tx)
 // float, llr (B, n_sym, n_sc, n_tx, 2*nb) float, per original stream; ws
 // the workspace (detect_demap_workspace floats, or null where that is 0).
-// Any n_rx, n_tx >= 1, nb in 1..4.  Each returns the launch's cudaError_t.
+// Any n_rx, n_tx >= 1, nb in 1..kMaxNb (1..4 compiled for the registered
+// shapes, wider modems at runtime sizes).  Each returns the launch's
+// cudaError_t.
 extern "C" int detect_demap_launch(const void* y, const void* h,
                                    const float* nv, const float* levels,
                                    float norm, float scale, void* x_hat,

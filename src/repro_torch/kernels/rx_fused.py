@@ -248,26 +248,28 @@ def _demap_lib(entry: str):
 
 @functools.lru_cache(maxsize=None)
 def _workspace_floats(sic: bool, b: int, n_sym: int, n_sc: int, n_rx: int,
-                      n_tx: int) -> int:
+                      n_tx: int, nb: int) -> int:
     """Floats of the workspace a launch needs (``detect_demap_workspace``
-    of the source): 0 for the compiled antenna shapes and for the shapes
-    whose runtime-sized state fits a block's shared memory."""
+    of the source): 0 for the compiled instances (the registered antenna
+    shapes at 1..4 bits per axis) and for the launches whose runtime-sized
+    state fits a block's shared memory."""
     fn = _build.library("detect_demap").detect_demap_workspace
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 6
+        fn.argtypes = [ctypes.c_int] * 7
         fn.restype = ctypes.c_longlong
-    return int(fn(int(sic), b, n_sym, n_sc, n_rx, n_tx))
+    return int(fn(int(sic), b, n_sym, n_sc, n_rx, n_tx, nb))
 
 
 def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
-    """Launch ``entry`` of ``csrc/detect_demap.cu`` at any (n_rx, n_tx),
-    with the workspace the source asks for."""
+    """Launch ``entry`` of ``csrc/detect_demap.cu`` at any (n_rx, n_tx)
+    and 1..14 bits per axis (the source's ``kMaxNb``: its 2^nb levels sit
+    in a block's shared memory), with the workspace the source asks for."""
     b, n_sym, n_sc, n_rx = y.shape
     n_tx = h.shape[-1]
     nb = modem.bits_per_symbol // 2
-    if not 1 <= nb <= 4:
-        raise ValueError(f"detect_demap kernels take 1..4 bits per axis, "
-                         f"not {nb}")
+    if not 1 <= nb <= 14 or len(modem.levels) != 1 << nb:
+        raise ValueError(f"modem {modem.name}: {len(modem.levels)} levels "
+                         f"for {nb} bits per axis (1..14 taken)")
     if tuple(h.shape) != (b, n_sc, n_rx, n_tx):
         raise ValueError(f"h {tuple(h.shape)} != {(b, n_sc, n_rx, n_tx)}")
     if noise_var.numel() != 1:
@@ -283,7 +285,7 @@ def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
     llr = torch.empty((b, n_sym, n_sc, n_tx, 2 * nb), dtype=torch.float32,
                       device=y.device)
     n_ws = _workspace_floats(entry == "sic_demap_launch", b, n_sym, n_sc,
-                             n_rx, n_tx)
+                             n_rx, n_tx, nb)
     ws = (torch.empty(n_ws, dtype=torch.float32, device=y.device)
           if n_ws else None)
     err = _demap_lib(entry)(

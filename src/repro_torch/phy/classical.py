@@ -106,22 +106,31 @@ def _interp_weights(n_sc: int, offset: int, spacing: int):
     return i, frac.astype(np.float32), pos < xp[0], pos > xp[-1]
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_weights_on(n_sc: int, offset: int, spacing: int,
+                       device: torch.device) -> tuple:
+    """:func:`_interp_weights` on ``device``, built once per device (a
+    captured step copies nothing from the host), with the lower neighbour
+    ``i - 1`` beside ``i``."""
+    i, frac, left, right = _interp_weights(n_sc, offset, spacing)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (i - 1, i, frac, left, right))
+
+
 def _interp_rows(fp: torch.Tensor, n_sc: int, offset: int,
                  spacing: int) -> torch.Tensor:
     """Clamped linear interpolation of each row of ``fp`` (rows, n_p) from
     the comb ``offset::spacing`` onto all ``n_sc`` subcarriers: the same
     arithmetic and end clamping as ``jnp.interp``, on real and imaginary
     parts alike."""
-    i, frac, left, right = _interp_weights(n_sc, offset, spacing)
-    dev = fp.device
-    i = torch.from_numpy(i).to(dev)
-    frac = torch.from_numpy(frac).to(dev)
+    i_lo, i, frac, left, right = _interp_weights_on(n_sc, offset, spacing,
+                                                    fp.device)
     out = []
     for part in (fp.real, fp.imag):
-        lo, hi = part[:, i - 1], part[:, i]
+        lo, hi = part[:, i_lo], part[:, i]
         f = lo + frac * (hi - lo)
-        f = torch.where(torch.from_numpy(left).to(dev), part[:, :1], f)
-        f = torch.where(torch.from_numpy(right).to(dev), part[:, -1:], f)
+        f = torch.where(left, part[:, :1], f)
+        f = torch.where(right, part[:, -1:], f)
         out.append(f)
     return torch.complex(out[0], out[1])
 

@@ -54,10 +54,17 @@ def crc_matrix(k_info: int, poly: int = CRC16_POLY,
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _crc_matrix_on(k_info: int, n_crc: int,
+                   device: torch.device) -> torch.Tensor:
+    """:func:`crc_matrix` as float32 on ``device``, built once per device
+    (a captured step copies nothing from the host)."""
+    return torch.from_numpy(
+        crc_matrix(k_info, n_crc=n_crc).astype(np.float32)).to(device)
+
+
 def _crc_of(info: torch.Tensor, n_crc: int) -> torch.Tensor:
-    m = torch.from_numpy(
-        crc_matrix(info.shape[-1], n_crc=n_crc).astype(np.float32)
-    ).to(info.device)
+    m = _crc_matrix_on(info.shape[-1], n_crc, info.device)
     return torch.remainder(info.to(torch.float32) @ m, 2.0).to(torch.int32)
 
 

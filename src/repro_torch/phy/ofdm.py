@@ -15,6 +15,7 @@ the reference's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -67,8 +68,7 @@ class Modem:
     def mod(self, bits: torch.Tensor) -> torch.Tensor:
         """bits (..., bits_per_symbol) -> unit-power complex symbols."""
         nb = self.bits_per_axis
-        lv = torch.tensor(self.levels, dtype=torch.float32,
-                          device=bits.device)
+        lv, _, _ = _modem_tables(self.levels, nb, bits.device)
         w = 2 ** torch.arange(nb - 1, -1, -1, device=bits.device)
         idx_re = torch.sum(bits[..., :nb].long() * w, dim=-1)
         idx_im = torch.sum(bits[..., nb:].long() * w, dim=-1)
@@ -82,7 +82,7 @@ class Modem:
         ``noise_var`` broadcasts against ``y`` (scalar or per-element).
         """
         nb = self.bits_per_axis
-        lv = torch.tensor(self.levels, dtype=torch.float32, device=y.device)
+        lv, bit_of, inf = _modem_tables(self.levels, nb, y.device)
         s = float(np.sqrt(np.float32(self.norm)))
         nv = torch.clamp(
             torch.broadcast_to(
@@ -90,11 +90,6 @@ class Modem:
             ) * self.norm,
             min=1e-6,
         )
-        bit_of = torch.tensor(
-            [[(j >> (nb - 1 - p)) & 1 for j in range(len(self.levels))]
-             for p in range(nb)], dtype=torch.bool, device=y.device,
-        )  # (nb, L): bit p of the level index
-        inf = torch.tensor(float("inf"), device=y.device)
 
         def axis_llrs(u):
             d = (u[..., None] - lv) ** 2  # (..., L)
@@ -108,6 +103,21 @@ class Modem:
 
         llrs = axis_llrs(y.real * s) + axis_llrs(y.imag * s)
         return torch.stack(llrs, dim=-1) / nv[..., None]
+
+
+@functools.lru_cache(maxsize=None)
+def _modem_tables(levels: tuple, nb: int, device: torch.device) -> tuple:
+    """A modem's constant tensors on ``device``, built once per device (a
+    captured step copies nothing from the host): the levels (L,) float32,
+    ``bit_of`` (nb, L) bool (bit p, MSB first, of the level index) and
+    +inf."""
+    lv = torch.tensor(levels, dtype=torch.float32, device=device)
+    bit_of = torch.tensor(
+        [[(j >> (nb - 1 - p)) & 1 for j in range(len(levels))]
+         for p in range(nb)], dtype=torch.bool, device=device,
+    )
+    inf = torch.tensor(float("inf"), device=device)
+    return lv, bit_of, inf
 
 
 _MODEMS = {

@@ -1,6 +1,12 @@
 """PHY serving on the port: the shared slot-scheduler core and the
-closed-loop TTI runtime (:mod:`repro_torch.serve.runtime`) and the open-loop
-single-cell engine (:mod:`repro_torch.serve.phy_engine`)."""
+closed-loop TTI runtime (:mod:`repro_torch.serve.runtime`), the open-loop
+single-cell engine (:mod:`repro_torch.serve.phy_engine`) and the registry
+of captured serving steps (:mod:`repro_torch.serve.exec_registry`)."""
+from repro_torch.serve.exec_registry import (
+    BucketPolicy, CapturedStep, CostModelBuckets, ExecKey, ExecRegistry,
+    ExecStats, FixedBuckets, PowerOfTwoBuckets, exec_key_for, get_registry,
+    set_registry, slot_schema, template_batch, template_slot,
+)
 from repro_torch.serve.runtime import (
     BatchRunner, CellLoop, ClosedLoopReport, JobCounter, PhyServeReport,
     SlotLedger, SlotRequest, SlotScheduler, TorchSlotFactory,

@@ -4,7 +4,8 @@ queue 1, item 8).
 
 A thin frontend over the shared core in :mod:`repro_torch.serve.runtime`:
 submit bookkeeping on :class:`SlotLedger`, batching and the timed loop on
-:class:`BatchRunner`, the report on :func:`build_serve_report`.
+:class:`BatchRunner` (each batch a step of the executable registry, a
+CUDA graph replay on the card), the report on :func:`build_serve_report`.
 """
 from __future__ import annotations
 
@@ -63,8 +64,13 @@ class PhyServeEngine:
 
     # -- serving ----------------------------------------------------------
     def run(self, warmup: bool = True) -> PhyServeReport:
-        """Serve every queued slot; ``warmup`` builds the kernels before
-        the timed window opens."""
+        """Serve every queued slot; returns the throughput/quality report.
+
+        ``warmup=True`` acquires the step from the process-wide executable
+        registry before the timed window opens: on the card its CUDA graph
+        is captured there, or found resident, and no batch is served
+        twice.  Capture accounting and first/steady batch latency land on
+        the report."""
         reqs = self._queue
         self._queue = []
         runner = BatchRunner(self.pipeline, self.batch_size)
@@ -74,5 +80,5 @@ class PhyServeEngine:
             [r.metrics for r in reqs],
             n_slots=len(reqs), n_batches=n_batches,
             batch_size=self.batch_size, wall_s=runner.wall_s,
-            batch_times=runner.batch_times,
+            exec_stats=runner.exec_stats, batch_times=runner.batch_times,
         )

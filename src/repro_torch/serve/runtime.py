@@ -5,7 +5,10 @@
   bookkeeping (:class:`SlotLedger`), batch stacking (:func:`stack_slots`),
   traffic (:func:`make_traffic` over :func:`cell_rng`), metric aggregation
   and report construction, and the timed batch executor
-  (:class:`BatchRunner`), whose window closes with
+  (:class:`BatchRunner`), which serves each slot schema through one step
+  of the executable registry (:mod:`repro_torch.serve.exec_registry`): a
+  CUDA graph of the receive chain on the card.  Its timed window holds the
+  copies that stage a batch into the step's inputs, the replay and
   ``torch.cuda.synchronize()``.
 * **Closed loop**: the per-cell state machine :class:`CellLoop` (numpy
   logic: Poisson arrivals, per-user queues, HARQ IR combining, OLLA over
@@ -20,10 +23,10 @@ turns into ``jax.random.PRNGKey``).  The default
 parity run passes a factory that draws the reference's slot from the same
 integer, so both packages replay one trajectory.
 
-There is no executable registry: PyTorch runs eagerly and the kernels are
-built once per process (:func:`repro_torch.kernels._build.build_all`), so
-the compile fields of the reports stay at their defaults (ROADMAP queue 1,
-item 7).
+Steps are acquired ahead of the first TTI (``SlotScheduler(prebuild=
+True)``, ``PhyServeEngine.run(warmup=True)``) from template batches; the
+reports' compile fields (``compile_time_s``, ``executables_compiled``,
+``cache_hits``) are the runners' merged :class:`ExecStats`.
 """
 from __future__ import annotations
 
@@ -38,6 +41,9 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.phy import coding
 from repro_torch.phy import link as _link
+from repro_torch.serve.exec_registry import (
+    ExecStats, get_registry, slot_schema, template_batch,
+)
 
 # slot keys with a leading per-user batch axis; everything else is
 # scenario-static side info shared by every user
@@ -254,6 +260,7 @@ def first_steady(times) -> tuple:
 def build_serve_report(pipeline: _link.ReceiverPipeline, scenario,
                        metric_dicts, *, n_slots: int, n_batches: int,
                        batch_size: int, wall_s: float,
+                       exec_stats: Optional[ExecStats] = None,
                        batch_times=()) -> PhyServeReport:
     """Aggregate served-slot metrics into a :class:`PhyServeReport`."""
     means = slot_metric_means(metric_dicts)
@@ -289,35 +296,71 @@ def build_serve_report(pipeline: _link.ReceiverPipeline, scenario,
         energy_uj_per_slot=energy,
         gops_per_watt=gops_w,
         l1_residency=l1_res,
+        compile_time_s=exec_stats.compile_time_s if exec_stats else 0.0,
+        executables_compiled=(
+            exec_stats.executables_compiled if exec_stats else 0
+        ),
+        cache_hits=exec_stats.cache_hits if exec_stats else 0,
         first_tick_s=first_s,
         steady_tick_s=steady_s,
     )
 
 
 class BatchRunner:
-    """One pipeline + timed fixed-shape batch execution: stacks up to
-    ``batch_size`` requests (padding by repetition), runs the pipeline with
-    the timed window closed by a device synchronize, and records
-    per-request metrics."""
+    """One pipeline + timed fixed-shape batch execution.
 
-    def __init__(self, pipeline: _link.ReceiverPipeline, batch_size: int):
+    Stacks up to ``batch_size`` requests (padding by repetition, so each
+    slot schema has one step shape), runs the step of the process's
+    :class:`~repro_torch.serve.exec_registry.ExecRegistry` for the batch's
+    schema (a CUDA graph replay on the card) with the timed window closed
+    by a device synchronize, and records per-request metrics.
+
+    :meth:`prepare` / :meth:`warmup` *acquire* the step (capturing it
+    outside the timed window) without serving anything.  Capture
+    accounting lands in ``exec_stats``; per-batch latencies in
+    ``batch_times``.
+    """
+
+    def __init__(self, pipeline: _link.ReceiverPipeline, batch_size: int,
+                 *, registry=None):
         self.pipeline = pipeline
         self.batch_size = batch_size
+        self.registry = registry if registry is not None else get_registry()
+        self.exec_stats = ExecStats()
         self.wall_s = 0.0
         self.n_batches = 0
         self.batch_times: list = []
+        self._steps: dict = {}  # slot schema -> CapturedStep
 
-    def warmup(self) -> None:
-        """Build the CUDA kernels outside the timed window (no-op on the
-        CPU, where the wrappers run their plain twins)."""
-        if self.pipeline.device.type == "cuda":
-            from repro_torch.kernels import _build
+    def prepare(self, batch: dict):
+        """Acquire the step for ``batch``'s slot schema (no serving).
+        Idempotent per schema; the registry satisfies repeat acquisitions
+        in memory."""
+        schema = slot_schema(batch)
+        step = self._steps.get(schema)
+        if step is None:
+            step = self.registry.acquire_pipeline_step(
+                self.pipeline, batch, batch=self.batch_size,
+                stats=self.exec_stats,
+            )
+            self._steps[schema] = step
+        return step
 
-            _build.build_all()
+    def warmup(self, reqs: list) -> None:
+        self.prepare(stack_slots(
+            [r.slot for r in reqs], self.batch_size - len(reqs)
+        ))
+
+    def _step(self, batch: dict) -> dict:
+        """Stage ``batch`` into its step's inputs and run the step
+        (acquiring it first if a caller skipped :meth:`prepare`)."""
+        return self.prepare(batch)(batch)
 
     def _execute(self, batch: dict) -> dict:
+        """One stacked batch inside the timed window: the staging copies,
+        the replay and the synchronize."""
         t0 = time.perf_counter()
-        state = self.pipeline.run(batch)
+        state = self._step(batch)
         if self.pipeline.device.type == "cuda":
             torch.cuda.synchronize(self.pipeline.device)
         dt = time.perf_counter() - t0
@@ -327,7 +370,13 @@ class BatchRunner:
 
     def run_batch(self, reqs: list) -> dict:
         """Serve one chunk of requests; returns the raw pipeline state and
-        marks each request done with its per-slot metrics."""
+        marks each request done with its per-slot metrics.
+
+        On CUDA the state's tensors are the step's graph outputs and
+        static inputs: they hold this batch until the same step's next
+        call overwrites them, so read them (as the scheduler reads
+        ``crc_ok`` and ``cw_llr`` to the host) before serving the next
+        batch of that schema."""
         batch = stack_slots(
             [r.slot for r in reqs], self.batch_size - len(reqs)
         )
@@ -349,7 +398,7 @@ class BatchRunner:
             for i in range(0, len(reqs), self.batch_size)
         ]
         if warmup and chunks:
-            self.warmup()
+            self.warmup(chunks[0])
         for chunk in chunks:
             self.run_batch(chunk)
         return len(chunks)
@@ -840,9 +889,17 @@ class SlotScheduler:
     ``arrival_rate``, ``max_retx``, ``deadline_ttis``,
     ``max_batches_per_tick``, ``adapt``/``target_bler``/``olla_step``,
     ``init_mcs``, ``snr_db``/``snr_spread_db``, ``interferer_db``,
-    ``seed``), plus ``device`` (None -> CUDA; the pipelines and default
-    slots live there) and ``slot_factory`` (see the module doc).  On CUDA
-    the kernels are built at construction, outside every timed window.
+    ``seed``, ``prebuild``, ``registry``), plus ``device`` (None -> CUDA;
+    the pipelines and default slots live there) and ``slot_factory`` (see
+    the module doc).
+
+    prebuild: acquire every rung's step (its CUDA graph on the card) from
+        a template HARQ batch before the first TTI; ``False`` defers each
+        rung to its first served batch.  On CUDA the kernels are built at
+        construction either way, outside every timed window.
+    registry: explicit :class:`~repro_torch.serve.exec_registry.
+        ExecRegistry` (default: the process-wide registry, shared with
+        every other engine in the process).
     """
 
     def __init__(self, ladder, *, n_users: int = 4, batch_size: int = 4,
@@ -856,6 +913,7 @@ class SlotScheduler:
                  snr_db: Optional[float] = None,
                  snr_spread_db: float = 0.0,
                  interferer_db: tuple = (), seed: int = 0,
+                 prebuild: bool = True, registry=None,
                  device: DeviceLike = None,
                  slot_factory: Optional[Callable] = None):
         self.ladder_name, self.rungs = resolve_ladder(ladder)
@@ -872,9 +930,20 @@ class SlotScheduler:
         if len(pipelines) != len(self.rungs):
             raise ValueError(f"{len(pipelines)} pipelines for "
                              f"{len(self.rungs)} rungs")
-        self.runners = [BatchRunner(p, batch_size) for p in pipelines]
-        self.runners[0].warmup()
+        self.runners = [
+            BatchRunner(p, batch_size, registry=registry) for p in pipelines
+        ]
+        if self.device.type == "cuda":
+            from repro_torch.kernels import _build
+
+            _build.build_all()
         self.tick_times: list = []
+        if prebuild:
+            # every rung's step before the first TTI, from the schema a
+            # closed-loop batch has (HARQ: rv + prior_llr)
+            for scn, runner in zip(self.rungs, self.runners):
+                runner.prepare(template_batch(scn, batch_size, harq=True,
+                                              device=self.device))
 
         self.loop = CellLoop(
             self.rungs, rng=cell_rng(seed), n_users=n_users,
@@ -920,7 +989,8 @@ class SlotScheduler:
     def tick(self) -> TickStats:
         """Advance one TTI: arrivals, batched serving, HARQ feedback.
         The only host reads are each batch's metrics, ``crc_ok`` and
-        ``cw_llr``, as in the reference."""
+        ``cw_llr``, as in the reference; they copy the state to the host
+        before the next batch, whose replay overwrites it."""
         loop = self.loop
         stats = TickStats(tick=loop.now)
         loop.arrive(stats)
@@ -964,7 +1034,15 @@ class SlotScheduler:
             wall_s=sum(r.wall_s for r in self.runners),
             n_batches=sum(r.n_batches for r in self.runners),
         )
+        stats = ExecStats()
+        for r in self.runners:
+            stats.merge(r.exec_stats)
         first_s, steady_s = first_steady(self.tick_times)
         return dataclasses.replace(
-            rep, first_tick_s=first_s, steady_tick_s=steady_s,
+            rep,
+            compile_time_s=stats.compile_time_s,
+            executables_compiled=stats.executables_compiled,
+            cache_hits=stats.cache_hits,
+            first_tick_s=first_s,
+            steady_tick_s=steady_s,
         )

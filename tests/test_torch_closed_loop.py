@@ -8,7 +8,10 @@
   cell stream hands it, which is the integer the reference turns into its
   key.  Tick log, per-user (mcs, olla, snr_db) and every report field
   outside the golden test's unstable set must be equal (floats to rtol
-  1e-5, as the golden test compares them).
+  1e-5, as the golden test compares them).  The port runs twice against
+  one reference run: with every rung's registry step acquired before the
+  first TTI (``prebuild=True``) and with each acquired at its rung's
+  first batch; the compile fields must count one step per rung acquired.
 * **Conservation.**  A port-native run (torch slots) accounts for every
   issued job exactly once.
 * **Slot generator statistics.**  Torch cannot replay ``jax.random``
@@ -18,6 +21,7 @@
   slots; the receiver itself is held to the reference elsewhere).
 """
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -30,6 +34,7 @@ from repro.phy import scenarios as ref_scn
 from repro.serve import runtime as ref_runtime
 from repro_torch.phy import coding, link, ofdm, scenarios
 from repro_torch.serve import runtime
+from repro_torch.serve.exec_registry import ExecRegistry
 # the reference's jitted one-slot draws, compiled once per scenario for
 # this file and the pipeline parity tests
 from test_torch_pipeline import jax_slots
@@ -89,23 +94,41 @@ class _JaxSlotFactory:
             {k: np.asarray(v) for k, v in slot.items()}, "cpu")
 
 
-def test_trajectory_replays_live_reference_run():
+@functools.lru_cache(maxsize=None)
+def _reference_run() -> dict:
+    """The live reference run, once for every port run of this file."""
     # prebuild=False: the reference compiles each rung at its first batch
     # instead of drawing template slots first; compile timing is outside
     # the compared fields, the trajectory is not
     ref_sch = ref_runtime.SlotScheduler("siso-coded", prebuild=False,
                                         **_CONFIG)
-    want = _snapshot(ref_sch, ref_sch.run(6))
+    return _snapshot(ref_sch, ref_sch.run(6))
+
+
+@pytest.mark.parametrize("prebuild", [False, True])
+def test_trajectory_replays_live_reference_run(prebuild):
+    want = _reference_run()
     factory = _JaxSlotFactory()
     sch = runtime.SlotScheduler("siso-coded", device="cpu",
-                                slot_factory=factory, **_CONFIG)
-    got = _snapshot(sch, sch.run(6))
+                                slot_factory=factory, prebuild=prebuild,
+                                registry=ExecRegistry(), **_CONFIG)
+    rep = sch.run(6)
+    got = _snapshot(sch, rep)
     assert factory.calls == got["report"]["n_slots"] > 0
     _assert_same(got, want, "closed-loop")
     # the run exercised HARQ and link adaptation, not just first shots
     assert got["report"]["mean_harq_rounds"] > 1.0
     assert len({u[1] for u in got["users"]}) > 1 or \
         any(u[2] != 0.0 for u in got["users"])
+    # one registry step per rung acquired: every rung before the first TTI
+    # with prebuild, else each rung at its first served batch; a runner
+    # keeps its step, so no re-acquire (no hit) in a fresh registry
+    served = sum(1 for r in sch.runners if r.n_batches)
+    assert served == sum(1 for v in rep.mcs_occupancy.values() if v > 0)
+    assert rep.executables_compiled == (len(sch.rungs) if prebuild
+                                        else served)
+    assert rep.cache_hits == 0 and rep.compile_time_s > 0.0
+    assert rep.first_tick_s is not None and rep.steady_tick_s is not None
 
 
 def test_port_native_run_conserves_jobs():

@@ -650,3 +650,131 @@ def test_block_wrappers_reject_bad_inputs_on_card(dev):
     q = torch.zeros(2, 8, 300, device=dev)
     with pytest.raises(TypeError):
         mha.mha_quantized(q, q, q, *(torch.ones(2, 1, device=dev),) * 3)
+
+
+# ---------------------------------------------------------------------------
+# detect + demap past 4 bits per axis
+# ---------------------------------------------------------------------------
+
+def _qam1024():
+    """1024-QAM built the way qam256 is: binary-reflected Gray over 32
+    amplitudes, levels[gray(k)] = 2k - 31, norm 2 (32^2 - 1) / 3."""
+    levels = [0.0] * 32
+    for k in range(32):
+        levels[k ^ (k >> 1)] = 2.0 * k - 31.0
+    return ofdm.Modem("qam1024", 10, tuple(levels), 682.0)
+
+
+@pytest.mark.parametrize("b,n_sc,n_rx,n_tx", [
+    (2, 64, 1, 1), (2, 64, 2, 2), (3, 100, 3, 3)])
+def test_demap_kernels_qam1024_bit_exact(dev, b, n_sc, n_rx, n_tx):
+    """A 5-bit-per-axis modem runs the runtime-sized instance at every
+    antenna shape, registered or not, and holds the twins bit for bit."""
+    gen = ofdm.make_generator(1024 + n_rx, dev)
+    modem = _qam1024()
+    bits = torch.randint(0, 2, (b, 14, n_sc, n_tx, 10), generator=gen,
+                         device=dev, dtype=torch.int32)
+    h = torch.complex(torch.randn(b, n_sc, n_rx, n_tx, generator=gen,
+                                  device=dev),
+                      torch.randn(b, n_sc, n_rx, n_tx, generator=gen,
+                                  device=dev)) / math.sqrt(2.0)
+    nv = torch.tensor(n_tx * 10.0 ** (-3.4), device=dev)
+    y = torch.einsum("bsrt,bmst->bmsr", h, modem.mod(bits))
+    y = (y + torch.complex(torch.randn(y.shape, generator=gen, device=dev),
+                           torch.randn(y.shape, generator=gen, device=dev))
+         * torch.sqrt(nv / 2.0)).contiguous()
+    for kernel, twin, counter in (
+            (rx_fused.mmse_detect_demap, rx_fused.mmse_detect_demap_torch,
+             "mmse_detect_demap"),
+            (rx_fused.sic_detect_demap, rx_fused.sic_detect_demap_torch,
+             "sic_detect_demap")):
+        n0 = _build.launches[counter]
+        got = kernel(y, h, nv, modem)
+        assert _build.launches[counter] == n0 + 1
+        want = twin(y, h, nv, modem)
+        assert got[2].shape == (b, 14, n_sc, n_tx, 10)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_), counter
+
+
+# ---------------------------------------------------------------------------
+# the executable registry: graph replay against the eager chain
+# ---------------------------------------------------------------------------
+
+_SERVED = [  # each receiver chip_smoke.py serves, and its kernels
+    ("siso-qam16-r12-snr15", "classical", dict(fused=True),
+     {"ls_che", "mmse_detect_demap", "ldpc_decode"}),
+    ("mimo4x4-qam16-mu-snr18", "classical", dict(fused=True, sic=True),
+     {"ls_che", "sic_detect_demap", "ldpc_decode"}),
+    ("siso-qam16-r12-snr15", "classical", dict(fused=True, precision="int8"),
+     {"ls_che", "mmse_detect_demap", "ldpc_decode_q"}),
+    ("siso-qam16-r12-snr15", "cevit", dict(fused_rx=True),
+     {"te_gemm", "mha", "mmse_detect_demap", "ldpc_decode"}),
+    ("siso-qam16-r12-snr15", "deeprx", {}, {"te_gemm", "ldpc_decode"}),
+]
+_SYMBOLS = {  # each counter's kernel, by its device symbol
+    "ls_che": "ls_che_kernel", "mmse_detect_demap": "detect_demap_kernel",
+    "sic_detect_demap": "sic_demap_kernel",
+    "ldpc_decode": "ldpc_minsum_kernel",
+    "ldpc_decode_q": "ldpc_minsum_q_kernel", "te_gemm": "te_gemm_kernel",
+    "mha": "mha_kernel"}
+
+
+def _served_batch(scn, dev, seed, rv, batch=2):
+    """``batch`` users' HARQ slots stacked as the scheduler stacks them,
+    a nonzero combining prior on a retransmission."""
+    from repro_torch.serve.runtime import TorchSlotFactory, stack_slots
+
+    factory = TorchSlotFactory(dev)
+    slots = []
+    for u in range(batch):
+        slot = factory(seed + u, scn, 1, rv=rv)
+        gen = ofdm.make_generator(seed + u, dev)
+        slot["prior_llr"] = rv * torch.randn(
+            (1, coding.codewords_per_slot(scn), scn.code.n_mother),
+            generator=gen, device=dev)
+        slots.append(slot)
+    return stack_slots(slots)
+
+
+@pytest.mark.parametrize("name,kind,kw,kernels", _SERVED)
+def test_registry_replay_equals_eager_run(dev, name, kind, kw, kernels):
+    """A graph-replayed batch equals ``pipeline.run`` of the same batch bit
+    for bit, a second replay on other inputs equals their eager run, k
+    replays count k times the capture's launches, and a CUPTI trace of k
+    replays holds each of the pipeline's kernels, as often as counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.exec_registry import ExecRegistry, template_batch
+
+    scn = scenarios.get_scenario(name)
+    rx = link.build_pipeline(kind, scn, device=dev, **kw)
+    reg = ExecRegistry()
+    step = reg.acquire_pipeline_step(
+        rx, template_batch(scn, 2, harq=True, device=dev), batch=2)
+    assert step.graph is not None
+    assert set(step.launch_delta) == kernels
+    for seed, rv in ((11, 0), (23, 1)):
+        batch = _served_batch(scn, dev, seed, rv)
+        got = {k: v.clone() for k, v in step(batch).items()
+               if isinstance(v, torch.Tensor)}
+        want = rx.run(batch)
+        for k, v in want.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(got[k], v), (k, seed)
+    _build.reset_launches()
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {
+        k: 3 * n for k, n in step.launch_delta.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    for k, n in step.launch_delta.items():
+        assert sum(_SYMBOLS[k] in name for name in names) == 3 * n, k
+    assert reg.stats.executables_compiled == 1

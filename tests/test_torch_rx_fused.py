@@ -15,7 +15,7 @@ bits (borderline LLRs near zero may flip).  The CUDA kernels are checked
 against these twins on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``).
 """
-import types
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,11 +30,39 @@ from repro_torch.phy import ofdm
 _SHAPES = [(1, 1), (2, 2), (4, 4), (8, 4)]
 _MODEMS = ["qpsk", "qam16", "qam64", "qam256"]
 # every modem at the shapes with compiled kernel instances, one each at
-# shapes the kernels take by their runtime-sized route
+# shapes the kernels take by their runtime-sized route, and a 1024-QAM
+# modem (5 bits per axis, no compiled instance) at SISO, 2x2 and 3x3
 _DEMAP_CASES = [(r, t, m) for r, t in _SHAPES for m in _MODEMS] + [
-    (2, 1, "qpsk"), (4, 2, "qam16"), (3, 3, "qam64"), (8, 6, "qam16")]
+    (2, 1, "qpsk"), (4, 2, "qam16"), (3, 3, "qam64"), (8, 6, "qam16"),
+    (1, 1, "qam1024"), (2, 2, "qam1024"), (3, 3, "qam1024")]
 _N_SC = 64
 _PSYM = (2, 11)
+
+
+@functools.lru_cache(maxsize=None)
+def qam1024_modems() -> tuple:
+    """(reference, port) 1024-QAM modems, built by hand in both packages
+    the way ``qam256`` is: binary-reflected Gray over 32 amplitudes,
+    ``levels[gray(k)] = 2k - 31``, norm ``2 (32^2 - 1) / 3 = 682``."""
+    levels = [0.0] * 32
+    for k in range(32):
+        levels[k ^ (k >> 1)] = 2.0 * k - 31.0
+    args = ("qam1024", 10, tuple(levels), 682.0)
+    return ref_ofdm.Modem(*args), ofdm.Modem(*args)
+
+
+def ref_modem(name: str):
+    """The reference's registered modem, or the hand-built 1024-QAM one."""
+    if name == "qam1024":
+        return qam1024_modems()[0]
+    return ref_ofdm.make_modem(name)
+
+
+def port_modem(name: str):
+    """The port's counterpart of :func:`ref_modem`."""
+    if name == "qam1024":
+        return qam1024_modems()[1]
+    return ofdm.make_modem(name)
 
 
 def _cgauss(rng, shape) -> np.ndarray:
@@ -46,7 +74,7 @@ def _detect_inputs(n_rx, n_tx, modem_name, seed, b=1, n_sc=_N_SC,
                    snr_db=22.0):
     """y = H x + n on a (b, 14, n_sc) grid with H flat in time."""
     rng = np.random.default_rng(seed)
-    modem = ref_ofdm.make_modem(modem_name)
+    modem = ref_modem(modem_name)
     h = _cgauss(rng, (b, n_sc, n_rx, n_tx))
     bits = rng.integers(0, 2, (b, 14, n_sc, n_tx, modem.bits_per_symbol))
     x = np.asarray(modem.mod(jnp.asarray(bits)))
@@ -60,7 +88,7 @@ def _detect_inputs(n_rx, n_tx, modem_name, seed, b=1, n_sc=_N_SC,
 def _port_detect(y, h, nv, modem_name):
     out = rx_fused.mmse_detect_demap(
         torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
-        ofdm.make_modem(modem_name))
+        port_modem(modem_name))
     return [o.numpy() for o in out]
 
 
@@ -80,7 +108,7 @@ def test_detect_demap_twin_matches_jnp(n_rx, n_tx, modem_name):
     y, h, nv = _detect_inputs(n_rx, n_tx, modem_name, seed=n_rx * 10 + n_tx)
     want = ref_rx.mmse_detect_demap_jnp(
         jnp.asarray(y), jnp.asarray(h), jnp.float32(nv),
-        ref_ofdm.make_modem(modem_name))
+        ref_modem(modem_name))
     _assert_detect_close(_port_detect(y, h, nv, modem_name), want)
 
 
@@ -151,20 +179,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         rx_fused.mmse_detect_demap_cuda(
             torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
             ofdm.make_modem("qpsk"))
-    # any antenna shape reaches the same device check (no shape cap); a
-    # bits-per-axis count past the kernels' 1..4 is refused before it
+    # any antenna shape and any bits per axis (1024-QAM: 5) reach the same
+    # device check (no shape or modem cap)
     with pytest.raises(ValueError, match="CUDA"):
         rx_fused.mmse_detect_demap_cuda(
             torch.zeros(1, 14, 8, 3, dtype=torch.complex64),
             torch.zeros(1, 8, 3, 3, dtype=torch.complex64),
             torch.tensor(0.1), ofdm.make_modem("qpsk"))
-    wide = types.SimpleNamespace(bits_per_symbol=10, levels=(0.0,) * 32,
-                                 norm=1.0)
-    with pytest.raises(ValueError, match="1..4 bits"):
-        rx_fused.mmse_detect_demap_cuda(
-            torch.zeros(1, 14, 8, 3, dtype=torch.complex64),
-            torch.zeros(1, 8, 3, 3, dtype=torch.complex64),
-            torch.tensor(0.1), wide)
+    for entry in (rx_fused.mmse_detect_demap_cuda,
+                  rx_fused.sic_detect_demap_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            entry(torch.zeros(1, 14, 8, 3, dtype=torch.complex64),
+                  torch.zeros(1, 8, 3, 3, dtype=torch.complex64),
+                  torch.tensor(0.1), port_modem("qam1024"))
     # SIC runs its plain twin on a CPU tensor, and its CUDA entry refuses
     # CPU tensors like the joint one's
     out = rx_fused.sic_detect_demap(torch.from_numpy(y), torch.from_numpy(h),

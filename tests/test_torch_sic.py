@@ -43,14 +43,17 @@ from repro_torch.serve import runtime
 # the reference's jitted one-slot draws and the closed-loop comparison
 from test_torch_closed_loop import _JaxSlotFactory, _assert_same, _snapshot
 from test_torch_pipeline import assert_decode_matches_reference, jax_slots
-from test_torch_rx_fused import _cgauss
+from test_torch_rx_fused import _cgauss, port_modem, ref_modem
 
 _SHAPES = [(1, 1), (2, 2), (4, 4), (8, 4)]
 _MODEMS = ["qpsk", "qam16", "qam64", "qam256"]
 # every modem at the shapes with compiled kernel instances, one each at
 # shapes the kernels take by their runtime-sized route
+# shapes the kernels take by their runtime-sized route, and the hand-built
+# 1024-QAM modem (5 bits per axis, no compiled instance) at 2x2, 4x4, 3x3
 _SIC_CASES = [(r, t, m) for r, t in _SHAPES for m in _MODEMS] + [
-    (2, 1, "qpsk"), (4, 2, "qam16"), (3, 3, "qam64"), (8, 6, "qam16")]
+    (2, 1, "qpsk"), (4, 2, "qam16"), (3, 3, "qam64"), (8, 6, "qam16"),
+    (2, 2, "qam1024"), (4, 4, "qam1024"), (3, 3, "qam1024")]
 _MU = "mimo4x4-qam16-mu-snr18"
 
 
@@ -58,7 +61,7 @@ def _sic_inputs(n_rx, n_tx, modem_name, seed, b=1, n_sc=64, snr_db=18.0):
     """y = H diag(g) x + n with a near-far profile g (+6 dB down to -3 dB
     across the streams, strongest first) on a (b, 14, n_sc) grid."""
     rng = np.random.default_rng(seed)
-    modem = ref_ofdm.make_modem(modem_name)
+    modem = ref_modem(modem_name)
     gain = 10.0 ** (np.linspace(6.0, -3.0, n_tx) / 20.0)
     h = (_cgauss(rng, (b, n_sc, n_rx, n_tx)) * gain).astype(np.complex64)
     bits = rng.integers(0, 2, (b, 14, n_sc, n_tx, modem.bits_per_symbol))
@@ -73,14 +76,14 @@ def _sic_inputs(n_rx, n_tx, modem_name, seed, b=1, n_sc=64, snr_db=18.0):
 def _port_sic(y, h, nv, modem_name):
     out = rx_fused.sic_detect_demap(
         torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
-        ofdm.make_modem(modem_name))
+        port_modem(modem_name))
     return [o.numpy() for o in out]
 
 
 def _decisions(x_hat, modem_name) -> np.ndarray:
     """(..., n_tx - 1, 2): each cancelled stream's nearest level index per
     axis, the decision its stage subtracts."""
-    m = ref_ofdm.make_modem(modem_name)
+    m = ref_modem(modem_name)
     lv = np.asarray(m.levels, np.float32)
     parts = np.stack([x_hat.real, x_hat.imag], -1)[..., :-1, :]
     d = (parts[..., None] * np.float32(np.sqrt(m.norm)) - lv) ** 2
@@ -109,7 +112,7 @@ def test_sic_twin_matches_jnp(n_rx, n_tx, modem_name):
     y, h, nv = _sic_inputs(n_rx, n_tx, modem_name, seed=n_rx * 10 + n_tx)
     want = ref_rx.sic_detect_demap_jnp(
         jnp.asarray(y), jnp.asarray(h), jnp.float32(nv),
-        ref_ofdm.make_modem(modem_name))
+        ref_modem(modem_name))
     _assert_sic_close(_port_sic(y, h, nv, modem_name), want, modem_name)
 
 
