@@ -18,7 +18,9 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    which have no compiled instance) at batch 8, ``sic_detect_demap`` (the
    MU-MIMO 4x4-16QAM grid, 2x2-16QAM, 4x8-64QAM, SISO-1024QAM and the
    same four shapes) at batch 8, and the MU grid at batch 2, both bit for
-   bit,
+   bit; both also at the mesh paths' lane-folded shapes (SISO 8 lanes x 8
+   slots, the MU grid 4 lanes x 8, one noise variance a lane), where each
+   lane's rows must also equal a one-value launch on that lane's rows,
    ``ldpc_decode`` and the int8 ``ldpc_decode_q`` (r12 and r34, 216
    codewords, at a converging and a non-converging SNR, r12 at lifting
    sizes z = 16, 384 and 512 (int8 also 64), and an r34 code with layers
@@ -93,6 +95,29 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    and slot generation; each stage's eager host time; the host reads of
    a batch); the traced ticks of every path also give the device's busy
    and idle time and the split of device time by kernel.
+4b. Multi-cell serving (``repro_torch.serve.cell_mesh``), the lanes of
+   a step folded into the kernels' batch axis with one noise variance a
+   lane, each (group, rung, lane bucket) step one CUDA graph, launch
+   counts zeroed just before each run and read just after.  Two closed
+   loops of ``MeshSlotScheduler``: 8 ``siso-coded`` cells of 8 users
+   (``arrival_rate`` 3.0 on the first two, 0.8 on the rest, ``snr_db`` 8 +
+   0.5 i, batch 8, one batch a cell a tick, deadline 4 TTIs) for 20 TTIs,
+   an urban cluster of co-sited cells, two of them hot, so users hand
+   over; and 4 ``mimo4x4-qam16-mu-snr18`` SIC cells of 4 users, coupled
+   at -25 dB with transmit powers 0, -3, -6, -9 dB, for 10 TTIs.  Each
+   must conserve jobs exactly, capture one graph per (group, rung, bucket)
+   step before the first TTI and none after, count launches equal to
+   captures x replays, show each of its kernels in a CUPTI trace of ten
+   replayed ticks that capture nothing, hand users over
+   (the first), and serve one recorded bucket whose real lanes each equal
+   the single-cell registry step of the same rung on that lane's slots
+   (CRC flags, payloads, iteration counts and LLRs bit for bit, ``h_hat``
+   at rtol 1e-4).  Each prints its steady tick, replays per tick and the
+   device's idle share.  Then the open-loop ``CellMeshEngine`` over the
+   four-cell fleet of ``examples/phy_multicell_serve.py`` with the fused
+   kernels and uneven traffic (16, 4, 4, 4 slots): every slot served,
+   launches equal to captures x replays, and each of its kernels in a
+   CUPTI trace of a second run of the same traffic from another seed.
 5. The blocks path, with the launch counts zeroed just before and read
    just after: the paper's three AI-PHY compute blocks (Fig. 10) at full
    width, each through its sequential plan (separate ops; the FC GEMM on
@@ -253,23 +278,25 @@ def library(fn) -> dict:
             "library_device_us": device_total_us(fn)}
 
 
-def profile_ticks(sch, n_ticks: int) -> dict:
-    """Host wall time, device busy time and its split by kernel over
-    ``n_ticks`` steady ticks of a scheduler (CUPTI trace), and each ported
-    kernel's launches as that trace records them (``traced_launches``, by
+def profile_window(sch, run, ticks) -> dict:
+    """Host wall time, device busy time and its split by kernel over one
+    call of ``run`` (``ticks`` steady ticks of a scheduler, or an engine's
+    ``run``) under a CUPTI trace, and each ported kernel's launches as
+    that trace records them (``traced_launches``, by
     :data:`KERNEL_SYMBOLS`) beside the count derived from the captures'
     launches times the graph replays in the window
-    (``derived_launches``)."""
+    (``derived_launches``), and the steps captured inside the window
+    (``captures_in_window``: none, when every step was captured ahead)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     derived0 = derived_launches(sch)
+    steps0 = {id(st) for st in captured_steps(sch)}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_ticks):
-            sch.tick()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
@@ -283,14 +310,16 @@ def profile_ticks(sch, n_ticks: int) -> dict:
             for k, pat in KERNEL_SYMBOLS.items()}
     traced = {k: sum(1 for name, _ in events if pat in name)
               for k, pat in KERNEL_SYMBOLS.items()}
+    new_steps = [st for st in captured_steps(sch) if id(st) not in steps0]
     return {
-        "ticks": n_ticks, "wall_ms": wall_us / 1e3,
+        "ticks": ticks, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "device_events": len(events),
         "ported_kernels_ms": {k: v / 1e3 for k, v in ours.items()},
         "traced_launches": {k: n for k, n in traced.items() if n},
         "derived_launches": dict(+(derived_launches(sch) - derived0)),
+        "captures_in_window": len(new_steps),
         "top_device_ms": [(name[:60], us / 1e3) for name, us in top],
     }
 
@@ -516,14 +545,62 @@ def _demap_inputs(dev):
             y, h, nv, ofdm.make_modem(modem))
 
 
+# the mesh paths' lane-folded launches: (grid, lanes of 8 slots, dB
+# between neighbouring lanes), each lane at its own noise variance
+DEMAP_LANES = ("siso-qam16-r12-snr15", 8, 0.5)
+SIC_LANES = ("mimo4x4-qam16-mu-snr18", 4, 3.0)
+
+
+def _lane_inputs(dev, name: str, lanes: int, step_db: float) -> tuple:
+    """(label, (y, h, noise_var, modem)): ``lanes`` lanes of 8 slots of
+    ``name``, lane i at ``step_db * i`` dB above it, folded into one
+    batch of 8 * lanes rows with ``lanes`` noise values."""
+    import torch
+
+    from repro_torch.phy import ofdm, scenarios
+
+    scn = scenarios.get_scenario(name)
+    ys, hs, nvs = [], [], []
+    for i in range(lanes):
+        slot = scn.replace(snr_db=scn.snr_db + step_db * i).make_batch(
+            ofdm.make_generator(20 + i, dev), 8)
+        ys.append(_grid_y(slot))
+        hs.append(slot["h"][:, 0])
+        nvs.append(slot["noise_var"])
+    nv = torch.stack(nvs)
+    check(len(set(nv.tolist())) == lanes, f"{name}: lanes share a noise "
+          "variance")
+    return (f"{name} {lanes} lanes x 8", (torch.cat(ys).contiguous(),
+                                          torch.cat(hs).contiguous(), nv,
+                                          scn.modem))
+
+
+def _check_lanes(kernel, label: str, args) -> None:
+    """Each lane's rows of a launch with one noise value a lane equal a
+    one-value launch on that lane's rows, bit for bit."""
+    import torch
+
+    y, h, nv, modem = args
+    got = kernel(*args)
+    rows = y.shape[0] // nv.numel()
+    for i in range(nv.numel()):
+        part = slice(i * rows, (i + 1) * rows)
+        one = kernel(y[part].contiguous(), h[part].contiguous(), nv[i],
+                     modem)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g[part], w) for g, w in zip(got, one)),
+              f"{label}: lane {i} differs from its one-value launch")
+
+
 def check_detect_demap(dev) -> list:
     import torch
 
     from repro_torch.kernels import rx_fused
 
     cases = []
-    for name, args in _demap_inputs(dev):
-        y, h, _, modem = args
+    for name, args in (*_demap_inputs(dev),
+                       _lane_inputs(dev, *DEMAP_LANES)):
+        y, h, nv, modem = args
         got = rx_fused.mmse_detect_demap(*args)
         want = rx_fused.mmse_detect_demap_torch(*args)
         torch.cuda.synchronize()
@@ -532,17 +609,22 @@ def check_detect_demap(dev) -> list:
         err = max(float((a - b_).abs().max()) for a, b_ in zip(got, want))
         check(exact, f"detect_demap[{name}] is not bit-exact to its twin "
               f"(max err {err})")
+        if nv.numel() > 1:
+            _check_lanes(rx_fused.mmse_detect_demap, name, args)
         b, n_sym, n_sc, n_rx = y.shape
         n_tx = h.shape[-1]
         nb = modem.bits_per_symbol // 2
         n_re = b * n_sym * n_sc
-        nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4
+        nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4 * nv.numel()
                   + n_re * n_tx * (8 + 4 + 4 * 2 * nb))
         bms, by = bound(nbytes, n_re * _detect_flops(n_rx, n_tx, nb, n_sym))
         run = lambda: rx_fused.mmse_detect_demap(*args)
         cases.append(dict(
-            shape=f"{name} B=8", max_abs_err=err, bit_exact=exact,
-            tolerance="bit-exact (x_hat, nv_eff and LLRs equal)",
+            shape=f"{name} B={b}",
+            max_abs_err=err, bit_exact=exact,
+            tolerance="bit-exact (x_hat, nv_eff and LLRs equal; each "
+            "lane also equal to its one-value launch)" if nv.numel() > 1
+            else "bit-exact (x_hat, nv_eff and LLRs equal)",
             ms=time_ms(run),
             device_us=device_us(run, KERNEL_SYMBOLS["mmse_detect_demap"]),
             host_us=host_us(run),
@@ -588,12 +670,15 @@ def check_sic(dev) -> list:
 
     cases = []
     inputs = dict(_demap_inputs(dev))
+    lanes, lane_args = _lane_inputs(dev, *SIC_LANES)
+    inputs[lanes] = lane_args
     mu = "mimo4x4-qam16-mu-snr18"
     # the MU grid also at a served batch of 2: the factor phase's fixed
-    # cost a block against few symbols' REs
+    # cost a block against few symbols' REs; then the mesh path's lanes
     for name in (mu, f"{mu} B=2", "mimo2x2-qam16-r12-snr17",
                  "mimo4x8-qam64-snr24", QAM1024, *(
-                     label for label in inputs if "no instance" in label)):
+                     label for label in inputs if "no instance" in label),
+                 lanes):
         if name not in inputs:  # the MU grid is SIC's alone
             grid, _, batch = name.partition(" B=")
             scn = scenarios.get_scenario(grid)
@@ -614,11 +699,14 @@ def check_sic(dev) -> list:
         err = max(float((a - b_).abs().max()) for a, b_ in zip(got, want))
         check(exact, f"sic[{name}] is not bit-exact to its twin (max err "
               f"{err})")
+        nv = args[2]
+        if nv.numel() > 1:
+            _check_lanes(rx_fused.sic_detect_demap, name, args)
         b, n_sym, n_sc, n_rx = y.shape
         n_tx = h.shape[-1]
         nb = modem.bits_per_symbol // 2
         n_re = b * n_sym * n_sc
-        nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4
+        nbytes = (8 * n_re * n_rx + 8 * h.numel() + 4 * nv.numel()
                   + n_re * n_tx * (8 + 4 + 4 * 2 * nb))
         bms, by = bound(nbytes, n_re * _sic_flops(n_rx, n_tx, nb, n_sym))
         run = lambda: rx_fused.sic_detect_demap(*args)
@@ -627,9 +715,13 @@ def check_sic(dev) -> list:
         symbol = KERNEL_SYMBOLS["sic_detect_demap" if n_tx > 1
                                 else "mmse_detect_demap"]
         cases.append(dict(
-            shape=f"{name.partition(' B=')[0]} B={b}", max_abs_err=err,
+            shape=f"{name.partition(' B=')[0]} B={b}"
+            + (f" ({nv.numel()} noise values)" if nv.numel() > 1 else ""),
+            max_abs_err=err,
             bit_exact=exact,
-            tolerance="bit-exact (decisions, x_hat, nv_eff and LLRs equal)",
+            tolerance="bit-exact (decisions, x_hat, nv_eff and LLRs equal"
+            + ("; each lane also equal to its one-value launch)"
+               if nv.numel() > 1 else ")"),
             ms=time_ms(run),
             device_us=device_us(run, symbol),
             host_us=host_us(run),
@@ -1273,23 +1365,31 @@ def drive(ladder: str, n_ticks: int, dev, receiver: str = "classical",
     return sch, rep, launches
 
 
+def captured_steps(sch) -> list:
+    """Every captured step a scheduler or engine serves through: a
+    single-cell scheduler's per-rung runners, or a mesh's (group, rung,
+    bucket) steps."""
+    if hasattr(sch, "runners"):
+        return [st for r in sch.runners for st in r._steps.values()]
+    return [st for g in sch.groups for st in g._execs.values()]
+
+
 def derived_launches(sch):
     """Each kernel's launches as the registry accounts them: every
     captured step's launches times its replays so far (a Counter)."""
     import collections
 
     want = collections.Counter()
-    for runner in sch.runners:
-        for st in runner._steps.values():
-            want.update({k: n * st.replays
-                         for k, n in st.launch_delta.items()})
+    for st in captured_steps(sch):
+        want.update({k: n * st.replays
+                     for k, n in st.launch_delta.items()})
     return want
 
 
 def check_replay_launches(sch, launches: dict) -> dict:
     """Every rung served by one captured graph, and (a cross-check of the
     bookkeeping, not evidence that a kernel ran: see
-    :func:`check_traced_launches`) the path's launch counts each step's
+    :func:`trace_replayed_ticks`) the path's launch counts each step's
     captured launches times its replays; returns the replays per rung."""
     replays = {}
     for scn, runner in zip(sch.rungs, sch.runners):
@@ -1303,24 +1403,36 @@ def check_replay_launches(sch, launches: dict) -> dict:
     return replays
 
 
-def trace_replayed_ticks(sch, label: str, needs: tuple) -> dict:
+def trace_replayed_ticks(sch, label: str, needs: tuple,
+                         run=None, prepare=None) -> dict:
     """The measured evidence that a path's replayed graphs ran its
-    kernels: :func:`profile_ticks` over 10 steady ticks, taken again (up
-    to :data:`TRACE_TRIES` times) while a kernel of ``needs`` is missing
-    from the trace.  Fails unless the window replayed graphs, each kernel
-    of ``needs`` appears in the trace at least once and at most as often
-    as the replays in the window account for (a launch outside a graph
-    would exceed that), and no kernel of :data:`FORBIDDEN` appears."""
+    kernels: :func:`profile_window` over ``run`` (default: 10 steady
+    ticks of ``sch``), after ``prepare`` (an engine's new traffic) each
+    time, taken again (up to :data:`TRACE_TRIES` times) while a kernel of
+    ``needs`` is missing from the trace.  Fails unless the window
+    captured no step and replayed graphs, each kernel of ``needs``
+    appears in the trace at least once and at most as often as the
+    replays in the window account for (a launch outside a graph would
+    exceed that), and no kernel of :data:`FORBIDDEN` appears."""
+    ticks = 10 if run is None else None
+    if run is None:
+        run = lambda: [sch.tick() for _ in range(ticks)]  # noqa: E731
     for _ in range(TRACE_TRIES):
-        prof = profile_ticks(sch, 10)
-        traced, derived = prof["traced_launches"], prof["derived_launches"]
+        if prepare is not None:
+            prepare()
+        prof = profile_window(sch, run, ticks)
+        traced = prof["traced_launches"]
+        derived = prof["derived_launches"]
         if all(traced.get(k, 0) for k in needs):
             break
-    check(bool(derived), f"{label}: the traced ticks replayed no graph")
+    check(prof["captures_in_window"] == 0,
+          f"{label}: {prof['captures_in_window']} steps captured in the "
+          "traced window")
+    check(bool(derived), f"{label}: the traced window replayed no graph")
     for k in needs:
         check(0 < traced.get(k, 0) <= derived.get(k, 0),
               f"{label}: {KERNEL_SYMBOLS[k]} traced {traced.get(k, 0)} "
-              f"times in replayed ticks that account for "
+              f"times in a window whose replays account for "
               f"{derived.get(k, 0)}")
     for k in FORBIDDEN.get(label, ()):
         check(traced.get(k, 0) == 0,
@@ -1542,6 +1654,209 @@ def sic_vs_lmmse(sch, dev) -> dict:
     torch.cuda.synchronize()
     return {"sic_crc_pass": float(sic["crc_ok"].float().mean()),
             "lmmse_crc_pass": float(joint["crc_ok"].float().mean())}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: multi-cell serving, lanes folded into the kernels' batch axis
+# ---------------------------------------------------------------------------
+
+def _mesh_specs_siso() -> list:
+    """An urban cluster pooling 8 co-sited cells, two of them hot."""
+    from repro_torch.serve import closed_cell
+
+    return [closed_cell(f"cell{i}", "siso-coded", n_users=8,
+                        arrival_rate=3.0 if i < 2 else 0.8,
+                        snr_db=8.0 + 0.5 * i, fused=True)
+            for i in range(8)]
+
+
+def _mesh_specs_mu() -> list:
+    """Four MU-MIMO cells coupled as co-channel neighbours, each at its own
+    transmit power, so each lane has its own noise variance."""
+    from repro_torch.serve import closed_cell
+
+    return [closed_cell(f"cell{i}", "mimo4x4-qam16-mu-snr18", n_users=4,
+                        arrival_rate=0.8, tx_power_db=-3.0 * i,
+                        coupling_db=-25.0, fused=True, sic=True)
+            for i in range(4)]
+
+
+# each mesh path: (label, cells, scheduler arguments, TTIs, the kernels it
+# runs); the first must hand users over
+MESH_PATHS = (
+    ("mesh siso-coded classical 8 cells", _mesh_specs_siso,
+     dict(batch_size=8, max_batches_per_tick=1, deadline_ttis=4,
+          max_retx=2, seed=0), 20,
+     ("ls_che", "mmse_detect_demap", "ldpc_decode")),
+    ("mesh MU SIC coupled 4 cells", _mesh_specs_mu,
+     dict(batch_size=8, max_retx=2, seed=0), 10,
+     ("ls_che", "sic_detect_demap", "ldpc_decode")),
+)
+MESH_HANDOVER = "mesh siso-coded classical 8 cells"
+MESH_OPEN = "mesh open loop 4 cells (CellMeshEngine)"
+MESH_OPEN_NEEDS = ("ls_che", "mmse_detect_demap")
+
+
+def drive_mesh(specs: list, kw: dict, n_ticks: int, dev) -> tuple:
+    """One mesh closed loop served through its own registry (every (group,
+    rung, lane bucket) step a tick can emit captured before the first
+    TTI, and none after), with the launch counts zeroed just before it
+    and read just after; returns (scheduler, report, launches)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ExecRegistry, MeshSlotScheduler
+
+    sch = MeshSlotScheduler(specs, prebuild=True, registry=ExecRegistry(),
+                            device=dev, **kw)
+    prebuilt = len(captured_steps(sch))
+    check(prebuilt == sum(len(g.rungs) * len(sch._capture_buckets(g))
+                          for g in sch.groups),
+          f"{prebuilt} steps prebuilt")
+    _build.reset_launches()
+    rep = sch.run(n_ticks)
+    check(len(captured_steps(sch)) == prebuilt,
+          f"{len(captured_steps(sch)) - prebuilt} steps captured in the run")
+    return sch, rep, dict(_build.launches)
+
+
+def check_mesh_run(sch, rep, launches: dict, label: str,
+                   needs: tuple) -> dict:
+    """Jobs conserved exactly, one capture per (group, rung, bucket) step
+    acquired, launches equal to captures x replays, each kernel of the
+    path launched; returns the path's counts."""
+    ids = sorted(sch.finalized_job_ids() + sch.queued_job_ids())
+    check(ids == list(range(sch.jobs_submitted)),
+          f"{label}: job conservation broken")
+    check(rep.n_arrivals == sch.jobs_submitted, f"{label}: arrivals")
+    for f in ("first_tx_bler", "residual_bler", "mean_harq_rounds",
+              "goodput_bits_per_tti", "energy_uj_per_slot"):
+        v = getattr(rep, f)
+        check(v is not None and math.isfinite(v), f"{label}: {f}={v}")
+    steps = captured_steps(sch)
+    check(rep.executables_compiled == len(steps) == len(sch.registry)
+          and rep.cache_hits == 0
+          and all(st.graph is not None for st in steps),
+          f"{label}: {rep.executables_compiled} captures for "
+          f"{len(steps)} steps acquired")
+    want = derived_launches(sch)
+    check(dict(+want) == {k: n for k, n in launches.items() if n},
+          f"{label}: launches {launches} != captures x replays "
+          f"{dict(want)}")
+    for k in needs:
+        check(launches.get(k, 0) > 0, f"{k} never launched on {label}")
+    return {"captures": len(steps), "steps": rep.n_steps,
+            "ticks": rep.n_ticks, "replays_per_tick":
+            rep.n_steps / rep.n_ticks, "filler_lanes": rep.n_filler_lanes,
+            "handovers": rep.handovers, "jobs_shed": rep.jobs_shed,
+            "steady_tick_ms": rep.steady_tick_s * 1e3,
+            "first_tick_ms": rep.first_tick_s * 1e3}
+
+
+def check_mesh_lanes(sch, label: str, max_ticks: int = 10) -> dict:
+    """One served mesh bucket of at least two real lanes, recorded as the
+    scheduler served it, against the single-cell registry step of the same
+    rung on each real lane's slots: CRC flags, payload bits, iteration
+    counts and LLRs bit for bit, h_hat at rtol 1e-4."""
+    import torch
+
+    from repro_torch.serve.exec_registry import slot_schema
+    from repro_torch.serve.runtime import BATCHED_KEYS
+
+    orig, rec = sch._dispatch, {}
+
+    def record(gi, mcs, lanes, staged, stats, prefetch=None):
+        first = not rec and len(lanes) >= 2
+        inputs = ({k: v.clone() for k, v in staged.items()}
+                  if first else None)
+        nxt = orig(gi, mcs, lanes, staged, stats, prefetch)
+        if first:
+            key = (mcs, sch._bucket(len(lanes)), slot_schema(staged))
+            out = sch.groups[gi]._execs[key].out
+            rec.update(gi=gi, mcs=mcs, n=len(lanes), inputs=inputs,
+                       out={k: v.clone() for k, v in out.items()
+                            if isinstance(v, torch.Tensor)})
+        return nxt
+
+    sch._dispatch = record
+    try:
+        for _ in range(max_ticks):
+            sch.tick()
+            if rec:
+                break
+    finally:
+        del sch._dispatch
+    check(bool(rec), f"{label}: no bucket of two real lanes in "
+          f"{max_ticks} ticks")
+    g = sch.groups[rec["gi"]]
+    nv = rec["inputs"]["noise_var"][: rec["n"]]
+    check(len(set(nv.tolist())) > 1, f"{label}: the recorded lanes share "
+          "one noise variance")
+    worst = 0.0
+    for lane in range(rec["n"]):
+        batch = {k: (v[lane] if k in BATCHED_KEYS or k == "noise_var"
+                     else v) for k, v in rec["inputs"].items()}
+        one = sch.registry.acquire_pipeline_step(
+            g.pipelines[rec["mcs"]], batch, batch=sch.batch_size)
+        want = one(batch)
+        torch.cuda.synchronize()
+        for k in ("crc_ok", "info_bits_hat", "decode_iters", "llr"):
+            check(torch.equal(rec["out"][k][lane], want[k]),
+                  f"{label}: lane {lane} {k} differs from the single-cell "
+                  "step on its slots")
+        got_h, want_h = rec["out"]["h_hat"][lane], want["h_hat"]
+        check(torch.allclose(got_h, want_h, rtol=1e-4, atol=1e-6),
+              f"{label}: lane {lane} h_hat beyond rtol 1e-4")
+        worst = max(worst, float((got_h - want_h).abs().max()))
+    return {"lanes_compared": rec["n"], "rung": g.rungs[rec["mcs"]].name,
+            "noise_var": nv.tolist(), "h_hat_max_abs_err": worst}
+
+
+# the fleet of examples/phy_multicell_serve.py (paired scenarios: 2-lane
+# shape groups) and its uneven traffic, downtown-a the hot cell
+MESH_FLEET = (("downtown-a", "siso-qam16-snr12"),
+              ("downtown-b", "siso-qam16-snr12"),
+              ("stadium-a", "mimo2x2-qam16-snr16"),
+              ("stadium-b", "mimo2x2-qam16-snr16"))
+MESH_TRAFFIC = {"downtown-a": 16, "downtown-b": 4, "stadium-a": 4,
+                "stadium-b": 4}
+
+
+def drive_mesh_open(dev) -> tuple:
+    """The open-loop engine over the four-cell fleet with the fused
+    kernels: every slot served, launches equal to captures x replays, each
+    kernel of the path launched; then the same traffic from other seeds
+    under a CUPTI trace (:func:`trace_replayed_ticks`); returns (report,
+    launches, summary, trace)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import CellMeshEngine, ExecRegistry, cell
+
+    eng = CellMeshEngine([cell(n, scn, fused=True) for n, scn in MESH_FLEET],
+                         batch_size=4, registry=ExecRegistry(), device=dev)
+    reqs = eng.submit_traffic(0, MESH_TRAFFIC)
+    _build.reset_launches()
+    rep = eng.run()
+    launches = dict(_build.launches)
+    check(rep.n_slots == sum(MESH_TRAFFIC.values())
+          and all(r.done for rs in reqs.values() for r in rs),
+          f"{MESH_OPEN}: {rep.n_slots} slots served")
+    check(all(r.ber is not None and math.isfinite(r.ber)
+              for r in rep.cells.values()), f"{MESH_OPEN}: a cell's BER")
+    steps = captured_steps(eng)
+    check(rep.executables_compiled == len(steps) == len(eng.groups),
+          f"{MESH_OPEN}: {rep.executables_compiled} captures")
+    want = derived_launches(eng)
+    check(dict(+want) == {k: n for k, n in launches.items() if n},
+          f"{MESH_OPEN}: launches {launches} != captures x replays")
+    for k in MESH_OPEN_NEEDS:
+        check(launches.get(k, 0) > 0, f"{k} never launched on {MESH_OPEN}")
+    summary = {
+        "steps": rep.n_steps, "stolen_lanes": rep.n_stolen,
+        "padded": rep.n_padded, "steady_step_ms": rep.steady_tick_s * 1e3,
+        "ber": rep.ber}
+    seeds = iter(range(1, TRACE_TRIES + 1))
+    prof = trace_replayed_ticks(
+        eng, MESH_OPEN, MESH_OPEN_NEEDS, run=eng.run,
+        prepare=lambda: eng.submit_traffic(next(seeds), MESH_TRAFFIC))
+    return rep, launches, summary, prof
 
 
 # ---------------------------------------------------------------------------
@@ -1780,6 +2095,32 @@ def main() -> int:
             print(f"host split {label} (not gated): "
                   f"{json.dumps(host_split(sch, dev))}", flush=True)
 
+    for label, specs, kw, n_ticks, needs in MESH_PATHS:
+        sch, rep, launches = drive_mesh(specs(), kw, n_ticks, dev)
+        by_path[label] = launches
+        counts = check_mesh_run(sch, rep, launches, label, needs)
+        if label == MESH_HANDOVER:
+            check(rep.handovers > 0, f"{label}: no user was handed over")
+        print(f"path {label}: launches {launches}; {json.dumps(counts)}",
+              flush=True)
+        print(rep.summary(), flush=True)
+        prof = trace_replayed_ticks(sch, label, needs)
+        traced_by_path[label] = prof["traced_launches"]
+        print(f"profiled {label} ticks: {json.dumps(prof)}", flush=True)
+        print(f"path {label}: steady tick {counts['steady_tick_ms']:.3f} "
+              f"ms, replays per tick {counts['replays_per_tick']:.3f}, "
+              f"device idle share {prof['device_idle_share']:.4f}",
+              flush=True)
+        print(f"served {label} bucket, lane by lane vs single-cell steps: "
+              f"{json.dumps(check_mesh_lanes(sch, label))}", flush=True)
+    rep, launches, summary, prof = drive_mesh_open(dev)
+    by_path[MESH_OPEN] = launches
+    traced_by_path[MESH_OPEN] = prof["traced_launches"]
+    print(f"path {MESH_OPEN}: launches {launches}; {json.dumps(summary)}",
+          flush=True)
+    print(rep.summary(), flush=True)
+    print(f"profiled {MESH_OPEN} run: {json.dumps(prof)}", flush=True)
+
     ops_in = _blocks_operands(dev)
     plans, quantized, launches = drive_blocks(dev, ops_in)
     by_path[BLOCKS] = launches
@@ -1793,6 +2134,8 @@ def main() -> int:
         print(f"fig10 (not gated): {json.dumps(row)}", flush=True)
 
     needs_by_path = {label: needs for label, *_, needs in PATHS}
+    needs_by_path.update({label: needs for label, *_, needs in MESH_PATHS})
+    needs_by_path[MESH_OPEN] = MESH_OPEN_NEEDS
     needs_by_path[BLOCKS] = BLOCKS_NEEDS
     kernels = []
     for name, cases in results.items():
@@ -1809,7 +2152,8 @@ def main() -> int:
                               for label, n in by_path.items()},
             launches_counted_as={
                 label: ("captured launches x graph replays"
-                        if label in traced_by_path else "wrapper calls")
+                        if label in traced_by_path
+                        else "wrapper calls")
                 for label in by_path},
             traced_launches_by_path={
                 label: n.get(name, 0)

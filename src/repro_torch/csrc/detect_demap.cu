@@ -88,6 +88,12 @@
 // sum rounds where the plain PyTorch twin's does.  noise_var is read
 // through a device pointer (no host read on the hot path), and x_hat,
 // nv_eff and the LLRs are written in the port's final layouts.
+//
+// Lanes: a multi-cell step folds L cells' batches into the batch axis, L
+// contiguous blocks of B / L rows, each cell with its own noise variance.
+// nv points at n_nv floats, n_nv = 1 or L dividing B, and batch row b
+// reads nv[b / (B / n_nv)].  One value is loaded at once, with no index
+// arithmetic in front of the load (lane_noise), as before lanes existed.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -123,7 +129,7 @@ __device__ __forceinline__ cf cmul(float ar, float ai, float br, float bi) {
 struct DemapArgs {
   const float2* y;      // (B, n_sym, n_sc, n_rx)
   const float2* h;      // (B, n_sc, n_rx, n_tx)
-  const float* nv;      // one device float
+  const float* nv;      // n_nv device floats, one per lane
   const float* levels;  // (2^nb,) in the modem's order
   float norm, scale;
   float2* x_hat;        // (B, n_sym, n_sc, n_tx)
@@ -131,6 +137,7 @@ struct DemapArgs {
   float* llr;           // (B, n_sym, n_sc, n_tx, 2 nb)
   float* ws;            // runtime-sized routes' workspace, else null
   int batch, n_sym, n_sc, n_rx, n_tx, nb;
+  int lane_rows;        // batch rows per noise value (batch: one value)
 };
 
 // ---- shared pieces -------------------------------------------------------
@@ -590,6 +597,14 @@ __host__ __device__ __forceinline__ long long route_floats(bool sic, int nr,
              : (long long)SCT * factor_floats(nr, nt) + THREADS * 2 * nt;
 }
 
+// The noise variance of batch row b: nv[0] is loaded before any index
+// arithmetic, a lane's value only when there are several
+__device__ __forceinline__ float lane_noise(const DemapArgs& a, int b) {
+  float nv = a.nv[0];
+  if (a.lane_rows != a.batch) nv = a.nv[b / a.lane_rows];
+  return nv;
+}
+
 // A block's tile: batch row b, subcarriers [sc0, sc0 + nsc), every
 // symbol; its (b, sym) rows start at row0
 struct Tile {
@@ -672,7 +687,7 @@ __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   // the first chunk's y loads are in flight while the factors are formed
   float2 y_r[RT ? 1 : NR];
   if constexpr (!RT) load_y(a, tl, 0, y_r);
-  const float nv = *a.nv;
+  const float nv = lane_noise(a, tl.b);
   const Levels<NB> lv = load_levels<NB>(a, false);
   const float2* hb = a.h + ((size_t)tl.b * a.n_sc + tl.sc0) * nr * m;
 
@@ -758,7 +773,7 @@ __global__ void __launch_bounds__(THREADS) sic_demap_kernel(DemapArgs a) {
   // the first chunk's y loads are in flight while the factors are formed
   float2 y_r[RT ? 1 : NR];
   if constexpr (!RT) load_y(a, tl, 0, y_r);
-  const float nv = *a.nv;
+  const float nv = lane_noise(a, tl.b);
   const Levels<NB> lv = load_levels<NB>(a, true);
   const float2* hb = a.h + ((size_t)tl.b * a.n_sc + tl.sc0) * nr * m;
   // the tile: H and its Gram, element e of subcarrier scl at
@@ -914,21 +929,21 @@ long long workspace_floats(bool sic, int batch, int n_sym, int n_sc,
 }
 
 template <bool SIC>
-int dispatch(const void* y, const void* h, const float* nv,
+int dispatch(const void* y, const void* h, const float* nv, int n_nv,
              const float* levels, float norm, float scale, void* x_hat,
              float* nv_eff, float* llr, float* ws, int batch, int n_sym,
              int n_sc, int n_rx, int n_tx, int nb, void* stream) {
   if (batch <= 0 || n_sym <= 0 || n_sc <= 0 || n_rx <= 0 || n_tx <= 0 ||
-      nb < 1 || nb > kMaxNb)
+      nb < 1 || nb > kMaxNb || n_nv < 1 || batch % n_nv != 0)
     return (int)cudaErrorInvalidValue;
   // one stream leaves nothing to cancel: SIC's only stage is the joint
   // problem, the same operations on the same operands, and its kernel
   // does it in fewer phases
   if constexpr (SIC) {
     if (n_tx == 1)
-      return dispatch<false>(y, h, nv, levels, norm, scale, x_hat, nv_eff,
-                             llr, ws, batch, n_sym, n_sc, n_rx, n_tx, nb,
-                             stream);
+      return dispatch<false>(y, h, nv, n_nv, levels, norm, scale, x_hat,
+                             nv_eff, llr, ws, batch, n_sym, n_sc, n_rx, n_tx,
+                             nb, stream);
   }
   const long long n_re = (long long)batch * n_sym * n_sc;
   if (n_re * n_tx * 2 * nb > 0x7fffffffLL ||
@@ -950,7 +965,8 @@ int dispatch(const void* y, const void* h, const float* nv,
                     n_sc,
                     n_rx,
                     n_tx,
-                    nb};
+                    nb,
+                    batch / n_nv};
   cudaStream_t s = (cudaStream_t)stream;
   if (nb > kMaxCompiledNb) return launch<SIC, 0, 0, 0>(a, s);
   if constexpr (!SIC) {
@@ -974,7 +990,8 @@ extern "C" long long detect_demap_workspace(int sic, int batch, int n_sym,
 }
 
 // y (B, n_sym, n_sc, n_rx) complex64; h (B, n_sc, n_rx, n_tx) complex64;
-// nv a device float; levels (2^nb,) float in the modem's order; outputs
+// nv n_nv device floats (1, or one per lane of B / n_nv rows); levels
+// (2^nb,) float in the modem's order; outputs
 // x_hat (B, n_sym, n_sc, n_tx) complex64, nv_eff (B, n_sym, n_sc, n_tx)
 // float, llr (B, n_sym, n_sc, n_tx, 2*nb) float, per original stream; ws
 // the workspace (detect_demap_workspace floats, or null where that is 0).
@@ -982,20 +999,23 @@ extern "C" long long detect_demap_workspace(int sic, int batch, int n_sym,
 // shapes, wider modems at runtime sizes).  Each returns the launch's
 // cudaError_t.
 extern "C" int detect_demap_launch(const void* y, const void* h,
-                                   const float* nv, const float* levels,
-                                   float norm, float scale, void* x_hat,
-                                   float* nv_eff, float* llr, float* ws,
-                                   int batch, int n_sym, int n_sc, int n_rx,
-                                   int n_tx, int nb, void* stream) {
-  return dispatch<false>(y, h, nv, levels, norm, scale, x_hat, nv_eff, llr,
-                         ws, batch, n_sym, n_sc, n_rx, n_tx, nb, stream);
+                                   const float* nv, int n_nv,
+                                   const float* levels, float norm,
+                                   float scale, void* x_hat, float* nv_eff,
+                                   float* llr, float* ws, int batch,
+                                   int n_sym, int n_sc, int n_rx, int n_tx,
+                                   int nb, void* stream) {
+  return dispatch<false>(y, h, nv, n_nv, levels, norm, scale, x_hat, nv_eff,
+                         llr, ws, batch, n_sym, n_sc, n_rx, n_tx, nb,
+                         stream);
 }
 
 extern "C" int sic_demap_launch(const void* y, const void* h, const float* nv,
-                                const float* levels, float norm, float scale,
-                                void* x_hat, float* nv_eff, float* llr,
-                                float* ws, int batch, int n_sym, int n_sc,
-                                int n_rx, int n_tx, int nb, void* stream) {
-  return dispatch<true>(y, h, nv, levels, norm, scale, x_hat, nv_eff, llr,
-                        ws, batch, n_sym, n_sc, n_rx, n_tx, nb, stream);
+                                int n_nv, const float* levels, float norm,
+                                float scale, void* x_hat, float* nv_eff,
+                                float* llr, float* ws, int batch, int n_sym,
+                                int n_sc, int n_rx, int n_tx, int nb,
+                                void* stream) {
+  return dispatch<true>(y, h, nv, n_nv, levels, norm, scale, x_hat, nv_eff,
+                        llr, ws, batch, n_sym, n_sc, n_rx, n_tx, nb, stream);
 }

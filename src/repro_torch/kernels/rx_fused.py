@@ -24,6 +24,10 @@ in the same order) only because the tensor it was given lies on the CPU;
 on a CUDA tensor it launches the hand-written kernel or raises.
 ``precision="int8"|"fp8"`` rounds the LLRs onto the fixed int8 grid of
 :mod:`repro_torch.kernels.quant` after the kernel, as the reference does.
+
+``noise_var`` is one value, or one per lane of a multi-cell step
+(:func:`noise_var_rows`): the batch's B rows are L contiguous lane blocks
+of B / L rows, and row ``b`` reads value ``b // (B // L)``.
 """
 from __future__ import annotations
 
@@ -35,6 +39,21 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, quant
+
+
+def noise_var_rows(noise_var, rows: int) -> torch.Tensor:
+    """``noise_var`` as the batch's rows read it: one value as a 0-d
+    tensor (every row reads it, the single-cell computation unchanged), or
+    L values, one per lane, each repeated over its lane's ``rows // L``
+    contiguous rows, as a (rows,) tensor."""
+    nv = torch.as_tensor(noise_var)
+    n = nv.numel()
+    if n == 1:
+        return nv.reshape(())
+    if n == 0 or rows % n:
+        raise ValueError(f"{n} noise values for {rows} rows: 1 value, or "
+                         "one per lane of an equal share of the rows")
+    return nv.reshape(-1).repeat_interleave(rows // n)
 
 
 def _cmul(ar, ai, br, bi):
@@ -196,8 +215,11 @@ def _demap_torch(core, y, h, noise_var, modem):
           for r in range(n_rx)]
     hi = [[f32(h[:, None, :, r, t].imag) for t in range(n_tx)]
           for r in range(n_rx)]
+    nv = noise_var_rows(noise_var, y.shape[0])
+    if nv.ndim:  # a value per batch row, broadcast over (n_sym, n_sc)
+        nv = nv[:, None, None]
     xr, xi, nve, llr = core(
-        yr, yi, hr, hi, noise_var, modem.levels, modem.norm, nb
+        yr, yi, hr, hi, nv, modem.levels, modem.norm, nb
     )
     shape = y.shape[:-1]
     x_hat = torch.stack(
@@ -216,7 +238,8 @@ def mmse_detect_demap_torch(y, h, noise_var, modem):
     """Plain PyTorch twin of the fused detect+demap kernel.
 
     y (B, n_sym, n_sc, n_rx) complex, h (B, n_sc, n_rx, n_tx) complex (flat
-    in time), noise_var 0-d -> (x_hat (B, n_sym, n_sc, n_tx) complex64,
+    in time), noise_var one value or one per lane (module doc) ->
+    (x_hat (B, n_sym, n_sc, n_tx) complex64,
     nv_eff (B, n_sym, n_sc, n_tx), llr (B, n_sym, n_sc, n_tx, 2*nb)).
     """
     return _demap_torch(_detect_demap_core, y, h, noise_var, modem)
@@ -240,7 +263,8 @@ def _levels_on(levels: tuple, device: torch.device) -> torch.Tensor:
 def _demap_lib(entry: str):
     fn = getattr(_build.library("detect_demap"), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + \
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+            [ctypes.c_void_p] + [ctypes.c_float] * 2 + \
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -263,7 +287,8 @@ def _workspace_floats(sic: bool, b: int, n_sym: int, n_sc: int, n_rx: int,
 def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
     """Launch ``entry`` of ``csrc/detect_demap.cu`` at any (n_rx, n_tx)
     and 1..14 bits per axis (the source's ``kMaxNb``: its 2^nb levels sit
-    in a block's shared memory), with the workspace the source asks for."""
+    in a block's shared memory), with the workspace the source asks for.
+    ``noise_var`` holds 1 value or one per lane, a divisor of B."""
     b, n_sym, n_sc, n_rx = y.shape
     n_tx = h.shape[-1]
     nb = modem.bits_per_symbol // 2
@@ -272,11 +297,14 @@ def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
                          f"for {nb} bits per axis (1..14 taken)")
     if tuple(h.shape) != (b, n_sc, n_rx, n_tx):
         raise ValueError(f"h {tuple(h.shape)} != {(b, n_sc, n_rx, n_tx)}")
-    if noise_var.numel() != 1:
-        raise ValueError("noise_var must hold one value")
+    nv = noise_var.reshape(-1)  # the kernel reads n_nv floats at nv
+    n_nv = nv.numel()
+    if n_nv < 1 or b % n_nv:
+        raise ValueError(f"noise_var holds {n_nv} values for a batch of "
+                         f"{b}: 1 value, or one per lane (a divisor of B)")
     _build.require_cuda("detect_demap", y=(y, torch.complex64),
                         h=(h, torch.complex64),
-                        noise_var=(noise_var, torch.float32))
+                        noise_var=(nv, torch.float32))
     lv = _levels_on(tuple(float(v) for v in modem.levels), y.device)
     x_hat = torch.empty((b, n_sym, n_sc, n_tx), dtype=torch.complex64,
                         device=y.device)
@@ -289,7 +317,8 @@ def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
     ws = (torch.empty(n_ws, dtype=torch.float32, device=y.device)
           if n_ws else None)
     err = _demap_lib(entry)(
-        y.data_ptr(), h.data_ptr(), noise_var.data_ptr(), lv.data_ptr(),
+        y.data_ptr(), h.data_ptr(), nv.data_ptr(), n_nv,
+        lv.data_ptr(),
         float(modem.norm), float(np.sqrt(modem.norm)), x_hat.data_ptr(),
         nv_eff.data_ptr(), llr.data_ptr(),
         None if ws is None else ws.data_ptr(), b, n_sym, n_sc, n_rx, n_tx,

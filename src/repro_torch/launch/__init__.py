@@ -1,0 +1,3 @@
+"""Launch helpers of the port: the PHY cell-serving mesh
+(:mod:`repro_torch.launch.mesh`)."""
+from repro_torch.launch.mesh import CellMesh, local_devices, make_cell_mesh

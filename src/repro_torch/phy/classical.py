@@ -7,6 +7,10 @@ The Wiener smoother's (n_sc x n_sc) solve, the FFT and the small batched
 MMSE solves of the unfused detector stay library calls, as the reference
 leaves them to XLA outside any Pallas kernel.  Solves go through
 ``torch.linalg.solve_ex`` so they never block the host on an error check.
+
+``noise_var`` is one value or one per lane of a multi-cell step
+(:func:`repro_torch.kernels.rx_fused.noise_var_rows`): L contiguous lane
+blocks of the batch rows, each read with its own lane's value.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.rx_fused import noise_var_rows
 
 
 def cfft_auto(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -31,15 +37,25 @@ def mmse_channel_estimate(
     corr_len: float = 16.0,
 ) -> torch.Tensor:
     """Wiener smoothing of the LS estimate with an exponential frequency
-    correlation model: H_mmse = R (R + sigma^2 I)^-1 H_ls."""
+    correlation model: H_mmse = R (R + sigma^2 I)^-1 H_ls.
+
+    With L noise values there is one (n_sc, n_sc) operator per lane, and
+    lane l's operator smooths its B / L rows.  Each lane's solve and
+    product are the one-value computation at that lane's shapes, so a
+    lane's rows come out as a step of its own would give them."""
     n_sc = h_ls.shape[-1]
     ar = torch.arange(n_sc, device=h_ls.device)
     d = torch.abs(ar[:, None] - ar[None, :])
     r = torch.exp(-d / corr_len).to(torch.complex64)
-    a = r + noise_var * torch.eye(n_sc, dtype=torch.complex64,
-                                  device=h_ls.device)
-    w = _solve(a, r)  # (n_sc, n_sc), applied as sum_k w[s, k] h[b, k]
-    return torch.einsum("sk,bk->bs", w, h_ls)
+    eye = torch.eye(n_sc, dtype=torch.complex64, device=h_ls.device)
+    nv = torch.as_tensor(noise_var).reshape(-1)
+    if h_ls.shape[0] % nv.numel():
+        raise ValueError(f"{nv.numel()} noise values for {h_ls.shape[0]} "
+                         "rows: 1 value, or one per lane of an equal share")
+    # w (n_sc, n_sc) per lane, applied as sum_k w[s, k] h[b, k]
+    out = [torch.einsum("sk,bk->bs", _solve(r + v * eye, r), h_l)
+           for v, h_l in zip(nv, h_ls.reshape(nv.numel(), -1, n_sc))]
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def _regularized_gram_rhs(y, h, noise_var):
@@ -48,7 +64,10 @@ def _regularized_gram_rhs(y, h, noise_var):
     n_tx = h.shape[-1]
     hh = torch.conj(torch.swapaxes(h, -1, -2))  # (B, n_sc, n_tx, n_rx)
     gram = torch.einsum("bstr,bsru->bstu", hh, h)
-    a = gram + noise_var * torch.eye(n_tx, dtype=h.dtype, device=h.device)
+    nv = noise_var_rows(noise_var, h.shape[0])
+    if nv.ndim:  # a value per row
+        nv = nv[:, None, None, None]
+    a = gram + nv * torch.eye(n_tx, dtype=h.dtype, device=h.device)
     rhs = torch.einsum("bstr,bsr->bst", hh, y)
     return gram, a, rhs
 

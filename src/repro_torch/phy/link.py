@@ -10,6 +10,10 @@ slot dict through eager PyTorch (no CUDA graphs yet).  Each stage names the
 TensorPool engine that does its work and carries the reference's cycle
 estimator, so TTI and energy reports are the reference's numbers.
 
+A slot's ``noise_var`` holds one value, or one per lane of a multi-cell
+step whose lanes are folded into the batch axis (every stage that reads
+it reads row ``b``'s lane value: ``rx_fused.noise_var_rows``).
+
 Pipelines hold their static operators (interpolation operator, pilot
 sequence and masks, data-RE indices) and the neural receivers' weights on
 the device they were built for; ``device=None`` means CUDA.
@@ -473,8 +477,8 @@ def deeprx_stage(cfg: ofdm.GridConfig, modem: ofdm.Modem, params,
         h_ls = state["h_ls"].reshape(b, 1, n_sc, -1).expand(
             b, n_sym, n_sc, -1)  # (n_rx, n_tx) flattened, n_tx fastest
         pm = pm_plane.expand(b, n_sym, n_sc, 1)
-        nv = state["noise_var"].to(torch.float32).reshape(1, 1, 1, 1).expand(
-            b, n_sym, n_sc, 1)
+        nv = rx_fused.noise_var_rows(state["noise_var"], b).to(
+            torch.float32).reshape(-1, 1, 1, 1).expand(b, n_sym, n_sc, 1)
         feats = torch.cat(
             [y.real, y.imag, h_ls.real, h_ls.imag, pm, nv], dim=-1,
         ).to(torch.float32)
@@ -515,8 +519,8 @@ def cevit_che_stage(cfg: ofdm.GridConfig, params, mcfg: models.CEViTConfig,
         b, n_sc, n_rx, n_tx = h_ls.shape
         pairs = torch.movedim(h_ls, 1, -1).reshape(b * n_rx * n_tx, n_sc)
         flags = pair_flags.repeat(b, 1)  # (B*n_rx*n_tx, n_sc)
-        nv = state["noise_var"].to(torch.float32).reshape(1, 1).expand(
-            pairs.shape)
+        nv = rx_fused.noise_var_rows(state["noise_var"], pairs.shape[0]).to(
+            torch.float32).reshape(-1, 1).expand(pairs.shape)
         feats = torch.stack([pairs.real, pairs.imag, flags, nv], dim=-1)
         h_hat = models.cevit_apply(params, mcfg, feats)
         state["h_hat"] = torch.movedim(h_hat.reshape(b, n_rx, n_tx, n_sc),

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.common.params import Param, init_params, params_from_numpy
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.mha import mha
+from repro_torch.kernels.rx_fused import noise_var_rows
 from repro_torch.kernels.te_gemm import te_gemm
 
 
@@ -197,11 +198,13 @@ def cevit_apply(params, cfg: CEViTConfig, feats: torch.Tensor
 
 def cevit_features(h_ls: torch.Tensor, pilot_sc: torch.Tensor,
                    noise_var) -> torch.Tensor:
-    """(B, n_sc) LS estimate -> (B, n_sc, 4) input features."""
+    """(B, n_sc) LS estimate -> (B, n_sc, 4) input features; ``noise_var``
+    one value or one per lane of rows (``rx_fused.noise_var_rows``)."""
     b, n_sc = h_ls.shape
     pm = pilot_sc[None].expand(b, n_sc).to(torch.float32)
-    nv = torch.as_tensor(noise_var, dtype=torch.float32,
-                         device=h_ls.device).expand(b, n_sc)
+    nv = noise_var_rows(torch.as_tensor(noise_var, dtype=torch.float32,
+                                        device=h_ls.device), b)
+    nv = nv.reshape(-1, 1).expand(b, n_sc)
     return torch.stack([h_ls.real, h_ls.imag, pm, nv], dim=-1).to(
         torch.float32)
 

@@ -161,6 +161,47 @@ def ladder_names() -> list:
     return sorted(_LADDERS)
 
 
+@dataclasses.dataclass(frozen=True)
+class ExecSpec:
+    """One captured step a serving frontend needs: pure data, enumerable
+    before any pipeline is built or captured (the reference's, field for
+    field).  ``lanes == 0`` names a single-cell step, ``lanes > 0`` a mesh
+    step over that lane bucket; ``harq`` selects the closed-loop slot
+    schema (``rv`` + ``prior_llr`` riding along) over the open-loop one."""
+    scenario: str
+    receiver: str = "classical"
+    options: tuple = ()
+    batch: int = 4
+    lanes: int = 0
+    harq: bool = True
+
+
+def ladder_exec_specs(ladder, *, receiver: str = "classical",
+                      options: Optional[dict] = None, batch: int = 4,
+                      lane_buckets=(0,), harq: bool = True) -> list:
+    """The step set a frontend serving ``ladder`` needs: one
+    :class:`ExecSpec` per (rung, lane bucket).  ``ladder`` is an
+    :class:`MCSLadder`, a registered ladder name, or a single coded
+    scenario or its name (a one-rung ladder), resolved as the closed-loop
+    schedulers resolve it."""
+    if isinstance(ladder, str):
+        try:
+            ladder = get_ladder(ladder)
+        except KeyError:
+            ladder = get_scenario(ladder)
+    if isinstance(ladder, LinkScenario):
+        rung_names = [ladder.name]
+    else:
+        rung_names = list(ladder.rungs)
+    opts = tuple(sorted((options or {}).items()))
+    return [
+        ExecSpec(scenario=name, receiver=receiver, options=opts,
+                 batch=batch, lanes=int(lanes), harq=harq)
+        for name in rung_names
+        for lanes in lane_buckets
+    ]
+
+
 _REGISTRY: dict = {}
 
 

@@ -1,7 +1,10 @@
 """PHY serving on the port: the shared slot-scheduler core and the
 closed-loop TTI runtime (:mod:`repro_torch.serve.runtime`), the open-loop
-single-cell engine (:mod:`repro_torch.serve.phy_engine`) and the registry
-of captured serving steps (:mod:`repro_torch.serve.exec_registry`)."""
+single-cell engine (:mod:`repro_torch.serve.phy_engine`), multi-cell
+serving with its lanes folded into the kernels' batch axis, open loop
+(:class:`CellMeshEngine`) and closed loop (:class:`MeshSlotScheduler`)
+(:mod:`repro_torch.serve.cell_mesh`), and the registry of captured serving
+steps (:mod:`repro_torch.serve.exec_registry`)."""
 from repro_torch.serve.exec_registry import (
     BucketPolicy, CapturedStep, CostModelBuckets, ExecKey, ExecRegistry,
     ExecStats, FixedBuckets, PowerOfTwoBuckets, exec_key_for, get_registry,
@@ -14,3 +17,7 @@ from repro_torch.serve.runtime import (
     slot_seed, stack_slots, validate_slots,
 )
 from repro_torch.serve.phy_engine import PhyServeEngine
+from repro_torch.serve.cell_mesh import (
+    CellMeshEngine, CellSpec, ClosedCellSpec, MeshClosedLoopReport,
+    MeshServeReport, MeshSlotScheduler, cell, closed_cell,
+)

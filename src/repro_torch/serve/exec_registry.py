@@ -12,6 +12,13 @@ graph of the pipeline's whole receive chain, captured once per
   variant, precision, slot batch, lane bucket, backend, donation, slot
   schema), the reference's fields; ``backend`` is the pipeline's device
   type (``"cuda"`` or ``"cpu"``).
+* Mesh steps (``lanes > 0``, :func:`lane_step`): the port's counterpart of
+  the reference's ``vmap(pipeline._apply)``.  A staged ``(lanes, batch,
+  ...)`` batch is viewed as ``(lanes * batch, ...)``, so the lanes fold
+  into the kernels' batch axis, with ``noise_var`` one value per lane;
+  ``pipeline.run`` serves it, and the batched outputs are viewed back as
+  ``(lanes, batch, ...)``.  It is captured as one CUDA graph like a
+  single-cell step.
 * :class:`CapturedStep` — the step itself.  It owns static input tensors
   of the example batch's keys, shapes and dtypes (the batched keys and the
   scenario side info such as ``noise_var`` alike).  On CUDA it runs the
@@ -60,8 +67,8 @@ import torch
 __all__ = [
     "BucketPolicy", "CapturedStep", "CostModelBuckets", "ExecKey",
     "ExecRegistry", "ExecStats", "FixedBuckets", "PowerOfTwoBuckets",
-    "exec_key_for", "get_registry", "set_registry", "slot_schema",
-    "template_batch", "template_slot",
+    "exec_key_for", "get_registry", "lane_step",
+    "set_registry", "slot_schema", "template_batch", "template_slot",
 ]
 
 
@@ -74,7 +81,7 @@ class ExecKey:
     """Stable identity of one captured serving step.
 
     ``lanes == 0`` is a single-cell step; ``lanes > 0`` a mesh step over
-    that lane bucket (the mesh is not ported yet).  ``variant``
+    that lane bucket.  ``variant``
     fingerprints the pipeline beyond its display name (stage structure +
     neural-weight digest); ``schema`` names the slot's batched keys, so
     open-loop and HARQ slots capture separately.
@@ -329,6 +336,40 @@ class CostModelBuckets(FixedBuckets):
 # The captured step
 # ---------------------------------------------------------------------------
 
+def lane_step(pipeline, lanes: int, batch: int) -> Callable[[dict], dict]:
+    """``pipeline.run`` over a staged ``(lanes, batch, ...)`` batch, the
+    lanes folded into the batch axis: the batched keys are viewed as
+    ``(lanes * batch, ...)``, ``noise_var`` holds ``lanes`` values (or
+    one), the other side info is the lanes' common value; every output
+    that is not such an input is viewed back as ``(lanes, batch, ...)``."""
+    from repro_torch.serve.runtime import BATCHED_KEYS
+
+    rows = lanes * batch
+
+    def step(staged: dict) -> dict:
+        state, side = {}, set()
+        for k, v in staged.items():
+            if k in BATCHED_KEYS:
+                if tuple(v.shape[:2]) != (lanes, batch):
+                    raise ValueError(f"{k!r}: {tuple(v.shape)} is not a "
+                                     f"({lanes}, {batch}, ...) lane stack")
+                state[k] = v.reshape(rows, *v.shape[2:])
+            else:
+                state[k] = v
+                side.add(k)
+        nv = staged.get("noise_var")
+        if nv is not None and torch.as_tensor(nv).numel() not in (1, lanes):
+            raise ValueError(f"noise_var holds {torch.as_tensor(nv).numel()}"
+                             f" values for {lanes} lanes")
+        out = pipeline.run(state)
+        return {k: (v.reshape(lanes, batch, *v.shape[1:])
+                    if k not in side and isinstance(v, torch.Tensor)
+                    else v)
+                for k, v in out.items()}
+
+    return step
+
+
 def _spec(batch: dict) -> dict:
     """What a batch must share with the capture: per key, a tensor's
     (shape, dtype), or a non-tensor value itself (an array by its bytes)."""
@@ -490,15 +531,22 @@ class ExecRegistry:
         return step
 
     def acquire_pipeline_step(self, pipeline, example: dict, *, batch: int,
+                              lanes: int = 0,
                               stats: Optional[ExecStats] = None
                               ) -> CapturedStep:
-        """Acquire ``pipeline``'s single-cell serving step
-        (``pipeline.run`` over a stacked batch) over ``example``.  The
-        reference's ``lanes`` and ``donate`` arguments come with the mesh,
-        their first caller; the static inputs never alias the caller's
-        batch, so a single-cell key is ``lanes=0, donate=False``."""
-        key = exec_key_for(pipeline, batch, schema=slot_schema(example))
-        return self.acquire(key, pipeline.run, example, stats=stats)
+        """Acquire ``pipeline``'s serving step over ``example``.
+
+        ``lanes == 0`` captures the single-cell step (``pipeline.run``
+        over a stacked batch); ``lanes > 0`` the mesh step
+        (:func:`lane_step` over a staged ``(lanes, batch, ...)`` batch).
+        The key's ``donate`` follows the reference's rule, true for a mesh
+        step off the CPU; the static inputs never alias the caller's
+        batch, so it names the step and changes nothing else."""
+        donate = lanes > 0 and pipeline.device.type != "cpu"
+        key = exec_key_for(pipeline, batch, lanes=lanes, donate=donate,
+                           schema=slot_schema(example))
+        fn = lane_step(pipeline, lanes, batch) if lanes else pipeline.run
+        return self.acquire(key, fn, example, stats=stats)
 
     # -- reporting --------------------------------------------------------
     def report(self) -> dict:

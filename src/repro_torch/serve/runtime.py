@@ -800,6 +800,34 @@ class CellLoop:
         self.now += 1
         return stats
 
+    # -- mobility (driven by the mesh scheduler) --------------------------
+    def pending_jobs(self) -> int:
+        return sum(len(u.backlog) for u in self.users)
+
+    def capacity_jobs(self) -> float:
+        """Jobs this cell can serve within its deadline budget: the
+        saturation threshold of the mesh's handover and shedding.  An
+        unlimited pool (``max_batches_per_tick=None``) never saturates."""
+        if self.max_batches_per_tick is None:
+            return float("inf")
+        return (self.max_batches_per_tick * self.batch_size
+                * (self.deadline_ttis + 1))
+
+    def shed_tail(self, n: int) -> list:
+        """Drop up to ``n`` not-yet-started jobs from the backlog tails,
+        longest queue first.  Only new-data jobs are shed: a job with a
+        HARQ process in flight has soft state that must finalize through
+        feedback.  The shed ids finalize here, so finalized + queued ids
+        stay the issued ids exactly.  Returns the shed ids."""
+        shed = []
+        for u in sorted(self.users, key=lambda u: -len(u.backlog)):
+            while len(shed) < n and u.backlog and \
+                    u.backlog[-1].harq is None:
+                shed.append(u.backlog.pop().job_id)
+        self.finalized_jobs.extend(shed)
+        self.jobs_shed += len(shed)
+        return shed
+
     # -- reporting --------------------------------------------------------
     @property
     def backlog(self) -> int:

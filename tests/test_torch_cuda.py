@@ -778,3 +778,125 @@ def test_registry_replay_equals_eager_run(dev, name, kind, kw, kernels):
     for k, n in step.launch_delta.items():
         assert sum(_SYMBOLS[k] in name for name in names) == 3 * n, k
     assert reg.stats.executables_compiled == 1
+
+
+# ---------------------------------------------------------------------------
+# multi-cell steps: a noise variance per lane
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_rx,n_tx,modem_name", [
+    (1, 1, "qam16"), (2, 2, "qam16"), (4, 4, "qam16"),
+    (3, 3, "qam64")])  # the last: the runtime-sized instance
+def test_demap_kernels_per_lane_noise_bit_exact(dev, n_rx, n_tx, modem_name):
+    """B = 6 rows as L = 3 lanes of 2, each lane with its own noise
+    variance: joint and SIC equal their twins bit for bit, and each lane's
+    rows equal a one-value launch on that lane's slice."""
+    gen = ofdm.make_generator(300 + 10 * n_rx + n_tx, dev)
+    cg = lambda *s: torch.complex(torch.randn(*s, generator=gen, device=dev),
+                                  torch.randn(*s, generator=gen, device=dev))
+    y, h = cg(6, 14, 64, n_rx).contiguous(), cg(6, 64, n_rx, n_tx)
+    nv = torch.tensor([0.02, 0.1, 0.5], device=dev) * n_tx
+    modem = ofdm.make_modem(modem_name)
+    for kernel, twin in ((rx_fused.mmse_detect_demap,
+                          rx_fused.mmse_detect_demap_torch),
+                         (rx_fused.sic_detect_demap,
+                          rx_fused.sic_detect_demap_torch)):
+        got = kernel(y, h, nv, modem)
+        for g_, w_ in zip(got, twin(y, h, nv, modem)):
+            assert torch.equal(g_, w_), kernel.__name__
+        for lane in range(3):
+            rows = slice(2 * lane, 2 * lane + 2)
+            one = kernel(y[rows].contiguous(), h[rows].contiguous(),
+                         nv[lane], modem)
+            for g_, w_ in zip(got, one):
+                assert torch.equal(g_[rows], w_), (kernel.__name__, lane)
+        # a lane's nv_eff depends on its own noise: the lanes differ
+        assert not torch.equal(got[1][0], got[1][2])
+
+
+def test_demap_kernels_one_value_launch_unchanged(dev):
+    """One value as a 0-d tensor or a (1,) tensor gives the same bits, and
+    a noise count that divides no lane share is refused."""
+    y, h, nv, modem = _sic_case("mimo4x4-qam16-mu-snr18", dev, 4)
+    for kernel in (rx_fused.mmse_detect_demap, rx_fused.sic_detect_demap):
+        a = kernel(y, h, nv, modem)
+        b_ = kernel(y, h, nv.reshape(1), modem)
+        for g_, w_ in zip(a, b_):
+            assert torch.equal(g_, w_)
+        with pytest.raises(ValueError, match="noise"):
+            kernel(y, h, torch.ones(3, device=dev), modem)
+
+
+def test_demap_kernels_refuse_strided_noise_view(dev):
+    """A strided (3,) noise view (a column of a wider tensor) is refused,
+    never read at the wrong stride; its contiguous copy gives the twin's
+    bits lane by lane."""
+    gen = ofdm.make_generator(341, dev)
+    cg = lambda *s: torch.complex(torch.randn(*s, generator=gen, device=dev),
+                                  torch.randn(*s, generator=gen, device=dev))
+    y, h = cg(6, 14, 64, 2), cg(6, 64, 2, 2)
+    wide = torch.tensor([[0.04, 9.0], [0.2, 9.0], [1.0, 9.0]], device=dev)
+    nv = wide[:, 0]
+    assert not nv.is_contiguous()
+    modem = ofdm.make_modem("qam16")
+    for kernel, twin in ((rx_fused.mmse_detect_demap,
+                          rx_fused.mmse_detect_demap_torch),
+                         (rx_fused.sic_detect_demap,
+                          rx_fused.sic_detect_demap_torch)):
+        with pytest.raises(ValueError, match="not contiguous"):
+            kernel(y, h, nv, modem)
+        got = kernel(y, h, nv.contiguous(), modem)
+        for g_, w_ in zip(got, twin(y, h, nv, modem)):
+            assert torch.equal(g_, w_), kernel.__name__
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("siso-qam16-r12-snr15", dict(fused=True)),
+    ("mimo4x4-qam16-mu-snr18", dict(fused=True, sic=True))])
+def test_lane_step_replay_equals_eager_and_single_steps(dev, name, kw):
+    """A captured three-lane step (lanes of distinct noise variance) equals
+    its eager run bit for bit, and each lane equals the captured
+    single-cell step on its slots: CRC flags, payloads, iteration counts
+    and LLRs bit for bit, h_hat at rtol 1e-4."""
+    from repro_torch.launch.mesh import make_cell_mesh
+    from repro_torch.serve.cell_mesh import stage_lanes
+    from repro_torch.serve.exec_registry import ExecRegistry, lane_step
+    from repro_torch.serve.runtime import TorchSlotFactory, stack_slots
+
+    scn = scenarios.get_scenario(name)
+    rx = link.build_pipeline("classical", scn, device=dev, **kw)
+    factory = TorchSlotFactory(dev)
+    lanes = []
+    for lane in range(3):
+        slots = []
+        for u in range(2):
+            s = factory(50 + 10 * lane + u,
+                        scn.replace(snr_db=scn.snr_db + 2.0 * lane), 1, rv=0)
+            s["prior_llr"] = torch.zeros(  # a host array, as a loop's
+                (1, coding.codewords_per_slot(scn), scn.code.n_mother)
+            ).numpy()
+            slots.append(s)
+        lanes.append((slots, 0))
+    staged = stage_lanes(lanes, make_cell_mesh(3, dev))
+    assert len(set(staged["noise_var"].tolist())) == 3
+    reg = ExecRegistry()
+    step = reg.acquire_pipeline_step(rx, staged, batch=2, lanes=3)
+    assert step.graph is not None
+    # the reference's rule: a lane step on the card donates its inputs
+    assert [k.donate for k in reg.keys()] == [True]
+    got = {k: v.clone() for k, v in step(staged).items()
+           if isinstance(v, torch.Tensor)}
+    eager = lane_step(rx, 3, 2)(staged)
+    torch.cuda.synchronize()
+    for k, v in eager.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(got[k], v), k
+    for lane, (slots, _) in enumerate(lanes):
+        batch = stack_slots(slots)
+        one = reg.acquire_pipeline_step(rx, batch, batch=2)
+        want = {k: v.clone() for k, v in one(batch).items()
+                if isinstance(v, torch.Tensor)}
+        for k in ("crc_ok", "info_bits_hat", "decode_iters", "llr"):
+            assert torch.equal(got[k][lane], want[k]), (lane, k)
+        torch.testing.assert_close(got["h_hat"][lane], want["h_hat"],
+                                   rtol=1e-4, atol=1e-6)

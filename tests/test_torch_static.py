@@ -109,6 +109,9 @@ _MODULES = [
     "repro_torch.phy.scenarios", "repro_torch.phy.classical",
     "repro_torch.phy.link", "repro_torch.serve",
     "repro_torch.serve.runtime", "repro_torch.serve.phy_engine",
+    "repro_torch.serve.exec_registry", "repro_torch.serve.cell_mesh",
+    "repro_torch.launch", "repro_torch.launch.mesh",
+    "repro_torch.distributed", "repro_torch.distributed.sharding",
 ]
 
 
@@ -199,12 +202,25 @@ def test_entry_points_default_to_cuda():
     from repro_torch import resolve_device
     from repro_torch.phy import link
 
+    from repro_torch.serve import (
+        CellMeshEngine, MeshSlotScheduler, cell, closed_cell,
+    )
+
     scn = scenarios.get_scenario("siso-qpsk-r12-snr8")
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             link.build_classical(scn, fused=True)
+        # the mesh frontends build their default mesh on CUDA
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MeshSlotScheduler([closed_cell("c0", "siso-coded")],
+                              prebuild=False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            CellMeshEngine([cell("c0", scn)], prebuild=False)
+    assert MeshSlotScheduler([closed_cell("c0", "siso-coded")],
+                             prebuild=False, device="cpu").device.type \
+        == "cpu"
     assert link.build_classical(scn, device="cpu").device.type == "cpu"
     # the quantized precisions and SIC build and run on the CPU
     slot = coding.make_coded_slot(ofdm.make_generator(0, "cpu"), scn, 1)
