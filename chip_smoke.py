@@ -118,6 +118,44 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    kernels and uneven traffic (16, 4, 4, 4 slots): every slot served,
    launches equal to captures x replays, and each of its kernels in a
    CUPTI trace of a second run of the same traffic from another seed.
+4c. Supervised fault-tolerant serving (``repro_torch.serve.supervisor``)
+   on a co-sited cluster of 4 ``siso-coded`` cells of 8 users
+   (``arrival_rate`` 0.8, ``snr_db`` 8 + 0.5 i, batch 8, deadline 4,
+   lane buckets 1 and 2), cells 0-1 on the fused fp32 chain and cells
+   2-3 on the fused int8 chain, each run with the launch counts zeroed
+   just before and read just after, which must equal the captures x
+   replays plus the eager warm-up of each step captured in the run.
+   (1) ``Supervisor(fault_plan=FaultPlan.none())`` against the
+   unsupervised ``MeshSlotScheduler`` for 10 TTIs, four runs in the
+   order unsupervised, supervised, supervised, unsupervised: reports
+   equal field for field outside the wall-clock fields, every fault
+   counter 0, no degradation step; each run's steady tick printed.  (2) The reference's canonical fault schedule on 4
+   cells without its stragglers, for 20 TTIs with per-tick checkpoints: a
+   NaN burst in an int8 lane's prior, an ``inf`` in an fp32 lane's
+   ``y_time``, one retried step error and one cell crash; the CRC flags
+   served, the tick logs, the reports outside their fault fields and the
+   job ids equal the clean run's (a degraded lane's flags that differ are
+   printed, then the run fails), the counts equal the plan's, one
+   degradation step is captured per (rung, lane bucket) degraded, and the
+   int8 group runs the fp32 decoder only through it, at least once.
+   (3) Three stacked step errors on one bucket (quarantined), a straggler
+   of three times a watchdog set to three times run 2's longest time from
+   tick start to last dispatch, and a crash against a checkpoint up to three ticks
+   stale: one tick over budget, deferred batches, nothing shed, the
+   lost-window jobs failed, conservation exact, then drained to no
+   backlog and no open HARQ process.  (4) Ten more clean ticks of run 2's
+   supervisor under a CUPTI trace that must capture nothing and show
+   ``ls_che``, detect + demap and both decoders; then one int8 bucket
+   with a NaN burst in its first lane, its dispatch alone under a trace
+   (retaken on a later bucket while a kernel is missing) in which each
+   kernel appears at most as often as the replays account for, and the
+   fp32 decoder exactly as often as the degradation step replayed
+   (once).  (5)
+   ``SupervisedBatchRunner`` on one int8 batch of
+   ``siso-qam16-r12-snr15`` with ``inf`` in one slot's ``y_time``: one
+   degraded batch, the fp32 decoder replayed once.  Each run prints its
+   fault counters, steady tick and summary; the two traced windows of
+   run 4 their idle shares (the other runs are not traced).
 5. The blocks path, with the launch counts zeroed just before and read
    just after: the paper's three AI-PHY compute blocks (Fig. 10) at full
    width, each through its sequential plan (separate ops; the FC GEMM on
@@ -141,6 +179,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import pathlib
@@ -1368,17 +1407,19 @@ def drive(ladder: str, n_ticks: int, dev, receiver: str = "classical",
 def captured_steps(sch) -> list:
     """Every captured step a scheduler or engine serves through: a
     single-cell scheduler's per-rung runners, or a mesh's (group, rung,
-    bucket) steps."""
+    bucket) steps and, on a supervisor, its degradation steps (each step
+    once: groups that degrade at one rung scenario and lane bucket share
+    the registry's one fp32 unfused step)."""
     if hasattr(sch, "runners"):
         return [st for r in sch.runners for st in r._steps.values()]
-    return [st for g in sch.groups for st in g._execs.values()]
+    steps = [st for g in sch.groups for st in g._execs.values()]
+    steps += list(getattr(sch, "_ref_execs", {}).values())
+    return list({id(st): st for st in steps}.values())
 
 
 def derived_launches(sch):
     """Each kernel's launches as the registry accounts them: every
     captured step's launches times its replays so far (a Counter)."""
-    import collections
-
     want = collections.Counter()
     for st in captured_steps(sch):
         want.update({k: n * st.replays
@@ -1860,6 +1901,506 @@ def drive_mesh_open(dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: supervised fault-tolerant serving
+# ---------------------------------------------------------------------------
+
+SUP = "supervised mesh 4 cells (fp32 + int8)"
+SUP_LADDER = "siso-coded"
+SUP_NEEDS = ("ls_che", "mmse_detect_demap", "ldpc_decode", "ldpc_decode_q")
+SUP_KW = dict(batch_size=8, deadline_ttis=4, max_retx=2, seed=0)
+# a step's lanes at one rung: at most the group's 2 cells (8 users a cell
+# at one SNR fill one batch of 8 per rung)
+SUP_LANE_BUCKETS = (1, 2)
+INT8_CELLS = (2, 3)
+# report fields that follow the wall clock or the capture history, and
+# the fault fields (tests/test_supervisor.py's sets)
+WALL_FIELDS = ("wall_s", "slots_per_sec", "goodput_bits_per_sec",
+               "compile_time_s", "executables_compiled", "cache_hits",
+               "first_tick_s", "steady_tick_s")
+FAULT_MESH_FIELDS = ("faults_injected", "step_retries", "degraded_batches",
+                     "quarantined_batches", "batches_deferred",
+                     "ticks_over_budget", "cell_quarantines", "crashes",
+                     "recoveries", "jobs_failed")
+FAULT_CELL_FIELDS = ("faults", "degraded_batches", "quarantined_batches",
+                     "quarantine_ticks", "crashes", "jobs_failed")
+# the single-cell supervised runner's case
+SUP_RUNNER_SCENARIO = "siso-qam16-r12-snr15"
+
+
+def _sup_specs() -> list:
+    """A co-sited cluster of 4 cells: cells 0-1 on the fused fp32 chain,
+    cells 2-3 on the fused int8 chain, which must survive a fault by
+    falling back to the fp32 chain."""
+    from repro_torch.serve import closed_cell
+
+    return [closed_cell(f"cell{i}", SUP_LADDER, n_users=8, arrival_rate=0.8,
+                        snr_db=8.0 + 0.5 * i, fused=True,
+                        **({"precision": "int8"} if i in INT8_CELLS else {}))
+            for i in range(4)]
+
+
+def _strip_report(rep, faults: bool) -> dict:
+    """A report as a dict without its wall-clock fields (and, with
+    ``faults``, without its fault fields)."""
+    import dataclasses
+
+    d = dataclasses.asdict(rep)
+    for k in WALL_FIELDS + (FAULT_MESH_FIELDS if faults else ()):
+        d.pop(k)
+    for c in d["cells"].values():
+        for k in WALL_FIELDS + (FAULT_CELL_FIELDS if faults else ()):
+            c.pop(k)
+    return d
+
+
+def _record(sch) -> dict:
+    """Record as ``sch`` serves: each dispatch (its tick, its order in the
+    tick, group, rung, cells and, on a supervisor, the seconds since the
+    tick began), each served lane's CRC flags by (tick, cell) and, on a
+    supervisor, each checkpoint save's seconds."""
+    log = {"dispatch": [], "crc": {}, "checkpoint_s": []}
+    dispatch, feedback = sch._dispatch, sch._feedback
+    if hasattr(sch, "_save_checkpoint"):
+        save = sch._save_checkpoint
+
+        def timed_save(step: int) -> None:
+            t0 = time.perf_counter()
+            save(step)
+            log["checkpoint_s"].append(time.perf_counter() - t0)
+
+        sch._save_checkpoint = timed_save
+
+    def record_dispatch(gi, mcs, lanes, staged, stats, prefetch=None):
+        log["dispatch"].append({
+            "tick": sch.now,
+            "seq": sum(d["tick"] == sch.now for d in log["dispatch"]),
+            "gi": gi, "mcs": mcs, "cells": [l.cell_idx for l in lanes],
+            "since_tick_s": (time.perf_counter() - sch._tick_t0
+                             if hasattr(sch, "_tick_t0") else None)})
+        return dispatch(gi, mcs, lanes, staged, stats, prefetch)
+
+    def record_feedback(lanes, mcs, state, stats):
+        crc = state["crc_ok"][:len(lanes)].cpu().numpy()
+        for li, lane in enumerate(lanes):
+            log["crc"][(sch.now, lane.cell_idx)] = crc[li].tolist()
+        return feedback(lanes, mcs, state, stats)
+
+    sch._dispatch, sch._feedback = record_dispatch, record_feedback
+    return log
+
+
+def drive_supervised(cls, n_ticks: int, dev, record: bool = False,
+                     **kw) -> tuple:
+    """One run of the 4-cell cluster under ``cls`` (``MeshSlotScheduler``
+    or ``Supervisor`` with ``kw``), every (group, rung, bucket) step
+    captured before the first TTI in a registry of its own, launch counts
+    zeroed just before the run and read just after; returns (scheduler,
+    report, launches, ids of the prebuilt steps, the record or None)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ExecRegistry, FixedBuckets
+
+    sch = cls(_sup_specs(), prebuild=True, registry=ExecRegistry(),
+              bucket_policy=FixedBuckets(SUP_LANE_BUCKETS), device=dev,
+              **SUP_KW, **kw)
+    prebuilt = {id(st) for st in captured_steps(sch)}
+    check(len(prebuilt) == sum(len(g.rungs) * len(sch._capture_buckets(g))
+                               for g in sch.groups),
+          f"{SUP}: {len(prebuilt)} steps prebuilt")
+    log = _record(sch) if record else None
+    _build.reset_launches()
+    rep = sch.run(n_ticks)
+    return sch, rep, dict(_build.launches), prebuilt, log
+
+
+def check_supervised_run(sch, rep, launches: dict, prebuilt: set,
+                         label: str) -> None:
+    """Jobs conserved exactly (finalized + queued + failed == submitted),
+    one capture per step acquired (the prebuilt ones and each
+    degradation step captured in the run), and launches equal to the
+    captures x replays plus the eager warm-up of each step captured in the
+    run."""
+    failed = sch.failed_job_ids() if hasattr(sch, "failed_job_ids") else []
+    ids = sorted(sch.finalized_job_ids() + sch.queued_job_ids() + failed)
+    check(ids == list(range(sch.jobs_submitted)),
+          f"{label}: job conservation broken")
+    check(rep.jobs_failed == len(failed), f"{label}: jobs_failed")
+    steps = captured_steps(sch)
+    check(rep.executables_compiled == len(steps) == len(sch.registry)
+          and all(st.graph is not None for st in steps),
+          f"{label}: {rep.executables_compiled} captures for {len(steps)} "
+          "steps acquired")
+    want = derived_launches(sch)
+    for st in steps:
+        if id(st) not in prebuilt:
+            want.update(st.warmup_launches)
+    check(dict(+want) == {k: n for k, n in launches.items() if n},
+          f"{label}: launches {launches} != captures x replays + the "
+          f"warm-ups of steps captured in the run {dict(want)}")
+
+
+def fault_counts(rep) -> dict:
+    return {k: getattr(rep, k) for k in FAULT_MESH_FIELDS}
+
+
+def _same_trajectory(sch, rep, base, base_rep, label: str) -> None:
+    """``sch``'s run equal to the clean ``base`` run: the report outside
+    its wall-clock and fault fields, every cell's tick log, and the
+    finalized and queued job ids."""
+    import dataclasses
+
+    check(_strip_report(rep, True) == _strip_report(base_rep, True),
+          f"{label}: the report differs from the clean run's")
+    for a, b in zip(sch.loops, base.loops):
+        check([dataclasses.asdict(t) for t in a.tick_log]
+              == [dataclasses.asdict(t) for t in b.tick_log],
+              f"{label}: {a.name}'s tick log differs from the clean run's")
+    check(sch.finalized_job_ids() == base.finalized_job_ids()
+          and sch.queued_job_ids() == base.queued_job_ids(),
+          f"{label}: job ids differ from the clean run's")
+
+
+def _drain(sch, max_ticks: int = 64) -> int:
+    """Stop arrivals, lift the batch cap and the watchdog, tick until the
+    backlog is empty; returns the ticks taken."""
+    for loop in sch.loops:
+        loop.arrival_rate = 0.0
+        loop.max_batches_per_tick = None
+    sch.watchdog_s = None
+    for n in range(max_ticks):
+        if sch.backlog == 0:
+            return n
+        sch.tick()
+    check(False, f"{SUP}: the mesh did not drain (backlog {sch.backlog})")
+
+
+def check_supervised_runner(dev) -> dict:
+    """The single-cell guard: one batch of 8 ``siso-qam16-r12-snr15``
+    slots on the fused int8 chain, ``inf`` in one slot's ``y_time``, served
+    by ``SupervisedBatchRunner`` with the launch counts zeroed just before
+    and read just after: one degraded batch, rerun once on the fp32
+    unfused reference step, whose decoder is the fp32 one (the int8 chain
+    has none)."""
+    from repro_torch.kernels import _build
+    from repro_torch.phy import link, scenarios
+    from repro_torch.serve import (
+        ExecRegistry, SlotRequest, SupervisedBatchRunner,
+    )
+    from repro_torch.serve.runtime import TorchSlotFactory
+
+    scn = scenarios.get_scenario(SUP_RUNNER_SCENARIO)
+    rx = link.build_pipeline("classical", scn, device=dev, fused=True,
+                             precision="int8")
+    factory = TorchSlotFactory(dev)
+    slots = [factory(300 + i, scn, 1) for i in range(8)]
+    slots[3]["y_time"] = slots[3]["y_time"].clone()
+    slots[3]["y_time"][0, 0] = float("inf")
+    reqs = [SlotRequest(user_id=i, slot=s) for i, s in enumerate(slots)]
+    runner = SupervisedBatchRunner(rx, 8, registry=ExecRegistry())
+    runner.warmup(reqs)
+    (primary,) = runner._steps.values()
+    _build.reset_launches()
+    runner.run_batch(reqs)
+    launches = dict(_build.launches)
+    check(runner.degraded_batches == 1 and runner.retries == 0,
+          f"supervised runner: {runner.degraded_batches} degraded, "
+          f"{runner.retries} retries")
+    (ref,) = runner._ref_execs.values()
+    check("ldpc_decode" not in primary.launch_delta
+          and ref.launch_delta == {"ldpc_decode": 1} and ref.replays == 1,
+          f"supervised runner: primary launches {dict(primary.launch_delta)}"
+          f", reference {dict(ref.launch_delta)} x {ref.replays}")
+    want = collections.Counter(primary.launch_delta)
+    want.update(ref.launch_delta)
+    want.update(ref.warmup_launches)
+    check(launches == dict(want),
+          f"supervised runner: launches {launches} != {dict(want)}")
+    return {"degraded_batches": runner.degraded_batches,
+            "fp32_decoder_replays": ref.replays,
+            "fp32_decoder_warmup_launches":
+                ref.warmup_launches.get("ldpc_decode", 0),
+            "launches": launches, "primary": rx.name,
+            "reference": runner._ref.name}
+
+
+def trace_degraded_dispatch(sup, gi8: int, max_ticks: int = 10) -> dict:
+    """The CUPTI evidence that the degradation route launches the fp32
+    decoder: tick ``sup`` until the int8 group ``gi8`` dispatches a
+    bucket, inject a NaN burst into that bucket's first lane, and trace
+    that one dispatch (its degradation step acquired just before, so the
+    window captures nothing; one small kernel and a pause first, since
+    the start of a trace can miss a launch), retaken on a later bucket
+    (up to :data:`TRACE_TRIES` times) while a kernel of
+    :data:`SUP_NEEDS` is missing.  Fails unless the lane degraded, the
+    degradation step replayed once, each kernel appears at least once and
+    at most as often as the window's replays account for, and the fp32
+    decoder exactly as often as the degradation step replayed (the int8
+    group's own steps launch only ``ldpc_decode_q``)."""
+    import torch
+
+    from repro_torch.serve import FaultEvent, FaultInjector, FaultPlan
+
+    inner = sup._dispatch
+    traces: list = []
+    armed = [False]
+
+    def dispatch(gi, mcs, lanes, staged, stats, prefetch=None):
+        if not armed[0] or gi != gi8:
+            return inner(gi, mcs, lanes, staged, stats, prefetch)
+        armed[0] = False
+        bucket = sup._bucket(len(lanes))
+        ref = sup._ref_step(gi, mcs, bucket, staged)
+        check(all("ldpc_decode" not in st.launch_delta
+                  for st in sup.groups[gi]._execs.values()),
+              f"{SUP}: an int8 step launches the fp32 decoder")
+        sup.injector = FaultInjector(FaultPlan([FaultEvent(
+            "nan_llr", tick=sup.now, seq=sup._seq,
+            cell=lanes[0].cell_idx)]))
+        replays0, degraded0 = ref.replays, sup.degraded_batches
+        nxt = []
+
+        def run():
+            torch.ones(1, device=sup.device).add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            nxt.append(inner(gi, mcs, lanes, staged, stats, prefetch))
+
+        traced = profile_window(sup, run, None)
+        traced["degradation_replays"] = ref.replays - replays0
+        traced["degraded"] = sup.degraded_batches - degraded0
+        traced["step"] = [gi, mcs, bucket]
+        traces.append(traced)
+        return nxt[0]
+
+    label = f"{SUP} degraded dispatch"
+    sup._dispatch = dispatch
+    for _ in range(TRACE_TRIES):
+        armed[0] = True
+        for _ in range(max_ticks):
+            sup.tick()
+            if not armed[0]:
+                break
+        check(not armed[0], f"{label}: the int8 group dispatched nothing "
+              f"in {max_ticks} ticks")
+        if all(traces[-1]["traced_launches"].get(k, 0) for k in SUP_NEEDS):
+            break
+    sup._dispatch = inner
+    traced = dict(traces[-1], tries=len(traces))
+    check(traced["captures_in_window"] == 0,
+          f"{label}: a step was captured in the traced window")
+    check(traced["degraded"] == 1 and traced["degradation_replays"] == 1,
+          f"{label}: {traced['degraded']} lanes degraded, the degradation "
+          f"step replayed {traced['degradation_replays']} times")
+    got, want = traced["traced_launches"], traced["derived_launches"]
+    for k in SUP_NEEDS:
+        check(0 < got.get(k, 0) <= want.get(k, 0),
+              f"{label}: {KERNEL_SYMBOLS[k]} traced {got.get(k, 0)} times "
+              f"in a window whose replays account for {want.get(k, 0)}")
+    check(got["ldpc_decode"] == want["ldpc_decode"]
+          == traced["degradation_replays"],
+          f"{label}: {KERNEL_SYMBOLS['ldpc_decode']} traced "
+          f"{got['ldpc_decode']} times, the degradation step replayed "
+          f"{traced['degradation_replays']}")
+    return traced
+
+
+def drive_supervised_paths(dev) -> tuple:
+    """Phase 4c: the 4-cell cluster in five runs (see the module doc);
+    returns (the launches of the transparent-fault run, the CUPTI traces
+    of its clean ticks and of a degraded dispatch, what to print)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (
+        FaultEvent, FaultPlan, MeshSlotScheduler, Supervisor,
+    )
+
+    out = {}
+    t0 = time.perf_counter()
+    # the clean run: 10 TTIs for run 1, then 10 more for run 2
+    base, base_rep10, base_launches, base_pre, log = drive_supervised(
+        MeshSlotScheduler, 10, dev, record=True)
+    check_supervised_run(base, base_rep10, base_launches, base_pre,
+                         f"{SUP} clean")
+
+    # run 1: zero faults, against the unsupervised mesh of the same seed,
+    # in the order unsupervised, supervised, supervised, unsupervised, so
+    # that a cost paid by whichever run comes first shows in both pairs
+    steady_ms = {"unsupervised 1": base_rep10.steady_tick_s * 1e3}
+    for name in ("supervised 1", "supervised 2", "unsupervised 2"):
+        cls = MeshSlotScheduler if name.startswith("un") else Supervisor
+        kw = {} if cls is MeshSlotScheduler else {
+            "fault_plan": FaultPlan.none()}
+        sch0, rep0, launches0, pre0, _ = drive_supervised(cls, 10, dev,
+                                                          **kw)
+        label = f"{SUP} zero-fault, {name}"
+        check_supervised_run(sch0, rep0, launches0, pre0, label)
+        check(_strip_report(rep0, False) == _strip_report(base_rep10, False),
+              f"{label}: the report differs from the first unsupervised "
+              "run's")
+        if cls is Supervisor:
+            check(not any(fault_counts(rep0).values())
+                  and not sch0._ref_execs and sch0.injector.total == 0,
+                  f"{label}: counted {fault_counts(rep0)}")
+            faults0, summary0 = fault_counts(rep0), rep0.summary()
+        steady_ms[name] = rep0.steady_tick_s * 1e3
+        del sch0
+    out["run 1 zero-fault"] = {
+        "faults": faults0, "steady_tick_ms_in_run_order": steady_ms,
+        "wall_s_with_the_clean_runs": time.perf_counter() - t0,
+        "summary": summary0}
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    base.run(10)
+    base_rep = base.report()
+    base_launches = collections.Counter(base_launches)
+    base_launches.update(_build.launches)
+    check_supervised_run(base, base_rep, dict(base_launches), base_pre,
+                         f"{SUP} clean")
+
+    # run 2: the reference's canonical schedule (benchmarks/bench_faults.py
+    # canonical_plan) on 4 cells, stragglers left out: a NaN burst on an
+    # int8 cell, a corrupted slot on an fp32 cell, one retried step error,
+    # a crash under per-tick checkpoints; seq addresses the bucket that
+    # holds the target cell in the clean run
+    def seq_of(tick: int, cell: int) -> int:
+        return next(d["seq"] for d in log["dispatch"]
+                    if d["tick"] == tick and cell in d["cells"])
+
+    corrupted = ((1, INT8_CELLS[0]), (2, 1))
+    plan = FaultPlan([
+        FaultEvent("nan_llr", tick=1, seq=seq_of(*corrupted[0]),
+                   cell=corrupted[0][1]),
+        FaultEvent("corrupt_slot", tick=2, seq=seq_of(*corrupted[1]),
+                   cell=corrupted[1][1]),
+        FaultEvent("cell_crash", tick=3, cell=INT8_CELLS[1]),
+        FaultEvent("step_error", tick=4, seq=0),
+    ])
+    sup, rep, launches, pre, slog = drive_supervised(
+        Supervisor, 20, dev, record=True, fault_plan=plan,
+        checkpoint_every=1)
+    label = f"{SUP} transparent faults"
+    check_supervised_run(sup, rep, launches, pre, label)
+    for tick, cell in corrupted:
+        got, want = slog["crc"][(tick, cell)], log["crc"][(tick, cell)]
+        if got != want:
+            print(f"{label}: degraded lane of cell {cell} at tick {tick}: "
+                  f"CRC flags {got}, the clean run's {want}", flush=True)
+        check(got == want, f"{label}: a degraded lane's CRC flags differ "
+              "from the clean run's")
+    check(slog["crc"] == log["crc"],
+          f"{label}: served CRC flags differ from the clean run's")
+    _same_trajectory(sup, rep, base, base_rep, label)
+    counts = fault_counts(rep)
+    check(counts == dict(faults_injected=len(plan), step_retries=1,
+                         degraded_batches=len(corrupted),
+                         quarantined_batches=0, batches_deferred=0,
+                         ticks_over_budget=0, cell_quarantines=0,
+                         crashes=1, recoveries=1, jobs_failed=0),
+          f"{label}: fault counts {counts}")
+    # one degradation step per degraded (group, rung, lane bucket), each
+    # captured once per (rung scenario, bucket): both groups' fp32 unfused
+    # chain is the same step
+    want_ref = {(d["gi"], d["mcs"], sup._bucket(len(d["cells"])))
+                for d in slog["dispatch"]
+                if any((d["tick"], c) in corrupted for c in d["cells"])}
+    chains = {(sup.groups[gi].rungs[mcs].name, b) for gi, mcs, b in want_ref}
+    check(set(sup._ref_execs) == want_ref
+          and len(captured_steps(sup)) == len(pre) + len(chains),
+          f"{label}: degradation steps {sorted(sup._ref_execs)}, want "
+          f"{sorted(want_ref)}, {len(captured_steps(sup))} captures")
+    # the int8 group launches the fp32 decoder only through its
+    # degradation step, and at least once
+    gi8 = sup.groups.index(sup._group_of[INT8_CELLS[0]])
+    ref8 = [st for (gi, _, _), st in sup._ref_execs.items() if gi == gi8]
+    check(all("ldpc_decode" not in st.launch_delta
+              for st in sup.groups[gi8]._execs.values())
+          and all(set(st.launch_delta) == {"ldpc_decode"}
+                  for st in sup._ref_execs.values())
+          and sum(st.replays for st in ref8) >= 1,
+          f"{label}: the int8 group's fp32 decoder ran outside its "
+          "degradation step, or not at all")
+    since = collections.defaultdict(float)
+    for d in slog["dispatch"]:
+        since[d["tick"]] = max(since[d["tick"]], d["since_tick_s"])
+    to_last_dispatch = max(since.values())
+    out["run 2 transparent faults"] = {
+        "plan": repr(plan), "faults": fault_counts(rep),
+        "degradation_steps": sorted(sup._ref_execs),
+        "int8_fp32_decoder_replays": sum(st.replays for st in ref8),
+        "steady_tick_ms": rep.steady_tick_s * 1e3,
+        "unsupervised_steady_tick_ms": base_rep.steady_tick_s * 1e3,
+        "tick_start_to_last_dispatch_ms_max": to_last_dispatch * 1e3,
+        "checkpoint_save_ms_median":
+            statistics.median(slog["checkpoint_s"]) * 1e3,
+        "captures_s": rep.compile_time_s,
+        "captures": rep.executables_compiled,
+        "wall_s": time.perf_counter() - t0,
+        "summary": rep.summary()}
+
+    # run 4: ten more clean ticks of run 2's supervisor under a CUPTI
+    # trace; they capture nothing
+    t0 = time.perf_counter()
+    prof = trace_replayed_ticks(sup, SUP, SUP_NEEDS)
+    out["run 4 traced ticks"] = {
+        "wall_s": time.perf_counter() - t0,
+        "device_idle_share": prof["device_idle_share"],
+        "wall_ms_per_tick": prof["wall_ms"] / prof["ticks"],
+        "captures": len(captured_steps(sup)),
+        "prebuilt": len(pre)}
+    # then one int8 bucket degraded under a CUPTI trace of its dispatch
+    t0 = time.perf_counter()
+    deg = trace_degraded_dispatch(sup, gi8)
+    out["run 4 traced degraded dispatch"] = {
+        "wall_s": time.perf_counter() - t0,
+        "device_idle_share": deg["device_idle_share"],
+        "traced_launches": deg["traced_launches"],
+        "degradation_replays": deg["degradation_replays"],
+        "tries": deg["tries"]}
+    del sup, base
+
+    # run 3: three stacked step errors on one bucket (quarantined with
+    # max_step_retries=2), a straggler several times the watchdog's margin
+    # past the budget, a crash against a stale checkpoint
+    t0 = time.perf_counter()
+    watchdog_s = 3.0 * to_last_dispatch
+    straggle_s = 3.0 * watchdog_s
+    plan3 = FaultPlan(
+        [FaultEvent("step_error", tick=2, seq=0)] * 3
+        + [FaultEvent("straggler", tick=5, seq=0, magnitude=straggle_s),
+           FaultEvent("cell_crash", tick=8, cell=0)])
+    sup3, rep3, launches3, pre3, _ = drive_supervised(
+        Supervisor, 12, dev, fault_plan=plan3, checkpoint_every=3,
+        max_step_retries=2, watchdog_s=watchdog_s)
+    label = f"{SUP} escalation + watchdog + stale checkpoint"
+    check_supervised_run(sup3, rep3, launches3, pre3, label)
+    counts = fault_counts(rep3)
+    check(rep3.faults_injected == len(plan3) and rep3.step_retries == 2
+          and rep3.quarantined_batches > 0 and rep3.ticks_over_budget == 1
+          and rep3.batches_deferred > 0 and rep3.crashes == 1
+          and rep3.recoveries == 1 and rep3.jobs_shed == 0,
+          f"{label}: fault counts {counts}, shed {rep3.jobs_shed}")
+    drained = _drain(sup3)
+    rep3d = sup3.report()
+    check_supervised_run(sup3, rep3d, dict(_build.launches), pre3, label)
+    check(rep3d.backlog_left == 0 and rep3d.harq_open == 0
+          and sorted(sup3.finalized_job_ids() + sup3.failed_job_ids())
+          == list(range(sup3.jobs_submitted)),
+          f"{label}: drained to backlog {rep3d.backlog_left}, "
+          f"{rep3d.harq_open} HARQ open")
+    out["run 3 escalation"] = {
+        "watchdog_ms": watchdog_s * 1e3, "straggler_ms": straggle_s * 1e3,
+        "faults": counts, "drain_ticks": drained,
+        "wall_s": time.perf_counter() - t0,
+        "steady_tick_ms": rep3.steady_tick_s * 1e3,
+        "summary": rep3d.summary()}
+    del sup3
+
+    # run 5: the single-cell runner
+    t0 = time.perf_counter()
+    out["run 5 SupervisedBatchRunner"] = check_supervised_runner(dev)
+    out["run 5 SupervisedBatchRunner"]["wall_s"] = time.perf_counter() - t0
+    return launches, prof, deg, out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the paper's compute blocks and the quantized ops
 # ---------------------------------------------------------------------------
 
@@ -2121,6 +2662,20 @@ def main() -> int:
     print(rep.summary(), flush=True)
     print(f"profiled {MESH_OPEN} run: {json.dumps(prof)}", flush=True)
 
+    launches, prof, deg, runs = drive_supervised_paths(dev)
+    by_path[SUP] = launches
+    # the clean ticks' trace and the degraded dispatch's
+    traced_by_path[SUP] = dict(collections.Counter(prof["traced_launches"])
+                               + collections.Counter(deg["traced_launches"]))
+    print(f"path {SUP}: launches {launches} (run 2)", flush=True)
+    for run, summary in runs.items():
+        print(f"{SUP} {run}: {json.dumps(summary)}", flush=True)
+    print(f"profiled {SUP} ticks: {json.dumps(prof)}", flush=True)
+    print(f"profiled {SUP} degraded dispatch: {json.dumps(deg)}", flush=True)
+    print(f"path {SUP}: steady tick "
+          f"{runs['run 2 transparent faults']['steady_tick_ms']:.3f} ms, "
+          f"device idle share {prof['device_idle_share']:.4f}", flush=True)
+
     ops_in = _blocks_operands(dev)
     plans, quantized, launches = drive_blocks(dev, ops_in)
     by_path[BLOCKS] = launches
@@ -2136,6 +2691,7 @@ def main() -> int:
     needs_by_path = {label: needs for label, *_, needs in PATHS}
     needs_by_path.update({label: needs for label, *_, needs in MESH_PATHS})
     needs_by_path[MESH_OPEN] = MESH_OPEN_NEEDS
+    needs_by_path[SUP] = SUP_NEEDS
     needs_by_path[BLOCKS] = BLOCKS_NEEDS
     kernels = []
     for name, cases in results.items():
@@ -2151,7 +2707,10 @@ def main() -> int:
             launches_by_path={label: n.get(name, 0)
                               for label, n in by_path.items()},
             launches_counted_as={
-                label: ("captured launches x graph replays"
+                label: ("captured launches x graph replays, plus the "
+                        "eager warm-up of each step captured in the run"
+                        if label == SUP
+                        else "captured launches x graph replays"
                         if label in traced_by_path
                         else "wrapper calls")
                 for label in by_path},

@@ -1,0 +1,4 @@
+"""Checkpointing (port of :mod:`repro.checkpoint`)."""
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -51,7 +51,10 @@ Launch accounting: the kernel wrappers count a launch in
 :data:`repro_torch.kernels._build.launches` when Python calls them, which
 a capture does once and a replay never does.  A capture therefore takes
 its own counts back out (it launched nothing) and each replay adds them
-again, so the counts stay the kernels' executions.
+again, so the counts stay the kernels' executions.  The eager warm-up
+before a capture did run its kernels once, and those counts stay
+(:attr:`CapturedStep.warmup_launches`): a step captured in the middle of
+a run, such as a supervisor's degradation step, adds them to that run.
 """
 from __future__ import annotations
 
@@ -415,6 +418,8 @@ class CapturedStep:
         self.pool = None
         self.out = None
         self.launch_delta: collections.Counter = collections.Counter()
+        # the launches of the eager warm-up, which ran its kernels once
+        self.warmup_launches: collections.Counter = collections.Counter()
         self.replays = 0
         if self.device.type != "cuda":
             return
@@ -422,12 +427,14 @@ class CapturedStep:
         # warm-up outside capture: builds the kernels, sets the launchers'
         # shared-memory attributes, fills the per-device constant caches
         # and creates the cuFFT plans and library workspaces
+        before = collections.Counter(_build.launches)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             fn(self.static)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
+        self.warmup_launches = _build.launches - before
         before = collections.Counter(_build.launches)
         self.pool = torch.cuda.graph_pool_handle()
         self.graph = torch.cuda.CUDAGraph()

@@ -610,8 +610,9 @@ class CellLoop:
         self.name = name
         self.rungs = list(rungs)
         self.rng = rng
+        self.device = resolve_device(device)  # where HARQ payloads live
         self.slot_factory = (slot_factory if slot_factory is not None
-                             else TorchSlotFactory(device))
+                             else TorchSlotFactory(self.device))
         self.interferer_db = tuple(interferer_db)
         self.batch_size = batch_size
         self.arrival_rate = arrival_rate

@@ -900,3 +900,130 @@ def test_lane_step_replay_equals_eager_and_single_steps(dev, name, kw):
             assert torch.equal(got[k][lane], want[k]), (lane, k)
         torch.testing.assert_close(got["h_hat"][lane], want["h_hat"],
                                    rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# supervised serving: snapshots of card-resident HARQ state, the
+# zero-fault identity and the degradation step at the full grid
+# ---------------------------------------------------------------------------
+
+def test_cell_loop_snapshot_keeps_card_payloads(dev, tmp_path):
+    """A HARQ payload on the card survives a checkpoint round trip as the
+    slot builder made it (dtype and device), and a retransmission of the
+    restored loop re-encodes the same slot as the original's."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.serve.runtime import CellLoop, cell_rng
+    from repro_torch.serve.supervisor import (
+        restore_cell_loop, snapshot_cell_loop,
+    )
+
+    rungs = scenarios.get_ladder("siso-coded").scenarios()
+    src = CellLoop(rungs, rng=cell_rng(0), n_users=2, batch_size=2,
+                   device=dev)
+    src.inject_backlog(2)
+    for u in src.users:
+        src.make_slot(u, u.backlog[0], 0)  # opens the HARQ process
+    infos = [u.backlog[0].harq.info for u in src.users]
+    assert all(i.is_cuda for i in infos)
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(1, {src.name: snapshot_cell_loop(src)})
+    dst = CellLoop(rungs, rng=cell_rng(5), n_users=2, batch_size=2,
+                   device=dev)
+    restore_cell_loop(dst, {k.split("/", 1)[1]: v
+                            for k, v in mgr.load_flat(1).items()})
+    for u, want in zip(dst.users, infos):
+        got = u.backlog[0].harq.info
+        assert got.device == want.device and got.dtype == want.dtype
+        assert torch.equal(got, want)
+    for us, ud in zip(src.users, dst.users):
+        a = src.make_slot(us, us.backlog[0], 0)
+        b = dst.make_slot(ud, ud.backlog[0], 0)
+        for k in ("info_bits", "bits", "y_time"):
+            assert torch.equal(a[k], b[k]), k
+
+
+def _two_fused_cells():
+    from repro_torch.serve import closed_cell
+
+    return [closed_cell(f"c{i}", "siso-coded", n_users=4, arrival_rate=0.8,
+                        snr_db=8.0 + i, fused=True) for i in range(2)]
+
+
+_SUP_KW = dict(batch_size=4, max_retx=2, seed=3)
+
+
+def test_zero_fault_supervised_mesh_equals_unsupervised(dev):
+    import dataclasses
+
+    from repro_torch.serve import (
+        ExecRegistry, FaultPlan, MeshSlotScheduler, Supervisor,
+    )
+
+    wall = {"wall_s", "slots_per_sec", "goodput_bits_per_sec",
+            "compile_time_s", "executables_compiled", "cache_hits",
+            "first_tick_s", "steady_tick_s"}
+
+    def strip(rep):
+        d = {k: v for k, v in dataclasses.asdict(rep).items()
+             if k not in wall}
+        d["cells"] = {n: {k: v for k, v in c.items() if k not in wall}
+                      for n, c in d["cells"].items()}
+        return d
+
+    runs = [cls(_two_fused_cells(), registry=ExecRegistry(), device=dev,
+                **kw, **_SUP_KW).run(4)
+            for cls, kw in ((MeshSlotScheduler, {}),
+                            (Supervisor, {"fault_plan": FaultPlan.none()}))]
+    assert strip(runs[0]) == strip(runs[1])
+    assert runs[1].n_slots > 0 and runs[1].degraded_batches == 0
+    assert runs[1].step_retries == runs[1].quarantined_batches == 0
+
+
+def test_corrupted_lane_degrades_to_finite_llrs(dev):
+    """A NaN burst in one lane's staged prior at the full ``siso-coded``
+    grid: the lane is rerun on the fp32 unfused reference step (a CUDA
+    graph of the plain stages and the fp32 decoder), whose combined LLRs
+    are finite, and the run goes on with every HARQ buffer finite."""
+    import numpy as np
+
+    from repro_torch.serve import (
+        ExecRegistry, FaultEvent, FaultPlan, Supervisor,
+    )
+
+    sup = Supervisor(_two_fused_cells(), registry=ExecRegistry(),
+                     device=dev, fault_plan=FaultPlan(
+                         [FaultEvent("nan_llr", tick=1, seq=0, cell=0)]),
+                     **_SUP_KW)
+    rep = sup.run(3)
+    assert rep.faults_injected == 1 and rep.degraded_batches == 1
+    assert rep.quarantined_batches == 0
+    ((key, ref),) = sup._ref_execs.items()
+    assert ref.graph is not None and ref.replays == 1
+    assert set(ref.launch_delta) == {"ldpc_decode"}
+    assert torch.isfinite(ref.out["cw_llr"]).all()
+    for loop in sup.loops:
+        for u in loop.users:
+            for j in u.backlog:
+                if j.harq is not None:
+                    assert np.isfinite(j.harq.prior).all()
+
+
+def test_unfused_group_degrades_through_its_own_lane_step(dev):
+    """An unfused fp32 group's degradation step is its own lane step: the
+    registry's key is the same for both, so a NaN lane replays the primary
+    graph once more instead of capturing a second one."""
+    from repro_torch.serve import (
+        ExecRegistry, FaultEvent, FaultPlan, Supervisor, closed_cell,
+    )
+
+    cells = [closed_cell(f"u{i}", "siso-coded", n_users=4, arrival_rate=0.8,
+                         snr_db=8.0 + i) for i in range(2)]
+    reg = ExecRegistry()
+    sup = Supervisor(cells, registry=reg, device=dev, fault_plan=FaultPlan(
+        [FaultEvent("nan_llr", tick=1, seq=0, cell=0)]), **_SUP_KW)
+    rep = sup.run(3)
+    assert rep.faults_injected == 1 and rep.degraded_batches == 1
+    ((key, ref),) = sup._ref_execs.items()
+    assert any(ref is st for st in sup.groups[key[0]]._execs.values())
+    assert len(reg) == len(sup.groups[0]._execs)
+    assert ref.graph is not None and torch.isfinite(ref.out["cw_llr"]).all()

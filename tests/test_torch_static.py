@@ -112,6 +112,8 @@ _MODULES = [
     "repro_torch.serve.exec_registry", "repro_torch.serve.cell_mesh",
     "repro_torch.launch", "repro_torch.launch.mesh",
     "repro_torch.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.serve.faults", "repro_torch.serve.supervisor",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
 ]
 
 
