@@ -172,7 +172,23 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    ``te_gemm_quant`` and ``mha_quant`` must have launched.  The H100's
    Fig. 10, each block's sequential and concurrent time, is printed, not
    gated.
-6. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
+6. Training (``repro_torch.train.neural_receiver``, the port of
+   ``examples/train_neural_receiver.py``): CE-ViT at full width
+   (``CEViTConfig()``: d_model 128, 4 heads, 4 layers, d_ff 256, patch 4)
+   on the example's 128-subcarrier uncoded grid, batch 32, 0 dB, the
+   forward on ``te_gemm`` and ``mha`` (``TeGemmFunction`` /
+   ``MhaFunction``, a plain torch backward).  (a) One step's loss and
+   every gradient leaf through the kernels against autograd through the
+   twins on the card (loss rtol 1e-4, each leaf within 1e-3 of its
+   largest |g|).  (b) 500 steps with the launch counts zeroed just before
+   and read just after, exactly 18 ``te_gemm`` and 4 ``mha`` a step;
+   CE-ViT's held-out MSE must be below LS's.  (c) Ten more steps under a
+   CUPTI trace that must show 18 and 4 launches a step.  Printed: ms a
+   step, device time by kernel, the idle share, the three MSEs and the
+   loss at steps 0, 100, ..., 400 and 499, beside the ``nvidia-smi``
+   line.  Phase 3 also checks and times the six training GEMMs and the
+   (128, 32, 32, 32) attention.
+7. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 and prints no result.
@@ -251,11 +267,13 @@ def host_us(fn, calls: int = 1000, chunk: int = 100) -> float:
 
 def _device_events(prof) -> list:
     """(name, microseconds) of every device-side event (kernels, copies)
-    the profiler recorded."""
+    the profiler recorded; a user annotation's device range (e.g.
+    ``Optimizer.step``) spans kernels already counted and is left out."""
     from torch.autograd import DeviceType
 
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _trace(fn, reps: int) -> list:
@@ -935,8 +953,9 @@ def _hold(name: str, got, want, dtype) -> float:
 # (label, M, K, N, epilogue, bias, dtype name): every GEMM of DeepRx and
 # CE-ViT at batch 8 on the SISO grid (M = 8 * 14 * 256 and 8 * 64 rows),
 # then the other epilogues, softmax rows wider than one column tile (two
-# passes), bf16, Fig. 10's FC GEMM (the sequential plan's) and a ragged
-# case.  The first row is the main path's reported shape.
+# passes), bf16, Fig. 10's FC GEMM (the sequential plan's), a ragged case
+# and the six GEMMs of the training path.  The first row is the main
+# path's reported shape.
 TE_GEMM_CASES = (
     ("deeprx block conv2", 28672, 288, 32, "none", True, "float32"),
     ("deeprx conv_in", 28672, 54, 32, "relu", True, "float32"),
@@ -961,6 +980,13 @@ TE_GEMM_CASES = (
     ("softmax N=1000", 256, 128, 1000, "softmax", False, "float32"),
     ("softmax N=600 bf16", 512, 64, 600, "softmax", True, "bfloat16"),
     ("fig10 FC GEMM", 512, 512, 512, "none", True, "float32"),
+    # CE-ViT at full width in training (batch 32 x 32 tokens)
+    ("cevit train embed", 1024, 16, 128, "none", False, "float32"),
+    ("cevit train wqkv", 1024, 128, 384, "none", False, "float32"),
+    ("cevit train wo", 1024, 128, 128, "none", False, "float32"),
+    ("cevit train w1", 1024, 128, 256, "none", True, "float32"),
+    ("cevit train w2", 1024, 256, 128, "none", True, "float32"),
+    ("cevit train head", 1024, 128, 8, "none", False, "float32"),
 )
 # the symbols of every kernel a te_gemm call may launch (a wide softmax
 # row adds the second pass)
@@ -1035,6 +1061,7 @@ MHA_CASES = (
     (4, 128, 128, 128, True, "float32"),    # Fig. 10's MHA block
     (4, 128, 128, 128, True, "bfloat16"),
     (4, 128, 128, 512, False, "float32"),   # four output slabs of D
+    (128, 32, 32, 32, False, "float32"),    # CE-ViT training, full width
 )
 
 
@@ -2506,6 +2533,185 @@ def check_blocks(ops_in: dict, plans: dict, quantized: list) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training CE-ViT through the kernels
+# ---------------------------------------------------------------------------
+
+TRAIN = "cevit training"
+TRAIN_NEEDS = ("te_gemm", "mha")
+TRAIN_STEPS = 500
+TRAIN_BATCH = 32
+TRAIN_SNR_DB = 0.0
+TRAIN_TRACE_STEPS = 10
+# a step's forward: embed, 4 x (wqkv, wo, w1, w2) and head on te_gemm, one
+# mha a layer; the backward is torch ops
+TRAIN_PER_STEP = {"te_gemm": 18, "mha": 4}
+
+
+class _TwinsInModels:
+    """Within the block, CE-ViT's GEMMs and attention run the plain twins
+    (autograd through torch ops) on the card: the gradient check's
+    reference."""
+
+    def __enter__(self):
+        from repro_torch.kernels import mha, te_gemm
+        from repro_torch.phy import models
+
+        self.saved = models.te_gemm, models.mha
+        models.te_gemm, models.mha = te_gemm.te_gemm_torch, mha.mha_torch
+
+    def __exit__(self, *exc):
+        from repro_torch.phy import models
+
+        models.te_gemm, models.mha = self.saved
+
+
+def _train_setup(dev, seed: int) -> tuple:
+    """(config, seeded full-width weights, the slot generator, a batch
+    source drawing the example's slots from it)."""
+    from repro_torch.phy import models, ofdm
+    from repro_torch.train import neural_receiver as nr
+
+    cfg = models.CEViTConfig()
+    gen = ofdm.make_generator(seed, dev)
+    params = models.init_cevit(gen, cfg)
+    return cfg, params, lambda i: ofdm.make_slot(gen, nr.GRID, TRAIN_BATCH,
+                                                 TRAIN_SNR_DB)
+
+
+def check_training_gradients(dev) -> dict:
+    """One step's loss and every gradient leaf through the kernels against
+    autograd through the twins, on the card, the same batch and weights:
+    loss rtol 1e-4, each leaf's largest difference at most 1e-3 of that
+    leaf's largest |g|."""
+    import torch
+
+    from repro_torch.common.params import tree_leaves
+    from repro_torch.kernels import _build
+    from repro_torch.train import neural_receiver as nr
+
+    cfg, params, source = _train_setup(dev, 1)
+    feats, h_true, _ = nr.make_batch(source(0), nr.GRID,
+                                     nr.pilot_subcarriers(nr.GRID, dev), 1.0)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def step():
+        loss = nr.loss_fn(params, cfg, feats, h_true)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    n0 = dict(_build.launches)
+    loss, grads = step()
+    launched = {k: _build.launches[k] - n0.get(k, 0) for k in TRAIN_NEEDS}
+    check(launched == TRAIN_PER_STEP,
+          f"{TRAIN}: a gradient step launched {launched}")
+    with _TwinsInModels():
+        loss_t, grads_t = step()
+    rel = [float((a - b).abs().max()) / float(b.abs().max())
+           for a, b in zip(grads, grads_t)]
+    check(abs(loss - loss_t) <= 1e-4 * abs(loss_t),
+          f"{TRAIN}: loss {loss} through the kernels, {loss_t} through the "
+          "twins")
+    check(max(rel) <= 1e-3, f"{TRAIN}: a gradient leaf differs by "
+          f"{max(rel):.3g} of its largest |g| (limit 1e-3)")
+    return {"loss_kernels": loss, "loss_twins": loss_t, "leaves": len(rel),
+            "worst_leaf_rel_err": max(rel),
+            "tolerance": "loss rtol 1e-4; each leaf max|diff| <= 1e-3 "
+                         "max|g|"}
+
+
+def trace_training(params, cfg, source) -> dict:
+    """The measured evidence that training ran the kernels:
+    :data:`TRAIN_TRACE_STEPS` more steps under a CUPTI trace, which must
+    hold exactly
+    :data:`TRAIN_PER_STEP` launches of each kernel a step (a trace that
+    recorded fewer is taken again, up to :data:`TRACE_TRIES` times); the
+    host wall, device busy time, idle share and device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import neural_receiver as nr
+
+    want = {k: n * TRAIN_TRACE_STEPS for k, n in TRAIN_PER_STEP.items()}
+    for _ in range(TRACE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            nr.train(params, cfg, TRAIN_TRACE_STEPS, source)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = _device_events(prof)
+        traced = {k: sum(1 for name, _ in events if pat in name)
+                  for k, pat in KERNEL_SYMBOLS.items()}
+        if all(traced[k] >= n for k, n in want.items()):
+            break
+    for k, n in want.items():
+        check(traced[k] == n, f"{TRAIN}: {KERNEL_SYMBOLS[k]} traced "
+              f"{traced[k]} times in {TRAIN_TRACE_STEPS} steps, not {n}")
+    check(not any(n for k, n in traced.items() if k not in want),
+          f"{TRAIN}: other ported kernels traced: {traced}")
+    by_name: dict = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "steps": TRAIN_TRACE_STEPS, "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us,
+        "device_events": len(events),
+        "traced_launches": {k: n for k, n in traced.items() if n},
+        "ported_kernels_ms": {k: sum(us for name, us in by_name.items()
+                                     if KERNEL_SYMBOLS[k] in name) / 1e3
+                              for k in want},
+        "top_device_ms": [(name[:60], us / 1e3) for name, us in top],
+    }
+
+
+def drive_training(dev) -> tuple:
+    """The training path once at full width (:class:`CEViTConfig`'s
+    default on the example's 128-subcarrier grid, batch 32, 0 dB), with
+    the launch counts zeroed just before and read just after: exactly
+    :data:`TRAIN_PER_STEP` a step.  Then CE-ViT must beat LS on a
+    held-out batch, and a traced window of more steps must show the
+    kernels.  Returns (launches, summary, trace)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.phy import ofdm
+    from repro_torch.train import neural_receiver as nr
+
+    cfg, params, source = _train_setup(dev, 0)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = nr.train(params, cfg, TRAIN_STEPS, source).tolist()
+    wall_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    for k, n in TRAIN_PER_STEP.items():
+        check(launches.get(k, 0) == n * TRAIN_STEPS,
+              f"{TRAIN}: {k} launched {launches.get(k, 0)} times in "
+              f"{TRAIN_STEPS} steps, not {n} a step")
+    check(sum(launches.values()) == sum(TRAIN_PER_STEP.values())
+          * TRAIN_STEPS, f"{TRAIN}: other kernels launched: {launches}")
+    check(all(math.isfinite(x) for x in losses), f"{TRAIN}: loss not finite")
+    held_out = ofdm.make_slot(ofdm.make_generator(nr.EVAL_SEED, dev),
+                              nr.GRID, TRAIN_BATCH, TRAIN_SNR_DB)
+    mse = nr.evaluate(params, cfg, held_out)
+    check(mse["cevit"] < mse["ls"], f"{TRAIN}: CE-ViT's held-out MSE "
+          f"{mse['cevit']} is not below LS's {mse['ls']}")
+    summary = {
+        "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "snr_db": TRAIN_SNR_DB,
+        "wall_s": wall_s, "ms_per_step": wall_s / TRAIN_STEPS * 1e3,
+        "loss_at_step": {i: losses[i] for i in
+                         (*range(0, TRAIN_STEPS, 100), TRAIN_STEPS - 1)},
+        "held_out_mse": mse,
+    }
+    return launches, summary, trace_training(params, cfg, source)
+
+
 def device_total_us(fn, reps: int = 20) -> float:
     """Device microseconds per call of ``fn``, every kernel it launches
     summed (CUPTI): each kernel's mean over its recorded launches, times
@@ -2688,11 +2894,28 @@ def main() -> int:
     for row in fig10(ops_in):
         print(f"fig10 (not gated): {json.dumps(row)}", flush=True)
 
+    print(f"{TRAIN} gradient check (CE-ViT at full width, batch "
+          f"{TRAIN_BATCH}): {json.dumps(check_training_gradients(dev))}",
+          flush=True)
+    launches, summary, prof = drive_training(dev)
+    by_path[TRAIN] = launches
+    traced_by_path[TRAIN] = prof["traced_launches"]
+    print(f"path {TRAIN}: launches {launches}; {json.dumps(summary)}",
+          flush=True)
+    print(f"profiled {TRAIN} steps: {json.dumps(prof)}", flush=True)
+    print(f"path {TRAIN}: {summary['ms_per_step']:.3f} ms a step, device "
+          f"idle share {prof['device_idle_share']:.4f}, held-out MSE LS "
+          f"{summary['held_out_mse']['ls']:.4f} MMSE "
+          f"{summary['held_out_mse']['mmse']:.4f} CE-ViT "
+          f"{summary['held_out_mse']['cevit']:.4f} | {nvidia_smi_line()}",
+          flush=True)
+
     needs_by_path = {label: needs for label, *_, needs in PATHS}
     needs_by_path.update({label: needs for label, *_, needs in MESH_PATHS})
     needs_by_path[MESH_OPEN] = MESH_OPEN_NEEDS
     needs_by_path[SUP] = SUP_NEEDS
     needs_by_path[BLOCKS] = BLOCKS_NEEDS
+    needs_by_path[TRAIN] = TRAIN_NEEDS
     kernels = []
     for name, cases in results.items():
         head = cases[0]  # the main path's shape
@@ -2711,7 +2934,7 @@ def main() -> int:
                         "eager warm-up of each step captured in the run"
                         if label == SUP
                         else "captured launches x graph replays"
-                        if label in traced_by_path
+                        if label in traced_by_path and label != TRAIN
                         else "wrapper calls")
                 for label in by_path},
             traced_launches_by_path={

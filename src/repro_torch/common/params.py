@@ -8,7 +8,7 @@ leaf in the reference's leaf order (dict keys sorted, lists in order).
 PyTorch cannot replay ``jax.random``, so freshly initialised weights match
 the reference in distribution only; carry the reference's own arrays
 across (``*_params_from_numpy`` in :mod:`repro_torch.phy.models`) to run
-the same weights.
+the same weights, and :func:`params_to_numpy` carries the port's back.
 """
 from __future__ import annotations
 
@@ -118,6 +118,12 @@ def params_from_numpy(schema: PyTree, tree: PyTree,
             device, p.dtype),
         schema, tree,
     )
+
+
+def params_to_numpy(tree: PyTree) -> PyTree:
+    """The reverse of :func:`params_from_numpy`: the same nested dict with
+    each tensor as a numpy array on the host (the reference's layout)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def count_params(schema_or_params: PyTree) -> int:

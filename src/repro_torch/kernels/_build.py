@@ -16,7 +16,9 @@ through the kernels (:func:`reset_launches` zeroes the counts).
 The kernels fill fresh tensors through ``ctypes``, which autograd cannot
 see, so :func:`require_cuda` refuses (:func:`require_no_grad`) an operand
 that requires grad while grad mode is on, rather than return a result
-whose operands silently get no gradient.
+whose operands silently get no gradient.  ``te_gemm`` and ``mha`` launch
+theirs inside a ``torch.autograd.Function`` (whose forward runs with grad
+mode off) and so train; every other wrapper refuses.
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@ on a CUDA tensor it launches ``csrc/mha.cu`` (tensor cores, online softmax
 over key tiles, scores never in device memory) or raises.  It takes any
 D: the kernel tiles the output's D over a grid axis, and the wrapper only
 zero-pads D to a 16-byte row pitch (:func:`align_head_dim`), run with the
-true D's scale and cut back.
+true D's scale and cut back.  Under grad it runs in :class:`MhaFunction`,
+whose backward is torch ops: the reference's has no backward kernel
+either.
 
 The quantized attention (``mha_quant`` of the reference) splits as the
 reference's does: :func:`quantize_mha_operands` (torch ops: int8 / e4m3
@@ -36,16 +38,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
 
 
-def _softmax_pv(s: torch.Tensor, v: torch.Tensor,
-                causal: bool) -> torch.Tensor:
+def _probabilities(s: torch.Tensor, causal: bool) -> torch.Tensor:
     """fp32 scores (BH, Sq, Sk), masked (q_pos >= k_pos) where causal,
-    softmaxed over the keys, times fp32 v."""
+    softmaxed over the keys."""
     if causal:
         sq, sk = s.shape[1], s.shape[2]
         keep = (torch.arange(sq, device=s.device)[:, None]
                 >= torch.arange(sk, device=s.device)[None, :])
         s = torch.where(keep, s, NEG_INF)
-    return torch.softmax(s, dim=-1) @ v
+    return torch.softmax(s, dim=-1)
 
 
 def _zero_pad(ts: tuple, dp: int) -> tuple:
@@ -90,7 +91,7 @@ def mha_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = d ** -0.5 if scale is None else scale
     s = (q.to(torch.float32) * scale) @ k.to(torch.float32).transpose(
         -1, -2)
-    return _softmax_pv(s, v.to(torch.float32), causal).to(q.dtype)
+    return (_probabilities(s, causal) @ v.to(torch.float32)).to(q.dtype)
 
 
 def _lib():
@@ -134,14 +135,57 @@ def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out if dp == d else out[..., :d].contiguous()
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True) -> torch.Tensor:
-    """Attention over (BH, S, D) operands: the CUDA kernel on a CUDA tensor
-    (laid out contiguously first), the plain twin on a CPU tensor."""
+def _mha_forward(q, k, v, causal):
     if q.device.type == "cpu":
         return mha_torch(q, k, v, causal=causal)
     return mha_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                     causal=causal)
+
+
+class MhaFunction(torch.autograd.Function):
+    """:func:`mha` with a gradient: the forward is the wrapper's own route
+    (the kernel on a CUDA tensor, the twin on a CPU one), the backward
+    plain torch ops in fp32 on either device, as the reference trains
+    through XLA autodiff of its jnp path.  It recomputes the probabilities
+    P from q and k, then dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O))
+    (the row sum taken as rowsum(P * dO V^T), equal to it in exact
+    arithmetic, so O is neither saved nor rounded to q's dtype) and
+    dQ = scale dS K, dK = scale dS^T Q; each gradient is cast to its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _mha_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        scale = q.shape[-1] ** -0.5
+        q32, k32, v32 = (t.to(torch.float32) for t in (q, k, v))
+        g = g.to(torch.float32)
+        p = _probabilities((q32 * scale) @ k32.transpose(-1, -2),
+                           ctx.causal)
+        dp = g @ v32.transpose(-1, -2)
+        ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+        need_q, need_k, need_v, _ = ctx.needs_input_grad
+        return ((scale * (ds @ k32)).to(q.dtype) if need_q else None,
+                (scale * (ds.transpose(-1, -2) @ q32)).to(k.dtype)
+                if need_k else None,
+                (p.transpose(-1, -2) @ g).to(v.dtype) if need_v else None,
+                None)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True) -> torch.Tensor:
+    """Attention over (BH, S, D) operands: the CUDA kernel on a CUDA tensor
+    (laid out contiguously first), the plain twin on a CPU tensor.  With
+    grad mode on and an operand that requires grad, the same route runs
+    inside :class:`MhaFunction`, whose backward is plain torch."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return MhaFunction.apply(q, k, v, causal)
+    return _mha_forward(q, k, v, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +217,7 @@ def mha_quantized_torch(qq: torch.Tensor, kq: torch.Tensor,
     scale = d ** -0.5 if scale is None else scale
     qf = qq.to(torch.float32) * (qs * ks * scale)[..., None]
     s = qf @ kq.to(torch.float32).transpose(-1, -2)
-    out = _softmax_pv(s, vq.to(torch.float32), causal)
+    out = _probabilities(s, causal) @ vq.to(torch.float32)
     return (out * vs[..., None]).to(out_dtype)
 
 

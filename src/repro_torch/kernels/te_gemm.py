@@ -9,7 +9,9 @@ on the CPU; on a CUDA tensor it launches ``csrc/te_gemm.cu`` (persistent
 wgmma blocks over a TMA / cp.async ring, fp32 as 3xTF32, edges masked so
 every shape works with no padding) or raises.  A softmax row wider than
 :data:`SOFTMAX_TILE_N` takes two passes (per-tile logits and (max, sum)
-pairs, then a normalising pass), so any N works.
+pairs, then a normalising pass), so any N works.  Under grad it runs in
+:class:`TeGemmFunction`, whose backward (every epilogue) is torch ops:
+the reference's has no backward kernel either.
 
 The quantized GEMM (``te_gemm_quant`` of the reference) splits as the
 reference's does: :func:`quantize_gemm_operands` (torch ops on the
@@ -123,20 +125,71 @@ def te_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def te_gemm(x: torch.Tensor, w: torch.Tensor,
-            bias: Optional[torch.Tensor] = None, *,
-            epilogue: str = "none") -> torch.Tensor:
-    """``epi(x @ w + bias)``, x (M, K), w (K, N), bias (N,) or None: the
-    CUDA kernel on a CUDA tensor (operands laid out contiguously first,
-    the bias in fp32), the plain twin on a CPU tensor."""
-    if epilogue not in EPILOGUES:
-        raise ValueError(f"unknown epilogue {epilogue!r}; have {EPILOGUES}")
+def _te_gemm_forward(x, w, bias, epilogue):
     if x.device.type == "cpu":
         return te_gemm_torch(x, w, bias, epilogue=epilogue)
     return te_gemm_cuda(
         x.contiguous(), w.contiguous(),
         None if bias is None else bias.to(torch.float32).contiguous(),
         epilogue=epilogue)
+
+
+class TeGemmFunction(torch.autograd.Function):
+    """:func:`te_gemm` with a gradient: the forward is the wrapper's own
+    route (the kernel on a CUDA tensor, the twin on a CPU one), the
+    backward plain torch ops in fp32 on either device, as the reference
+    trains through XLA autodiff of its jnp path.  Each gradient is cast
+    to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, epilogue):
+        out = _te_gemm_forward(x, w, bias, epilogue)
+        ctx.epilogue = epilogue
+        ctx.save_for_backward(x, w, bias, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias, out = ctx.saved_tensors
+        x32, w32 = x.to(torch.float32), w.to(torch.float32)
+        g = g.to(torch.float32)
+        epi = ctx.epilogue
+
+        def z():  # the fp32 pre-activation, recomputed
+            return _epilogue(x32 @ w32, bias, "none")
+
+        if epi == "relu":
+            dz = g * (out > 0)
+        elif epi == "silu":
+            zz = z()
+            s = torch.sigmoid(zz)
+            dz = g * (s * (1.0 + zz * (1.0 - s)))
+        elif epi == "softmax":  # an output rounded below fp32 is recomputed
+            p = out if out.dtype == torch.float32 else torch.softmax(z(), -1)
+            dz = p * (g - torch.sum(g * p, dim=-1, keepdim=True))
+        else:
+            dz = g
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        return ((dz @ w32.T).to(x.dtype) if need_x else None,
+                (x32.T @ dz).to(w.dtype) if need_w else None,
+                torch.sum(dz, dim=0).to(bias.dtype) if need_b else None,
+                None)
+
+
+def te_gemm(x: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor] = None, *,
+            epilogue: str = "none") -> torch.Tensor:
+    """``epi(x @ w + bias)``, x (M, K), w (K, N), bias (N,) or None: the
+    CUDA kernel on a CUDA tensor (operands laid out contiguously first,
+    the bias in fp32), the plain twin on a CPU tensor.  With grad mode on
+    and an operand that requires grad, the same route runs inside
+    :class:`TeGemmFunction`, whose backward is plain torch."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; have {EPILOGUES}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        return TeGemmFunction.apply(x, w, bias, epilogue)
+    return _te_gemm_forward(x, w, bias, epilogue)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ composition.
 
 The Wiener smoother's (n_sc x n_sc) solve, the FFT and the small batched
 MMSE solves of the unfused detector stay library calls, as the reference
-leaves them to XLA outside any Pallas kernel.  Solves go through
+leaves them to XLA outside any Pallas kernel; ``cfft_radix2`` writes the
+PEs' radix-2 butterflies out in torch ops, as the reference does in jnp.  Solves go through
 ``torch.linalg.solve_ex`` so they never block the host on an error check.
 
 ``noise_var`` is one value or one per lane of a multi-cell step
@@ -22,9 +23,65 @@ import torch
 from repro_torch.kernels.rx_fused import noise_var_rows
 
 
-def cfft_auto(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """CFFT for any transform length (``torch.fft.fft``)."""
+def cfft(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Complex FFT (the PE CFFT kernel; paper Fig. 8)."""
     return torch.fft.fft(x, dim=axis)
+
+
+def cfft_auto(x: torch.Tensor, axis: int = -1,
+              prefer_butterfly: bool = False) -> torch.Tensor:
+    """CFFT for any transform length: ``torch.fft.fft``, or with
+    ``prefer_butterfly=True`` the radix-2 butterflies of
+    :func:`cfft_radix2` for a power-of-two length (any other length still
+    takes ``torch.fft.fft``)."""
+    n = x.shape[axis]
+    if prefer_butterfly and n > 1 and n & (n - 1) == 0:
+        return torch.movedim(cfft_radix2(torch.movedim(x, axis, -1)), -1,
+                             axis)
+    return torch.fft.fft(x, dim=axis)
+
+
+def cfft_radix2(x: torch.Tensor) -> torch.Tensor:
+    """Iterative radix-2 DIT FFT over the last axis (power-of-two length):
+    the explicit butterfly formulation that runs on the paper's PEs, in
+    complex64."""
+    n = x.shape[-1]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"radix-2 needs a power-of-two length, got {n}")
+    bits = n.bit_length() - 1
+    idx = torch.arange(n, device=x.device)
+    rev = torch.zeros_like(idx)
+    for b in range(bits):  # bit-reversal permutation
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    y = x[..., rev].to(torch.complex64)
+    size = 2
+    while size <= n:
+        half = size // 2
+        tw = torch.exp(-2j * np.pi * torch.arange(
+            half, device=x.device, dtype=torch.float32) / size)
+        y = y.reshape(*y.shape[:-1], n // size, size)
+        even, odd = y[..., :half], y[..., half:] * tw
+        y = torch.cat([even + odd, even - odd], dim=-1).reshape(
+            *y.shape[:-2], n)
+        size *= 2
+    return y
+
+
+def ls_channel_estimate(
+    y: torch.Tensor,  # (B, n_sym, n_sc) received grid
+    pilots: torch.Tensor,  # (n_sc,) known pilot symbols
+    pilot_mask: torch.Tensor,  # (n_sym, n_sc) bool
+    pilot_stride: int = 4,  # static pilot subcarrier spacing
+) -> torch.Tensor:
+    """LS estimate averaged over the pilot symbols, then clamped linear
+    interpolation from the comb ``0::pilot_stride`` to every subcarrier.
+    Returns H_hat (B, n_sc), flat in time within the slot."""
+    est = y / pilots[None, None, :]  # (B, n_sym, n_sc)
+    w = pilot_mask.to(torch.float32)[None]
+    h_p = torch.sum(est * w, dim=1) / torch.clamp(torch.sum(w, dim=1),
+                                                  min=1e-9)
+    n_sc = y.shape[-1]
+    return _interp_rows(h_p[:, ::pilot_stride], n_sc, 0, pilot_stride)
 
 
 def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -70,6 +127,13 @@ def _regularized_gram_rhs(y, h, noise_var):
     a = gram + nv * torch.eye(n_tx, dtype=h.dtype, device=h.device)
     rhs = torch.einsum("bstr,bsr->bst", hh, y)
     return gram, a, rhs
+
+
+def mimo_mmse_detect(y, h, noise_var):
+    """Per-subcarrier MMSE equalizer x = (H^H H + s2 I)^-1 H^H y for
+    y (B, n_sc, n_rx), h (B, n_sc, n_rx, n_tx) -> (B, n_sc, n_tx)."""
+    _, a, rhs = _regularized_gram_rhs(y, h, noise_var)
+    return _solve(a, rhs[..., None])[..., 0]
 
 
 def mimo_mmse_detect_ext(y, h, noise_var):

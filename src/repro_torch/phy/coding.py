@@ -175,6 +175,18 @@ def make_code(rate: str = "r12", z: int = 32, k_b: int = 12,
     )
 
 
+def dense_parity_matrix(code: CodeConfig) -> np.ndarray:
+    """Expand the lifted graph to the dense (m_b*z, n_b*z) binary H, int8
+    (a test and oracle helper, never on the hot path)."""
+    z = code.z
+    h = np.zeros((code.m_b * z, code.n_b * z), np.int8)
+    r = np.arange(z)
+    for j, edges in enumerate(code.layers()):
+        for c, s in edges:
+            h[j * z + r, c * z + (r + s) % z] = 1
+    return h
+
+
 # ---------------------------------------------------------------------------
 # Encode / rate matching
 # ---------------------------------------------------------------------------

@@ -16,8 +16,12 @@ is ``w.reshape(kh*kw*cin, cout)``) and every linear goes through
 :func:`repro_torch.kernels.mha.mha`, at every shape: on a CUDA tensor
 these are the hand-written kernels, which mask their own edges, so the
 reference's 128-divisibility fallback and K padding (TPU tiling) have no
-counterpart here; on a CPU tensor they are the plain twins.  Serving needs
-no gradient, and the kernels have none, as in the reference.
+counterpart here; on a CPU tensor they are the plain twins.  Both carry a
+gradient (``te_gemm.TeGemmFunction``, ``mha.MhaFunction``: the kernel
+forward, a plain torch backward), so CE-ViT and DeepRx train on the card
+through their kernels (:mod:`repro_torch.train.neural_receiver`); the
+reference trains on its jnp path, which has no kernel.  Serving runs under
+``torch.no_grad()`` and takes the kernels alone.
 """
 from __future__ import annotations
 

@@ -145,6 +145,16 @@ def make_modem(modulation) -> Modem:
     return _MODEMS[modulation]
 
 
+def qam16_mod(bits: torch.Tensor) -> torch.Tensor:
+    """bits: (..., 4) -> complex symbol (gray-coded 16-QAM, unit power)."""
+    return _MODEMS["qam16"].mod(bits)
+
+
+def qam16_demod_llr(y: torch.Tensor, noise_var) -> torch.Tensor:
+    """Max-log LLRs for gray 16-QAM. y: (...,) complex -> (..., 4)."""
+    return _MODEMS["qam16"].demod_llr(y, noise_var)
+
+
 # ---------------------------------------------------------------------------
 # Channel
 # ---------------------------------------------------------------------------
@@ -206,6 +216,20 @@ def pilot_sequence(cfg: GridConfig, device: DeviceLike = None) -> torch.Tensor:
     return torch.from_numpy(pilot_sequence_np(cfg)).to(resolve_device(device))
 
 
+def pilot_mask_np(cfg: GridConfig) -> np.ndarray:
+    """(n_symbols, n_subcarriers) bool mask of the uncoded grid's pilot
+    REs: every ``pilot_stride``-th subcarrier of the pilot symbols."""
+    m = np.zeros((cfg.n_symbols, cfg.n_subcarriers), bool)
+    m[list(cfg.pilot_symbols)] = (
+        np.arange(cfg.n_subcarriers) % cfg.pilot_stride == 0)
+    return m
+
+
+def pilot_mask(cfg: GridConfig, device: DeviceLike = None) -> torch.Tensor:
+    """:func:`pilot_mask_np` on ``device``."""
+    return torch.from_numpy(pilot_mask_np(cfg)).to(resolve_device(device))
+
+
 def link_pilot_masks_np(cfg: GridConfig) -> np.ndarray:
     """(n_tx, n_symbols, n_subcarriers) bool: staggered per-tx DMRS combs.
 
@@ -232,6 +256,58 @@ def link_pilot_masks(cfg: GridConfig,
 # ---------------------------------------------------------------------------
 # Slots
 # ---------------------------------------------------------------------------
+
+def make_slot(gen: torch.Generator, cfg: GridConfig, batch: int,
+              snr_db: float) -> dict:
+    """Simulate one uncoded SISO uplink slot on ``gen``'s device (the
+    training and estimator-comparison grid).
+
+    Returns dict(y, x, h, bits, pilots, pilot_mask, noise_var):
+      y (B, n_sym, n_sc) received grid, x transmitted 16-QAM symbols with
+      the QPSK pilots on ``pilot_mask`` (n_sym, n_sc), h (B, n_sc) channel
+      (flat in time within the slot), bits (B, n_sym, n_sc, 4) int32,
+      pilots (n_sc,), noise_var 0-d float32.
+    """
+    dev = gen.device
+    bits = torch.randint(0, 2, (batch, cfg.n_symbols, cfg.n_subcarriers, 4),
+                         generator=gen, device=dev, dtype=torch.int32)
+    x = qam16_mod(bits)  # (B, n_sym, n_sc)
+    h = tdl_channel(gen, cfg, batch)[:, 0, 0, :]  # (B, n_sc)
+    pm = pilot_mask(cfg, dev)
+    pilots = pilot_sequence(cfg, dev)
+    x = torch.where(pm[None], pilots[None, None, :], x)
+    noise_var = 1.0 / 10.0 ** (snr_db / 10.0)
+    y = x * h[:, None, :] + _cnormal(gen, x.shape) * math.sqrt(
+        noise_var / 2.0)
+    return {
+        "y": y, "x": x, "h": h, "bits": bits,
+        "pilots": pilots, "pilot_mask": pm,
+        "noise_var": torch.tensor(noise_var, dtype=torch.float32,
+                                  device=dev),
+    }
+
+
+def make_mimo_slot(gen: torch.Generator, cfg: GridConfig, batch: int,
+                   snr_db: float) -> dict:
+    """MIMO slot, flat per subcarrier, for MMSE detection on ``gen``'s
+    device: y (B, n_sc, n_rx), h (B, n_sc, n_rx, n_tx), x (B, n_sc, n_tx)
+    16-QAM, bits (B, n_sc, n_tx, 4) int32, noise_var = n_tx / snr (0-d
+    float32)."""
+    dev = gen.device
+    bits = torch.randint(0, 2, (batch, cfg.n_subcarriers, cfg.n_tx, 4),
+                         generator=gen, device=dev, dtype=torch.int32)
+    x = qam16_mod(bits)  # (B, n_sc, n_tx)
+    h = torch.movedim(tdl_channel(gen, cfg, batch), -1, 1)
+    noise_var = cfg.n_tx / 10.0 ** (snr_db / 10.0)
+    noise = _cnormal(gen, (batch, cfg.n_subcarriers, cfg.n_rx))
+    y = torch.einsum("bsrt,bst->bsr", h, x) + noise * math.sqrt(
+        noise_var / 2.0)
+    return {
+        "y": y, "h": h, "x": x, "bits": bits,
+        "noise_var": torch.tensor(noise_var, dtype=torch.float32,
+                                  device=dev),
+    }
+
 
 def make_link_slot(
     gen: torch.Generator,

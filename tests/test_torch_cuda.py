@@ -191,18 +191,133 @@ def test_te_gemm_wide_softmax_matches_twin(dev, m, k, n, bias, dtype):
 
 
 def test_kernel_wrappers_refuse_operands_requiring_grad(dev):
-    x = torch.randn(64, 16, device=dev)
-    w = torch.randn(16, 8, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        te_gemm.te_gemm(x, w)
-    q = torch.randn(2, 8, 16, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="requires grad"):
-        mha.mha(q, q, q)
+    """The wrappers without a backward refuse an operand that requires
+    grad while grad mode is on; te_gemm and mha train (below)."""
+    gen = ofdm.make_generator(11, dev)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    g = lambda t: t.clone().requires_grad_()
+    x, w = r(64, 16), r(16, 8)
+    q = r(2, 64, 16)
+    scn = scenarios.get_scenario("siso-qam16-r12-snr15")
+    slot = scn.make_batch(ofdm.make_generator(4, dev), 2)
+    y = torch.fft.fft(slot["y_time"], dim=2).contiguous()
+    op = torch.from_numpy(rx_fused.make_ls_interp_operator(
+        scn.grid.n_subcarriers, 1, scn.grid.pilot_stride,
+        ofdm.pilot_sequence_np(scn.grid))).to(dev)
+    h = slot["h"][:, 0].contiguous()
+    code = coding.make_code("r12")
+    calls = [
+        lambda: te_gemm.te_gemm_quant(g(x), w),
+        lambda: mha.mha_quant(g(q), q, q),
+        lambda: fc_softmax.fc_softmax(x, g(w)),
+        lambda: dwconv_block.dwconv_block(
+            r(1, 6, 6, 16), 0.2 * r(3, 3, 16), g(r(16, 32)),
+            torch.ones(32, device=dev), torch.zeros(32, device=dev)),
+        lambda: rx_fused.ls_che(y, scn.grid.pilot_symbols,
+                                scn.grid.pilot_stride, g(op)),
+        lambda: rx_fused.mmse_detect_demap(y, g(h), slot["noise_var"],
+                                           scn.modem),
+        lambda: rx_fused.sic_detect_demap(y, g(h), slot["noise_var"],
+                                          scn.modem),
+        lambda: ldpc.ldpc_decode(g(r(4, code.n_mother)), code),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
     with torch.no_grad():  # serving's mode: no graph, no error
-        torch.testing.assert_close(te_gemm.te_gemm(x, w), x @ w, rtol=1e-4,
-                                   atol=1e-4)
-    torch.testing.assert_close(te_gemm.te_gemm(x, w.detach()),
-                               x @ w.detach(), rtol=1e-4, atol=1e-4)
+        _close(te_gemm.te_gemm(x, g(w)), x @ w, 1e-4)
+
+
+@pytest.mark.parametrize("epilogue,bias,dtype", [
+    ("none", False, torch.float32), ("none", True, torch.float32),
+    ("relu", True, torch.float32), ("silu", True, torch.float32),
+    ("softmax", True, torch.float32), ("softmax", False, torch.float32),
+    ("softmax", True, torch.bfloat16), ("silu", True, torch.bfloat16),
+])
+def test_te_gemm_gradients_match_twin(dev, epilogue, bias, dtype):
+    """Under grad the kernel runs inside TeGemmFunction: its output is the
+    kernel's (one launch), its gradients those of autograd through the
+    twin (CE-ViT's w1 shape; a softmax row of 300 columns, two passes)."""
+    n = 300 if epilogue == "softmax" else 256
+    gen = ofdm.make_generator(n + len(epilogue), dev)
+    x = torch.randn(1024, 128, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(128, n, generator=gen, device=dev) / 128 ** 0.5).to(
+        dtype)
+    b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype) \
+        if bias else None
+    ins = [t.requires_grad_() for t in (x, w, b) if t is not None]
+    gout = torch.randn(1024, n, generator=gen, device=dev).to(dtype)
+    n0 = _build.launches["te_gemm"]
+    out = te_gemm.te_gemm(x, w, b, epilogue=epilogue)
+    assert _build.launches["te_gemm"] == n0 + 1
+    assert type(out.grad_fn).__name__ == "TeGemmFunctionBackward"
+    twin = te_gemm.te_gemm_torch(x, w, b, epilogue=epilogue)
+    rtol = 1e-4 if dtype == torch.float32 else _BF16_RTOL
+    _close(out.detach(), twin.detach(), rtol)
+    for got, want in zip(torch.autograd.grad(out, ins, gout),
+                         torch.autograd.grad(twin, ins, gout)):
+        assert got.dtype == want.dtype
+        _close(got, want, rtol)
+
+
+@pytest.mark.parametrize("bh,s,d,causal,dtype", [
+    (128, 32, 32, False, torch.float32),   # CE-ViT's full-width attention
+    (16, 100, 48, True, torch.float32),
+    (8, 64, 64, False, torch.bfloat16),
+])
+def test_mha_gradients_match_twin(dev, bh, s, d, causal, dtype):
+    gen = ofdm.make_generator(bh + s + d, dev)
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev).to(
+        dtype).requires_grad_() for _ in range(3))
+    gout = torch.randn(bh, s, d, generator=gen, device=dev).to(dtype)
+    n0 = _build.launches["mha"]
+    out = mha.mha(q, k, v, causal=causal)
+    assert _build.launches["mha"] == n0 + 1
+    assert type(out.grad_fn).__name__ == "MhaFunctionBackward"
+    twin = mha.mha_torch(q, k, v, causal=causal)
+    rtol = 1e-4 if dtype == torch.float32 else _BF16_RTOL
+    _close(out.detach(), twin.detach(), rtol)
+    for got, want in zip(torch.autograd.grad(out, (q, k, v), gout),
+                         torch.autograd.grad(twin, (q, k, v), gout)):
+        _close(got, want, rtol)
+
+
+def test_cevit_training_step_matches_twins(dev, monkeypatch):
+    """One training step's loss and gradients through the kernels (10
+    te_gemm and 2 mha launches) against autograd through the twins on the
+    card, the same batch and weights: loss rtol 1e-4, each leaf within
+    1e-3 of its largest |grad|."""
+    from repro_torch.common.params import tree_leaves
+    from repro_torch.phy import models
+    from repro_torch.train import neural_receiver as nr
+
+    gcfg = ofdm.GridConfig(n_subcarriers=64, fft_size=64, pilot_stride=4)
+    mcfg = models.CEViTConfig(d_model=32, heads=2, layers=2, d_ff=64)
+    gen = ofdm.make_generator(0, dev)
+    params = models.init_cevit(gen, mcfg)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    feats, h_true, _ = nr.make_batch(
+        ofdm.make_slot(gen, gcfg, 32, 0.0), gcfg,
+        nr.pilot_subcarriers(gcfg, dev), 1.0)
+
+    def step():
+        loss = nr.loss_fn(params, mcfg, feats, h_true)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    _build.reset_launches()
+    loss, grads = step()
+    assert _build.launches["te_gemm"] == 10 and _build.launches["mha"] == 2
+    monkeypatch.setattr(models, "te_gemm", te_gemm.te_gemm_torch)
+    monkeypatch.setattr(models, "mha", mha.mha_torch)
+    loss_t, grads_t = step()
+    assert _build.launches["te_gemm"] == 10 and _build.launches["mha"] == 2
+    assert float(loss.detach()) == pytest.approx(float(loss_t.detach()),
+                                                 rel=1e-4)
+    for got, want in zip(grads, grads_t):
+        top = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-3 * top
 
 
 @pytest.mark.parametrize("name,batch", [("siso-qam16-r12-snr15", 8),

@@ -114,6 +114,8 @@ _MODULES = [
     "repro_torch.distributed", "repro_torch.distributed.sharding",
     "repro_torch.serve.faults", "repro_torch.serve.supervisor",
     "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+    "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.train",
+    "repro_torch.train.neural_receiver",
 ]
 
 
