@@ -52,8 +52,18 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    where one is timed (``host_us``), and its bound
    (the larger of bytes at 3.35 TB/s and operations at the
    peak for the operands' type: 67 TFLOP/s fp32, 989 TFLOP/s bf16, 1,979
-   TOP/s int8 / fp8) are printed.  A CUPTI trace with none of a case's
-   kernels is retaken up to three times, then the run fails.
+   TOP/s int8 / fp8, ``repro_torch.core.machine``'s ``H100_SXM``) are
+   printed.  A CUPTI trace with none of a case's kernels is retaken up to
+   three times, then the run fails.  Rows 1-4 are also held, at the main
+   paths' shapes, to the unfused oracles of ``repro_torch.kernels.ref``:
+   ``ls_che`` (the SISO, 2x2 and MU grids) to ``ls_che_ref`` at rtol
+   1e-4, detect + demap (the four registered scenarios) and SIC (the MU
+   grid) to ``mmse_detect_demap_ref`` / ``sic_detect_demap_ref`` at >=
+   99.9% LLR sign agreement and rtol 1e-3 / atol 1e-5 of the largest
+   |LLR|, the fp32 decoder (r12 +3 dB, r34 +6 dB) to ``ldpc_decode_ref``
+   in hard bits and iteration counts.  Before phase 3 the script points
+   ``REPRO_TUNE_CACHE`` at a fresh ``build/tune-<pid>.json``, so phases
+   3-6 launch every kernel at its picker's heuristic.
 4. Closed loops served through the executable registry
    (``repro_torch.serve.exec_registry``): every rung's receive chain is
    captured as a CUDA graph when the scheduler is built
@@ -188,7 +198,20 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    loss at steps 0, 100, ..., 400 and 499, beside the ``nvidia-smi``
    line.  Phase 3 also checks and times the six training GEMMs and the
    (128, 32, 32, 32) attention.
-7. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
+7. The autotuner (``repro_torch.kernels.tune``) over the kernels' own
+   launch choices at the main paths' shapes: ``te_gemm`` at DeepRx's
+   block conv (fp32, bf16, int8, e4m3) and CE-ViT's training wqkv, ``mha``
+   at CE-ViT's (32, 64, 64, 16) and (16, 256, 256, 64) causal, detect +
+   demap at SISO-16QAM and 4x8-64QAM, SIC at the MU grid and 8x6 (B = 8),
+   both decoders at r12 over 216 codewords, ``ls_che`` at the three grids.
+   Every candidate is held to the twin (bit for bit for detect, SIC, the
+   decoders and int8; the fp32 / bf16 gates for the GEMMs and ``mha``;
+   ``ls_che`` rtol 1e-5) and timed (device us, CUPTI); each op's tuner
+   runs once and stores its winner; then the public wrapper, with no
+   choice, must launch the winner (``_build.launch_choices``) and still
+   equal the twin.  Each case prints its candidates, the heuristic's
+   choice and the winner; the phase its wall time.
+8. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 and prints no result.
@@ -198,6 +221,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -205,10 +229,6 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
-Q8_OPS = 1979e12  # H100 SXM dense int8 / fp8 tensor cores
 
 
 def check(cond: bool, msg: str) -> None:
@@ -302,6 +322,7 @@ def _trace(fn, reps: int) -> list:
 
 
 WINDOW_RETAKES = 5  # an empty CUPTI window (the tracer failed) is retaken
+TRACE_LEAD_LAUNCHES = 32  # small launches ahead of a one-dispatch window
 TRACE_TRIES = 3  # a trace that holds none of the call's kernels is retaken
 
 
@@ -383,7 +404,7 @@ def profile_window(sch, run, ticks) -> dict:
 
 # per-case fields printed besides the times, where a check records them
 EXTRA_FIELDS = ("bit_exact", "joint_device_us", "max_abs_code", "iters_hist",
-                "library_call", "host_us", "library_host_us")
+                "library_call", "host_us", "library_host_us", "oracle")
 
 # each ported kernel: its source and the TPU kernel it replaces
 KERNELS = {
@@ -419,10 +440,17 @@ KERNEL_SYMBOLS = {"ls_che": "ls_che_kernel",
                   "dwconv_block": "dwconv_block_kernel"}
 
 
-def bound(bytes_moved: float, flops: float,
-          peak_flops: float = FP32_FLOPS) -> tuple:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+def bound(bytes_moved: float, flops: float, peak: str = "fp32") -> tuple:
+    """(ms, "bytes" or "operations"): the larger of ``bytes_moved`` at the
+    card's HBM rate and ``flops`` at its peak for the operands' type
+    (``fp32`` outside the tensor cores, ``bf16``, ``int8``), both from
+    ``repro_torch.core.machine.H100_SXM``."""
+    from repro_torch.core.machine import H100_SXM, H100_SXM_TENSOR_FLOPS
+
+    rate = (H100_SXM.peak_flops if peak == "fp32"
+            else H100_SXM_TENSOR_FLOPS[peak])
+    t_bytes = bytes_moved / H100_SXM.hbm_bw * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -436,8 +464,11 @@ def _grid_y(slot):
     return torch.fft.fft(slot["y_time"], dim=2).contiguous()
 
 
-def _ls_case(name: str, y, pilot_symbols: tuple, stride: int, op) -> dict:
-    """One ``ls_che`` case: the kernel against its twin, and its times."""
+def _ls_case(name: str, y, pilot_symbols: tuple, stride: int, op,
+             oracle=None) -> dict:
+    """One ``ls_che`` case: the kernel against its twin, and against
+    ``oracle`` (the production LS path's H, ``ref.ls_che_ref``) where
+    given, and its times."""
     import torch
 
     from repro_torch.kernels import rx_fused
@@ -449,6 +480,15 @@ def _ls_case(name: str, y, pilot_symbols: tuple, stride: int, op) -> dict:
     err = float((got - want).abs().max())
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
           f"ls_che[{name}] disagrees with its twin (max err {err})")
+    extra = {}
+    if oracle is not None:
+        o_err = float((got - oracle).abs().max())
+        check(torch.allclose(got, oracle, rtol=1e-4,
+                             atol=1e-5 * float(oracle.abs().max())),
+              f"ls_che[{name}] disagrees with ref.ls_che_ref (max err "
+              f"{o_err})")
+        extra["oracle"] = {"max_abs_err": o_err,
+                           "tolerance": "rtol 1e-4, atol 1e-5 * max|oracle|"}
     comb = rx_fused._comb_extract(y, pilot_symbols, stride,
                                   op.shape[0]).mean(dim=1)
     b, n_sc, n_rx, n_tx = got.shape
@@ -468,14 +508,14 @@ def _ls_case(name: str, y, pilot_symbols: tuple, stride: int, op) -> dict:
         plain_ms=time_ms(lambda: rx_fused.ls_che_torch(*args)),
         **library(lib), library_host_us=host_us(lib),
         library_call="torch.einsum on the comb (no gather)",
-        bound_ms=bms, bound_by=by,
+        bound_ms=bms, bound_by=by, **extra,
     )
 
 
 def check_ls_che(dev) -> list:
     import torch
 
-    from repro_torch.kernels import rx_fused
+    from repro_torch.kernels import ref, rx_fused
     from repro_torch.phy import coding, ofdm, scenarios
 
     cases = []
@@ -485,10 +525,15 @@ def check_ls_che(dev) -> list:
         g = scn.grid
         y = _grid_y(coding.make_coded_slot(ofdm.make_generator(1, dev),
                                            scn, 8))
+        seq = ofdm.pilot_sequence_np(g)
         op = torch.from_numpy(rx_fused.make_ls_interp_operator(
-            g.n_subcarriers, g.n_tx, g.pilot_stride,
-            ofdm.pilot_sequence_np(g))).to(dev)
-        cases.append(_ls_case(name, y, g.pilot_symbols, g.pilot_stride, op))
+            g.n_subcarriers, g.n_tx, g.pilot_stride, seq)).to(dev)
+        oracle = ref.ls_che_ref(
+            y, torch.from_numpy(seq).to(dev),
+            torch.from_numpy(ofdm.link_pilot_masks_np(g)).to(dev),
+            g.pilot_stride)
+        cases.append(_ls_case(name, y, g.pilot_symbols, g.pilot_stride, op,
+                              oracle))
     # a 40-symbol 2x2 slot with a pilot past symbol 31 (the pilot symbols
     # reach the kernel as a list)
     gen = _gen(dev, 35)
@@ -649,10 +694,35 @@ def _check_lanes(kernel, label: str, args) -> None:
               f"{label}: lane {i} differs from its one-value launch")
 
 
+def _hold_llr_oracle(name: str, llr, oracle) -> dict:
+    """LLRs against an unfused oracle at the port's gate: >= 99.9% sign
+    agreement, values within rtol 1e-3 and atol 1e-5 of the largest
+    |LLR| (a uniform scale error keeps every sign)."""
+    import torch
+
+    signs = float(((llr > 0) == (oracle > 0)).float().mean())
+    err = float((llr - oracle).abs().max())
+    check(signs >= 0.999, f"{name}: LLR signs agree with the oracle on "
+          f"{signs:.6f} of bits (gate 0.999)")
+    check(torch.allclose(llr, oracle, rtol=1e-3,
+                         atol=1e-5 * float(oracle.abs().max())),
+          f"{name}: LLRs disagree with the oracle (max err {err})")
+    return {"sign_agreement": signs, "max_abs_err": err,
+            "tolerance": ">= 99.9% LLR signs, rtol 1e-3, atol 1e-5 * "
+                         "max|oracle LLR|"}
+
+
+# the main paths' detect + demap and SIC inputs, also held against the
+# unfused oracles of kernels/ref.py
+DEMAP_ORACLE = ("siso-qam16-r12-snr15", "mimo2x2-qam16-r12-snr17",
+                "mimo4x8-qam64-snr24", "siso-qam256-r34-snr28")
+SIC_ORACLE = ("mimo4x4-qam16-mu-snr18",)
+
+
 def check_detect_demap(dev) -> list:
     import torch
 
-    from repro_torch.kernels import rx_fused
+    from repro_torch.kernels import ref, rx_fused
 
     cases = []
     for name, args in (*_demap_inputs(dev),
@@ -666,6 +736,11 @@ def check_detect_demap(dev) -> list:
         err = max(float((a - b_).abs().max()) for a, b_ in zip(got, want))
         check(exact, f"detect_demap[{name}] is not bit-exact to its twin "
               f"(max err {err})")
+        extra = {}
+        if name in DEMAP_ORACLE:
+            extra["oracle"] = _hold_llr_oracle(
+                f"detect_demap[{name}]", got[2],
+                ref.mmse_detect_demap_ref(*args)[2])
         if nv.numel() > 1:
             _check_lanes(rx_fused.mmse_detect_demap, name, args)
         b, n_sym, n_sc, n_rx = y.shape
@@ -687,7 +762,7 @@ def check_detect_demap(dev) -> list:
             host_us=host_us(run),
             plain_ms=time_ms(
                 lambda: rx_fused.mmse_detect_demap_torch(*args)),
-            **library(None), bound_ms=bms, bound_by=by,
+            **library(None), bound_ms=bms, bound_by=by, **extra,
         ))
     return cases
 
@@ -722,7 +797,7 @@ def _sic_decisions(x_hat, modem):
 def check_sic(dev) -> list:
     import torch
 
-    from repro_torch.kernels import rx_fused
+    from repro_torch.kernels import ref, rx_fused
     from repro_torch.phy import ofdm, scenarios
 
     cases = []
@@ -756,6 +831,10 @@ def check_sic(dev) -> list:
         err = max(float((a - b_).abs().max()) for a, b_ in zip(got, want))
         check(exact, f"sic[{name}] is not bit-exact to its twin (max err "
               f"{err})")
+        extra = {}
+        if name in SIC_ORACLE:
+            extra["oracle"] = _hold_llr_oracle(
+                f"sic[{name}]", got[2], ref.sic_detect_demap_ref(*args)[2])
         nv = args[2]
         if nv.numel() > 1:
             _check_lanes(rx_fused.sic_detect_demap, name, args)
@@ -788,7 +867,7 @@ def check_sic(dev) -> list:
             # the joint receiver's kernel on the same inputs, for scale
             joint_device_us=device_us(
                 lambda: rx_fused.mmse_detect_demap(*args),
-                KERNEL_SYMBOLS["mmse_detect_demap"]),
+                KERNEL_SYMBOLS["mmse_detect_demap"]), **extra,
         ))
     return cases
 
@@ -830,10 +909,14 @@ def _code_label(rate: str, code, kw: dict) -> str:
             f"{f' {widest}-edge layers' if kw else ''}")
 
 
+# the main path's codes and points, also held against ref.ldpc_decode_ref
+LDPC_ORACLE = (("r12", 3.0), ("r34", 6.0))
+
+
 def check_ldpc(dev) -> list:
     import torch
 
-    from repro_torch.kernels import ldpc
+    from repro_torch.kernels import ldpc, ref
     from repro_torch.phy import coding
 
     cases = []
@@ -855,6 +938,15 @@ def check_ldpc(dev) -> list:
             check(torch.equal(post, post_t),
                   f"ldpc[{label}] posteriors differ")
             err = float((post - post_t).abs().max())
+            extra = {}
+            if z == 32 and not kw and (rate, snr) in LDPC_ORACLE:
+                post_o, iters_o = ref.ldpc_decode_ref(llr, code)
+                check(torch.equal(iters, iters_o) and torch.equal(
+                    post > 0, post_o > 0), f"ldpc[{label}] hard bits or "
+                      "iteration counts differ from ref.ldpc_decode_ref")
+                extra["oracle"] = {
+                    "max_abs_err": float((post - post_o).abs().max()),
+                    "tolerance": "hard bits and iteration counts equal"}
             it = iters.long()
             # ~10 fp32 ops per edge and lifted row per sweep, 2 per edge
             # for each syndrome check (one before the first sweep)
@@ -874,7 +966,7 @@ def check_ldpc(dev) -> list:
                 host_us=host_us(run),
                 plain_ms=time_ms(lambda: ldpc.ldpc_decode_torch(llr, code),
                                  reps=20, warmup=1),
-                **library(None), bound_ms=bms, bound_by=by,
+                **library(None), bound_ms=bms, bound_by=by, **extra,
             ))
     return cases
 
@@ -1015,8 +1107,8 @@ def check_te_gemm(dev) -> list:
         item = x.element_size()
         nbytes = item * (m * k + k * n + m * n + (n if has_bias else 0))
         flops = 2.0 * m * n * k + (m * n if has_bias else 0)
-        bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
-                        else BF16_FLOPS)
+        bms, by = bound(nbytes, flops, "fp32" if dtype == torch.float32
+                        else "bf16")
         lib = lib_label = None
         if epi == "none":  # one library call computes the same function
             lib, lib_label = (((lambda: torch.addmm(b, x, w)), "torch.addmm")
@@ -1087,8 +1179,8 @@ def check_mha(dev) -> list:
         err = _hold(f"mha[{label}]", got, want, dtype)
         flops = _attention_flops(bh, sq, sk, d, causal)
         nbytes = q.element_size() * bh * d * (2 * sq + 2 * sk)
-        bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
-                        else BF16_FLOPS)
+        bms, by = bound(nbytes, flops, "fp32" if dtype == torch.float32
+                        else "bf16")
         run = lambda: mha.mha(q, k, v, causal=causal)
         lib = lambda: F.scaled_dot_product_attention(q, k, v,
                                                      is_causal=causal)
@@ -1187,7 +1279,7 @@ def check_te_gemm_quant(dev) -> list:
             tol = _tolerance(out_dtype)[1]
         nbytes = (m * k + k * n + 4 * (m + n) + (4 * n if has_bias else 0)
                   + m * n * got.element_size())
-        bms, by = bound(nbytes, 2.0 * m * n * k, Q8_OPS)
+        bms, by = bound(nbytes, 2.0 * m * n * k, "int8")
         lib, lib_label = _quant_library(*codes, has_bias, epi)
         cases.append(dict(
             shape=f"{label} ({m}x{k})@({k}x{n}) {epi}"
@@ -1245,7 +1337,7 @@ def check_mha_quant(dev) -> list:
         nbytes = (bh * d * (sq + 2 * sk) + 12 * bh
                   + bh * sq * d * got.element_size())
         bms, by = bound(nbytes, _attention_flops(bh, sq, sk, d, causal),
-                        Q8_OPS)
+                        "int8")
         # the yardstick: one SDPA call on the codes widened to fp32, the
         # scales folded into q and v outside the timed call (SDPA's causal
         # mask is top-left aligned: q_pos >= k_pos, the reference's)
@@ -1305,8 +1397,8 @@ def check_fc_softmax(dev) -> list:
         item = x.element_size()
         nbytes = item * (m * k + k * n + m * n + (n if has_bias else 0))
         flops = 2.0 * m * n * k + 5.0 * m * n
-        bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
-                        else BF16_FLOPS)
+        bms, by = bound(nbytes, flops, "fp32" if dtype == torch.float32
+                        else "bf16")
         lib = ((lambda: torch.softmax(torch.addmm(b, x, w), dim=-1))
                if has_bias else
                (lambda: torch.softmax(torch.mm(x, w), dim=-1)))
@@ -1372,8 +1464,8 @@ def check_dwconv_block(dev) -> list:
         check(bool((got >= 0).all()), f"dwconv_block[{label}] not ReLU'd")
         nbytes, flops = _dw_bytes_flops(args[0], b, h, w, c, f,
                                         got.element_size())
-        bms, by = bound(nbytes, flops, FP32_FLOPS if dtype == torch.float32
-                        else BF16_FLOPS)
+        bms, by = bound(nbytes, flops, "fp32" if dtype == torch.float32
+                        else "bf16")
         cases.append(dict(
             shape=f"{label} B={b} {h}x{w}x{c} -> {f} {dt}", max_abs_err=err,
             tolerance=_tolerance(dtype)[1], ms=time_ms(run),
@@ -2151,13 +2243,13 @@ def check_supervised_runner(dev) -> dict:
 
 def trace_degraded_dispatch(sup, gi8: int, max_ticks: int = 10) -> dict:
     """The CUPTI evidence that the degradation route launches the fp32
-    decoder: tick ``sup`` until the int8 group ``gi8`` dispatches a
-    bucket, inject a NaN burst into that bucket's first lane, and trace
-    that one dispatch (its degradation step acquired just before, so the
-    window captures nothing; one small kernel and a pause first, since
-    the start of a trace can miss a launch), retaken on a later bucket
-    (up to :data:`TRACE_TRIES` times) while a kernel of
-    :data:`SUP_NEEDS` is missing.  Fails unless the lane degraded, the
+    decoder: tick ``sup`` until the int8 group ``gi8`` dispatches a bucket,
+    inject a NaN burst into that bucket's first lane, and trace that one
+    dispatch (its degradation step acquired just before, so the window
+    captures nothing; :data:`TRACE_LEAD_LAUNCHES` small kernels and a pause
+    first, since the start of a trace can miss launches), retaken on a
+    later bucket (up to :data:`TRACE_TRIES` times) while a kernel of
+    :data:`SUP_NEEDS` is missing. Fails unless the lane degraded, the
     degradation step replayed once, each kernel appears at least once and
     at most as often as the window's replays account for, and the fp32
     decoder exactly as often as the degradation step replayed (the int8
@@ -2186,9 +2278,13 @@ def trace_degraded_dispatch(sup, gi8: int, max_ticks: int = 10) -> dict:
         nxt = []
 
         def run():
-            torch.ones(1, device=sup.device).add_(1)
+            # late in a process a new trace can drop its first records:
+            # small launches and a pause take them
+            one = torch.ones(1, device=sup.device)
+            for _ in range(TRACE_LEAD_LAUNCHES):
+                one.add_(1)
             torch.cuda.synchronize()
-            time.sleep(0.02)
+            time.sleep(0.05)
             nxt.append(inner(gi, mcs, lanes, staged, stats, prefetch))
 
         traced = profile_window(sup, run, None)
@@ -2221,7 +2317,9 @@ def trace_degraded_dispatch(sup, gi8: int, max_ticks: int = 10) -> dict:
     for k in SUP_NEEDS:
         check(0 < got.get(k, 0) <= want.get(k, 0),
               f"{label}: {KERNEL_SYMBOLS[k]} traced {got.get(k, 0)} times "
-              f"in a window whose replays account for {want.get(k, 0)}")
+              f"in a window whose replays account for {want.get(k, 0)} "
+              f"(each try's traced launches: "
+              f"{[t['traced_launches'] for t in traces]})")
     check(got["ldpc_decode"] == want["ldpc_decode"]
           == traced["degradation_replays"],
           f"{label}: {KERNEL_SYMBOLS['ldpc_decode']} traced "
@@ -2712,6 +2810,268 @@ def drive_training(dev) -> tuple:
     return launches, summary, trace_training(params, cfg, source)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the autotuner over the kernels' own launch choices
+# ---------------------------------------------------------------------------
+
+TUNE = "autotune"
+TUNE_ITERS = 10  # timed calls a candidate in each tuner's search
+
+
+def _tune_gemm_case(dev, label: str, m: int, k: int, n: int, dt: str):
+    """``te_gemm`` (float32 / bfloat16) or ``te_gemm_quant`` (int8 /
+    float8_e4m3fn codes) at (m, k) @ (k, n), epilogue none: every
+    candidate and the public wrapper against the twin, fp32 at rtol 1e-4,
+    bf16 at one bf16 step, int8 bit for bit, e4m3 at the fp32 gate."""
+    import torch
+
+    from repro_torch.kernels import quant, te_gemm, tune
+
+    dtype = getattr(torch, dt)
+    gen = _gen(dev, m + 7 * k + 13 * n)
+    x = torch.randn(m, k, generator=gen, device=dev)
+    w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+    if dtype in (torch.float32, torch.bfloat16):
+        x, w = x.to(dtype), w.to(dtype)
+        run = lambda c=None: te_gemm.te_gemm(x, w, choice=c)
+        want = te_gemm.te_gemm_torch(x, w)
+        hold = lambda got: _hold(f"{TUNE} te_gemm[{label} {dt}]", got, want,
+                                 dtype)
+        counter, symbols, tol = "te_gemm", TE_GEMM_SYMBOLS, \
+            _tolerance(dtype)[1]
+    else:
+        prec = quant.precision_of_dtype(dtype)
+        run = lambda c=None: te_gemm.te_gemm_quant(x, w, precision=prec,
+                                                   choice=c)
+        want = te_gemm.te_gemm_quant_torch(x, w, precision=prec)
+        if prec == "int8":
+            def hold(got):
+                check(torch.equal(got, want), f"{TUNE} te_gemm[{label} "
+                      f"{dt}] is not bit-exact against its twin")
+                return 0.0
+            tol = "bit-exact (int32 product, the twin's dequant order)"
+        else:
+            hold = lambda got: _hold(f"{TUNE} te_gemm[{label} {dt}]", got,
+                                     want, torch.float32)
+            tol = _tolerance(torch.float32)[1]
+        counter, symbols = "te_gemm_quant", TE_GEMM_QUANT_SYMBOLS
+    return dict(
+        label=f"te_gemm {label} ({m}x{k})@({k}x{n}) {dt}", counter=counter,
+        symbols=symbols, tolerance=tol, run=run, hold=hold,
+        candidates=te_gemm.block_shape_candidates(m, n, k, dtype),
+        heuristic=te_gemm.pick_block_shape(m, n, k, dtype),
+        tune=lambda t: tune.autotune_gemm(m, n, k, dtype, iters=TUNE_ITERS,
+                                          device=dev, timings=t))
+
+
+def _tune_mha_case(dev, bh: int, sq: int, sk: int, d: int, causal: bool):
+    import torch
+
+    from repro_torch.kernels import _build, mha, tune
+
+    gen = _gen(dev, bh * sq + d)
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device=dev)
+               for s in (sq, sk, sk))
+    label = f"({bh}, {sq}, {sk}, {d}) {'causal' if causal else 'full'}"
+    want = mha.mha_torch(q, k, v, causal=causal)
+    return dict(
+        label=f"mha {label} float32", counter="mha",
+        symbols=KERNEL_SYMBOLS["mha"], tolerance=_tolerance(torch.float32)[1],
+        run=lambda c=None: mha.mha(q, k, v, causal=causal, choice=c),
+        hold=lambda got: _hold(f"{TUNE} mha[{label}]", got, want,
+                               torch.float32),
+        candidates=mha.cluster_candidates(bh, sq, sk, d, causal),
+        heuristic=mha.pick_cluster(bh, sq, sk, d, causal, torch.float32,
+                                   _build.sm_count(
+                                       torch.cuda.current_device())),
+        tune=lambda t: tune.autotune_mha(bh, sq, sk, d, causal=causal,
+                                         iters=TUNE_ITERS, device=dev,
+                                         timings=t))
+
+
+def _tune_demap_case(dev, name: str, args: tuple, sic: bool):
+    """Joint or SIC detect + demap: every candidate bit for bit against
+    the twin (every tile runs each RE's chain in the same order)."""
+    import torch
+
+    from repro_torch.kernels import rx_fused, tune
+
+    y, h, nv, modem = args
+    b, n_sym, n_sc, n_rx = y.shape
+    n_tx = h.shape[-1]
+    nb = modem.bits_per_symbol // 2
+    kernel = rx_fused.sic_detect_demap if sic else rx_fused.mmse_detect_demap
+    twin = (rx_fused.sic_detect_demap_torch if sic
+            else rx_fused.mmse_detect_demap_torch)
+    want = twin(*args)
+    op = "sic" if sic else "detect"
+
+    def hold(got):
+        check(all(torch.equal(a, w) for a, w in zip(got, want)),
+              f"{TUNE} {op}[{name}] is not bit-exact to its twin")
+        return 0.0
+
+    counter = "sic_detect_demap" if sic else "mmse_detect_demap"
+    return dict(
+        label=f"{op} {name} B={b}", counter=counter,
+        symbols=KERNEL_SYMBOLS[counter],
+        tolerance="bit-exact (x_hat, nv_eff and LLRs equal)",
+        run=lambda c=None: kernel(*args, choice=c), hold=hold,
+        candidates=rx_fused.subcarrier_tile_candidates(sic, n_rx, n_tx, nb),
+        heuristic=rx_fused.pick_subcarrier_tile(sic, n_sym, n_sc, n_rx, n_tx,
+                                                nb),
+        tune=lambda t: (tune.autotune_rx_sic if sic
+                        else tune.autotune_rx_detect)(
+            b, n_sym, n_sc, n_rx, n_tx, modem, iters=TUNE_ITERS,
+            device=dev, timings=t))
+
+
+def _tune_ldpc_case(dev, precision):
+    """Both decoders at r12 over 216 codewords at +3 dB: every candidate's
+    posteriors and iteration counts bit for bit against the twin.  The
+    tuner times the fp32 decoder; both read its winner."""
+    import torch
+
+    from repro_torch.kernels import ldpc, tune
+    from repro_torch.phy import coding
+
+    code = coding.make_code("r12")
+    llr = _code_llrs(code, 216, 3.0, dev)
+    want = ldpc.ldpc_decode_torch(llr, code, precision=precision)
+    dp = precision or "fp32"
+
+    def hold(got):
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"{TUNE} ldpc {dp}: posteriors or iteration counts differ")
+        return 0.0
+
+    counter = "ldpc_decode_q" if precision else "ldpc_decode"
+    return dict(
+        label=f"ldpc_decode {dp} r12 +3dB 216cw", counter=counter,
+        symbols=KERNEL_SYMBOLS[counter],
+        tolerance="posteriors and iteration counts exact",
+        run=lambda c=None: ldpc.ldpc_decode(llr, code, precision=precision,
+                                            choice=c), hold=hold,
+        candidates=ldpc.segment_candidates(code),
+        heuristic=ldpc.pick_segment(code),
+        tune=lambda t: tune.autotune_ldpc(216, code, iters=TUNE_ITERS,
+                                          device=dev, timings=t))
+
+
+def _tune_ls_case(dev, name: str):
+    import torch
+
+    from repro_torch.kernels import rx_fused, tune
+    from repro_torch.phy import coding, ofdm, scenarios
+
+    scn = scenarios.get_scenario(name)
+    g = scn.grid
+    y = _grid_y(coding.make_coded_slot(ofdm.make_generator(1, dev), scn, 8))
+    op = torch.from_numpy(rx_fused.make_ls_interp_operator(
+        g.n_subcarriers, g.n_tx, g.pilot_stride,
+        ofdm.pilot_sequence_np(g))).to(dev)
+    args = (y, g.pilot_symbols, g.pilot_stride, op)
+    want = rx_fused.ls_che_torch(*args)
+
+    def hold(got):
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f"{TUNE} ls_che[{name}] disagrees with its twin ({err})")
+        return err
+
+    b, n_sc, n_rx = y.shape[0], g.n_subcarriers, g.n_rx
+    return dict(
+        label=f"ls_che {name} B={b}", counter="ls_che",
+        symbols=KERNEL_SYMBOLS["ls_che"], tolerance="rtol 1e-5, atol 1e-6",
+        run=lambda c=None: rx_fused.ls_che(*args, choice=c), hold=hold,
+        candidates=rx_fused.threads_per_output_candidates(b * n_rx),
+        heuristic=rx_fused.pick_threads_per_output(
+            n_sc, n_rx, g.n_tx, op.shape[1], b * n_rx),
+        tune=lambda t: tune.autotune_rx_ls_che(
+            b, g.n_symbols, n_sc, n_rx, g.n_tx, g.pilot_stride,
+            g.pilot_symbols, iters=TUNE_ITERS, device=dev, timings=t))
+
+
+def _tune_cases(dev):
+    """Phase 7's cases at the main paths' shapes: te_gemm at DeepRx's
+    block conv (fp32, bf16, int8, e4m3) and CE-ViT's training wqkv; mha at
+    CE-ViT's (32, 64, 64, 16) and (16, 256, 256, 64) causal; detect at
+    SISO-16QAM and 4x8-64QAM; SIC at the MU grid and 8x6 (all B = 8);
+    both decoders at r12 over 216 codewords; ls_che at the three grids."""
+    from repro_torch.phy import ofdm, scenarios
+
+    for dt in ("float32", "bfloat16", "int8", "float8_e4m3fn"):
+        yield _tune_gemm_case(dev, "deeprx block conv2", 28672, 288, 32, dt)
+    yield _tune_gemm_case(dev, "training wqkv", 1024, 128, 384, "float32")
+    yield _tune_mha_case(dev, 32, 64, 64, 16, False)
+    yield _tune_mha_case(dev, 16, 256, 256, 64, True)
+    demap = dict(_demap_inputs(dev))
+    for name in ("siso-qam16-r12-snr15", "mimo4x8-qam64-snr24"):
+        yield _tune_demap_case(dev, name, demap[name], sic=False)
+    mu = scenarios.get_scenario("mimo4x4-qam16-mu-snr18")
+    slot = mu.make_batch(ofdm.make_generator(2, dev), 8)
+    yield _tune_demap_case(dev, mu.name, (
+        _grid_y(slot), slot["h"][:, 0].contiguous(), slot["noise_var"],
+        mu.modem), sic=True)
+    yield _tune_demap_case(dev, "8x6-qam16", demap["8x6-qam16 (no instance)"],
+                           sic=True)
+    yield _tune_ldpc_case(dev, None)
+    yield _tune_ldpc_case(dev, "int8")
+    for name in ("siso-qam16-r12-snr15", "mimo2x2-qam16-r12-snr17",
+                 "mimo4x4-qam16-mu-snr18"):
+        yield _tune_ls_case(dev, name)
+
+
+def drive_autotune(dev) -> list:
+    """Phase 7: each case's every candidate against the twin at the row's
+    tolerance, its device us (CUPTI), the heuristic's choice; then the
+    op's tuner once (CUDA events, the median of :data:`TUNE_ITERS` calls a
+    candidate), its winner stored in the run's cache; then the public
+    wrapper, with no choice, must launch the winner (its launch record)
+    and still equal the twin.  The int8 decoder reuses the fp32 one's
+    winner (one key, as in the reference)."""
+    from repro_torch.kernels import _build
+
+    rows, winners = [], {}
+    cases = list(_tune_cases(dev))  # every heuristic read before any store
+    for case in cases:
+        cands = {}
+        for c in case["candidates"]:
+            err = case["hold"](case["run"](c))
+            check(_build.launch_choices[case["counter"]] == c,
+                  f"{TUNE} {case['label']}: launched "
+                  f"{_build.launch_choices[case['counter']]}, not {c}")
+            cands[c] = {"max_abs_err": err, "device_us": device_us(
+                lambda: case["run"](c), case["symbols"])}
+        check(case["heuristic"] in cands, f"{TUNE} {case['label']}: the "
+              f"heuristic {case['heuristic']} is not a candidate")
+        timings = {}
+        key = case["counter"].replace("ldpc_decode_q", "ldpc_decode")
+        if key == "ldpc_decode" and key in winners:
+            winner = winners[key]
+        else:
+            winner = case["tune"](timings)
+            winners[key] = winner
+        check(winner in cands, f"{TUNE} {case['label']}: winner {winner} "
+              "is not a candidate")
+        err = case["hold"](case["run"]())
+        check(_build.launch_choices[case["counter"]] == winner,
+              f"{TUNE} {case['label']}: the wrapper launched "
+              f"{_build.launch_choices[case['counter']]}, not the stored "
+              f"winner {winner}")
+        rows.append({
+            "case": case["label"], "tolerance": case["tolerance"],
+            "candidates": {str(c): v for c, v in cands.items()},
+            "tuner_event_us": {str(c): us for c, us in timings.items()},
+            "heuristic": str(case["heuristic"]), "winner": str(winner),
+            "heuristic_device_us": cands[case["heuristic"]]["device_us"],
+            "winner_device_us": cands[winner]["device_us"],
+            "wrapper_launched": str(_build.launch_choices[case["counter"]]),
+            "wrapper_max_abs_err": err,
+        })
+    return rows
+
+
 def device_total_us(fn, reps: int = 20) -> float:
     """Device microseconds per call of ``fn``, every kernel it launches
     summed (CUPTI): each kernel's mean over its recorded launches, times
@@ -2769,9 +3129,18 @@ def main() -> int:
           flush=True)
 
     build_s = _build.build_all()
+    by_source = {k: round(v, 1) for k, v in _build.build_seconds.items()}
     print(f"build: {len(KERNELS)} kernels from {len(_build.SOURCES)} "
-          f"sources in {build_s:.1f}s ({', '.join(_build.SOURCES)})",
-          flush=True)
+          f"sources in {build_s:.1f}s ({', '.join(_build.SOURCES)}); "
+          f"seconds by source: {json.dumps(by_source)}", flush=True)
+
+    # a fresh tune cache: phases 3-6 run the launch heuristics whatever
+    # cache the machine holds, and phase 7 stores its winners here
+    from repro_torch.kernels import tune
+
+    cache = ROOT / "build" / f"tune-{os.getpid()}.json"
+    cache.unlink(missing_ok=True)
+    tune.set_cache_path(str(cache))
 
     results = {}
     for name, fn in (("ls_che", check_ls_che),
@@ -2909,6 +3278,15 @@ def main() -> int:
           f"{summary['held_out_mse']['mmse']:.4f} CE-ViT "
           f"{summary['held_out_mse']['cevit']:.4f} | {nvidia_smi_line()}",
           flush=True)
+
+    t7 = time.perf_counter()
+    for row in drive_autotune(dev):
+        print(f"{TUNE} {row['case']}: heuristic {row['heuristic']} "
+              f"{row['heuristic_device_us']:.2f} us, winner {row['winner']} "
+              f"{row['winner_device_us']:.2f} us (device us, CUPTI); "
+              f"{json.dumps(row)}", flush=True)
+    print(f"{TUNE}: phase 7 wall {time.perf_counter() - t7:.1f}s, cache "
+          f"{tune.get_cache().path} | {nvidia_smi_line()}", flush=True)
 
     needs_by_path = {label: needs for label, *_, needs in PATHS}
     needs_by_path.update({label: needs for label, *_, needs in MESH_PATHS})

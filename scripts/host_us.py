@@ -1,6 +1,7 @@
 """Host microseconds per call of the kernel wrappers of LS-CHE, the TE
-GEMM, the quantized GEMM and the fused FC + softmax, and of one PyTorch
-call that computes the same function, on one CUDA card.
+GEMM, the quantized GEMM, the fused FC + softmax, flash attention,
+detect + demap and the LDPC decoder, and of one PyTorch call that
+computes the same function where there is one, on one CUDA card.
 
     python scripts/host_us.py [--src SRC_DIR]
 
@@ -13,14 +14,22 @@ call.  The shapes: LS-CHE on the SISO grid at batch 8 (yardstick
 ``torch.einsum`` on the averaged comb), the TE GEMM at DeepRx's block
 conv (28,672 x 288 -> 32, fp32, bias; ``torch.addmm``) and CE-ViT's
 wqkv (512 x 64 -> 192, fp32; ``torch.mm``), the blocks path's 256^3
-int8 codes with epilogue none, and the paper's 512^3 fp32 FC block with
-a bias.  Prints one JSON line per callable, then the card's name and
+int8 codes with epilogue none, the paper's 512^3 fp32 FC block with
+a bias, CE-ViT's (32, 64, 64, 16) attention (``F.scaled_dot_product_
+attention``), detect + demap on the SISO grid at batch 8 and the r12
+decoder over 216 codewords at +3 dB.  A tree with launch pickers
+(``repro_torch.kernels.tune``) also gets each picker's own host us at
+those shapes, the Python a wrapper adds per call to choose its launch
+(100,000 calls, the best of five runs: the least the host's noise
+leaves).  Prints one JSON line per callable, then the card's name and
 power limit.
 """
 import argparse
+import importlib.util
 import json
 import pathlib
 import sys
+import timeit
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -37,7 +46,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     import chip_smoke
-    from repro_torch.kernels import fc_softmax, rx_fused, te_gemm
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fc_softmax, ldpc, mha, rx_fused, te_gemm
     from repro_torch.phy import coding, ofdm, scenarios
 
     dev = torch.device("cuda")
@@ -65,6 +76,13 @@ def main() -> int:
     fx = torch.randn(512, 512, generator=gen, device=dev)
     fw = torch.randn(512, 512, generator=gen, device=dev) / 22.6
     fb = 0.1 * torch.randn(512, generator=gen, device=dev)
+    q, k, v = (torch.randn(32, 64, 16, generator=gen, device=dev)
+               for _ in range(3))
+    slot = scn.make_batch(ofdm.make_generator(2, dev), 8)
+    demap = (chip_smoke._grid_y(slot), slot["h"][:, 0].contiguous(),
+             slot["noise_var"], scn.modem)
+    code = coding.make_code("r12")
+    llr = chip_smoke._code_llrs(code, 216, 3.0, dev)
     calls = {
         "ls_che_cuda": lambda: rx_fused.ls_che_cuda(*ls_args),
         "ls_che": lambda: rx_fused.ls_che(*ls_args),
@@ -85,10 +103,33 @@ def main() -> int:
         "fc_softmax": lambda: fc_softmax.fc_softmax(fx, fw, fb),
         "torch.softmax(torch.addmm)": lambda: torch.softmax(
             torch.addmm(fb, fx, fw), dim=-1),
+        "mha (cevit)": lambda: mha.mha(q, k, v, causal=False),
+        "F.scaled_dot_product_attention (cevit)": lambda:
+            F.scaled_dot_product_attention(q, k, v),
+        "mmse_detect_demap (siso B=8)": lambda: rx_fused.mmse_detect_demap(
+            *demap),
+        "ldpc_decode (r12 216cw)": lambda: ldpc.ldpc_decode(llr, code),
     }
     for name, fn in calls.items():
         print(json.dumps({"call": name, "src": args.src,
                           "host_us": chip_smoke.host_us(fn)}), flush=True)
+    if importlib.util.find_spec("repro_torch.kernels.tune") is not None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        pickers = {
+            "te_gemm.pick_block_shape (deeprx conv)":
+                lambda: te_gemm.pick_block_shape(28672, 32, 288),
+            "mha.pick_cluster (cevit)": lambda: mha.pick_cluster(
+                32, 64, 64, 16, False, torch.float32, sms),
+            "rx_fused.pick_subcarrier_tile (siso)":
+                lambda: rx_fused.pick_subcarrier_tile(False, 14, 256, 1, 1,
+                                                      2),
+            "ldpc.pick_segment (r12)": lambda: ldpc.pick_segment(code, 12,
+                                                                  5),
+        }
+        for name, fn in pickers.items():
+            us = min(timeit.repeat(fn, number=100_000, repeat=5)) * 10
+            print(json.dumps({"call": name, "src": args.src,
+                              "host_us": us}), flush=True)
     print(chip_smoke.nvidia_smi_line(), flush=True)
     return 0
 

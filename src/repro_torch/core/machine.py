@@ -1,6 +1,8 @@
-"""Machine model of the paper's processor (port of
-:mod:`repro.core.machine`, the TensorPool entry only): the PHY cycle model
-and the energy model price receiver stages against it."""
+"""Machine models (port of :mod:`repro.core.machine`): the paper's
+processor, which the PHY cycle model and the energy model price receiver
+stages against, and the H100 the port runs on, which the balance model
+(:mod:`repro_torch.core.balance`), the kernel tuner and ``chip_smoke.py``'s
+bounds read.  The reference's TPU entry has no counterpart here."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,3 +34,28 @@ TENSORPOOL_N7 = Machine(
     fast_mem_bytes=4 * 1024 * 1024,
     freq_hz=1e9,
 )
+
+# The card the port runs on: an NVIDIA H100 SXM (NVIDIA's data sheet; the
+# port's numbers were taken on one that reports "NVIDIA H100 80GB HBM3" at
+# a 700.00 W power limit).  67 TFLOP/s fp32 outside the tensor cores, 80 GB
+# of HBM3 at 3.35 TB/s, NVLink 450 GB/s each way to each other card of the
+# host, 228 KiB of shared memory an SM (of which a block takes at most
+# 227 KiB; ``csrc/te_gemm.cu``'s SMEM_PER_SM), 1.98 GHz boost clock.
+H100_SXM = Machine(
+    name="h100-sxm",
+    peak_flops=67e12,
+    hbm_bw=3.35e12,
+    link_bw=450e9,
+    fast_mem_bytes=228 * 1024,
+    freq_hz=1.98e9,
+)
+
+# The H100 SXM's dense tensor-core peaks by operand type (NVIDIA's data
+# sheet, at the 700 W limit), beside H100_SXM's fp32 rate
+H100_SXM_TENSOR_FLOPS = {
+    "tf32": 495e12,
+    "bf16": 989e12,
+    "fp16": 989e12,
+    "int8": 1979e12,
+    "fp8": 1979e12,
+}

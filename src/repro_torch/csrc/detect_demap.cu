@@ -30,8 +30,12 @@
 // kernel broadcasts H over the symbols of its tile.  Everything but the
 // right-hand side H^H y depends on (b, sc) and nv alone, so a block owns
 // one batch row's tile of SCT subcarriers x all n_sym symbols
-// (subcarriers fastest, so y loads and output stores coalesce).  The
-// joint kernel:
+// (subcarriers fastest, so y loads and output stores coalesce).  SCT is a
+// template value, the caller's choice (kernels/rx_fused.py
+// pick_subcarrier_tile: a tuned winner, else 16): 16 on every route, 8
+// and 32 also on the routes the main paths launch (tiled_route).  Every
+// RE's chain is the same operations in the same order at any SCT, so the
+// outputs are too.  The joint kernel:
 //   1a. one thread per subcarrier forms the Gram (nv on its diagonal) and
 //       eliminates it in place: the multipliers f[r][kd] below the
 //       diagonal, the eliminated upper rows above it, and the pivots'
@@ -67,7 +71,7 @@
 // in the same order (a column's elimination reads only A and itself), so
 // the factors are those each RE would recompute.  SIC keeps its shared
 // state with subcarriers fastest (element e of subcarrier sc at
-// [e][SCT]), so a warp's 16 subcarriers read 16 neighbouring words.
+// [e][SCT]), so a warp's SCT subcarriers read SCT neighbouring words.
 //
 // Shapes: <N_RX, N_TX, NB> instances for the registered antenna shapes
 // (1x1, 2x2, 4x4, 8x4) x 1..4 bits per axis keep every loop unrolled and
@@ -103,8 +107,10 @@
 
 namespace {
 
-constexpr int SCT = 16;       // subcarriers a block
 constexpr int THREADS = 256;  // threads a block
+// subcarriers a block (SCT, a template value of both kernels): 16 on every
+// route; 8 and 32 also on the routes the main paths launch (tiled_route)
+constexpr int kTiles[] = {8, 16, 32};
 // bits per axis of the compiled <N_RX, N_TX, NB> instances
 constexpr int kMaxCompiledNb = 4;
 // bits per axis the runtime-sized <0, 0, 0> instance takes: its 2^nb
@@ -509,7 +515,7 @@ __device__ __forceinline__ void apply(HMat h, const YV& y, Factors f,
 // hs[(r * nt + t) * SCT + scl]) and stage factors (st: stage k's after
 // stage k - 1's, sic_stage_floats(nt - k) x SCT floats each); stream k's
 // outputs at xo [k], no [k], lo [k][2 nb]
-template <int NT, class YV, class LV>
+template <int SCT, int NT, class YV, class LV>
 __device__ __forceinline__ void sic_apply(YV& y, const float2* hs, float* st,
                                           int scl, CVec<NT>& z, int nr,
                                           int nt, const LV& lv, int nb,
@@ -587,14 +593,14 @@ __host__ __device__ constexpr bool staged() {
   return NT > 0 && NT * 2 * NB > 4;
 }
 
-// floats of a runtime-sized route's state a block: SCT subcarriers'
+// floats of a runtime-sized route's state a block: sct subcarriers'
 // factors (SIC: its tile) and THREADS REs' vectors (the solution z [nt]
 // and, for SIC, the residual [nr], complex)
 __host__ __device__ __forceinline__ long long route_floats(bool sic, int nr,
-                                                           int nt) {
-  return sic ? (long long)SCT * sic_tile_floats(nr, nt) +
+                                                           int nt, int sct) {
+  return sic ? (long long)sct * sic_tile_floats(nr, nt) +
                    THREADS * 2 * (nr + nt)
-             : (long long)SCT * factor_floats(nr, nt) + THREADS * 2 * nt;
+             : (long long)sct * factor_floats(nr, nt) + THREADS * 2 * nt;
 }
 
 // The noise variance of batch row b: nv[0] is loaded before any index
@@ -605,16 +611,16 @@ __device__ __forceinline__ float lane_noise(const DemapArgs& a, int b) {
   return nv;
 }
 
-// A block's tile: batch row b, subcarriers [sc0, sc0 + nsc), every
-// symbol; its (b, sym) rows start at row0
+// A block's tile: batch row b, subcarriers [sc0, sc0 + nsc) of a tile of
+// sct, every symbol; its (b, sym) rows start at row0
 struct Tile {
   int b, sc0, nsc;
   size_t row0;
-  __device__ __forceinline__ explicit Tile(const DemapArgs& a) {
-    const int tiles = (a.n_sc + SCT - 1) / SCT;
+  __device__ __forceinline__ Tile(const DemapArgs& a, int sct) {
+    const int tiles = (a.n_sc + sct - 1) / sct;
     b = blockIdx.x / tiles;
-    sc0 = (blockIdx.x % tiles) * SCT;
-    nsc = min(SCT, a.n_sc - sc0);
+    sc0 = (blockIdx.x % tiles) * sct;
+    nsc = min(sct, a.n_sc - sc0);
     row0 = (size_t)b * a.n_sym;
   }
 };
@@ -624,12 +630,12 @@ struct Tile {
 // barrier)
 template <int NB>
 __device__ __forceinline__ Levels<NB> load_levels(const DemapArgs& a,
-                                                  bool sic) {
+                                                  bool sic, int sct) {
   Levels<NB> lv;
   if constexpr (NB == 0) {
     extern __shared__ float4 smem4[];
     float* lv_s = reinterpret_cast<float*>(smem4) +
-                  (a.ws ? 0 : route_floats(sic, a.n_rx, a.n_tx));
+                  (a.ws ? 0 : route_floats(sic, a.n_rx, a.n_tx, sct));
     for (int j = threadIdx.x; j < (1 << a.nb); j += THREADS)
       lv_s[j] = a.levels[j];
     lv.p = lv_s;
@@ -642,7 +648,7 @@ __device__ __forceinline__ Levels<NB> load_levels(const DemapArgs& a,
 
 // a registered shape's y of this thread's RE of the chunk at c0, into
 // registers
-template <int NR>
+template <int SCT, int NR>
 __device__ __forceinline__ void load_y(const DemapArgs& a, const Tile& t,
                                        int c0, float2 (&y)[NR]) {
   const int i = c0 + threadIdx.x, sym = i / SCT, scl = i % SCT;
@@ -670,7 +676,7 @@ __device__ __forceinline__ void store_re(const DemapArgs& a, size_t re,
 // and the per-RE vectors in registers; <0, 0, 0>: runtime sizes, factors
 // and per-RE vectors in shared memory or the workspace, outputs stored
 // directly.
-template <int NR, int NT, int NB>
+template <int NR, int NT, int NB, int SCT>
 __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   constexpr bool RT = NT == 0;
   constexpr bool STAGE = staged<NT, NB>();
@@ -679,16 +685,16 @@ __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   const int m = RT ? a.n_tx : NT;
   const int nb = RT ? a.nb : NB;
   const int tid = threadIdx.x;
-  const Tile tl(a);
+  const Tile tl(a, SCT);
   const int ff = factor_floats(nr, m);
   float* fbase = reinterpret_cast<float*>(smem4);
   if (RT && a.ws != nullptr)
-    fbase = a.ws + (size_t)blockIdx.x * route_floats(false, nr, m);
+    fbase = a.ws + (size_t)blockIdx.x * route_floats(false, nr, m, SCT);
   // the first chunk's y loads are in flight while the factors are formed
   float2 y_r[RT ? 1 : NR];
-  if constexpr (!RT) load_y(a, tl, 0, y_r);
+  if constexpr (!RT) load_y<SCT>(a, tl, 0, y_r);
   const float nv = lane_noise(a, tl.b);
-  const Levels<NB> lv = load_levels<NB>(a, false);
+  const Levels<NB> lv = load_levels<NB>(a, false, SCT);
   const float2* hb = a.h + ((size_t)tl.b * a.n_sc + tl.sc0) * nr * m;
 
   if (tid < tl.nsc) {  // 1a, and bias column 0 by the same thread
@@ -720,7 +726,7 @@ __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   for (int c0 = 0; c0 < a.n_sym * SCT; c0 += THREADS) {
     const int i = c0 + tid, sym = i / SCT, scl = i % SCT;
     if constexpr (!RT) {
-      if (c0 > 0) load_y(a, tl, c0, y_r);
+      if (c0 > 0) load_y<SCT>(a, tl, c0, y_r);
     }
     if (sym < a.n_sym && scl < tl.nsc) {
       const size_t re = (tl.row0 + sym) * a.n_sc + tl.sc0 + scl;
@@ -758,7 +764,7 @@ __global__ void __launch_bounds__(THREADS) detect_demap_kernel(DemapArgs a) {
   }
 }
 
-template <int NR, int NT, int NB>
+template <int NR, int NT, int NB, int SCT>
 __global__ void __launch_bounds__(THREADS) sic_demap_kernel(DemapArgs a) {
   constexpr bool RT = NT == 0;
   extern __shared__ float4 smem4[];
@@ -766,15 +772,15 @@ __global__ void __launch_bounds__(THREADS) sic_demap_kernel(DemapArgs a) {
   const int m = RT ? a.n_tx : NT;
   const int nb = RT ? a.nb : NB;
   const int tid = threadIdx.x;
-  const Tile tl(a);
+  const Tile tl(a, SCT);
   float* fbase = reinterpret_cast<float*>(smem4);
   if (RT && a.ws != nullptr)
-    fbase = a.ws + (size_t)blockIdx.x * route_floats(true, nr, m);
+    fbase = a.ws + (size_t)blockIdx.x * route_floats(true, nr, m, SCT);
   // the first chunk's y loads are in flight while the factors are formed
   float2 y_r[RT ? 1 : NR];
-  if constexpr (!RT) load_y(a, tl, 0, y_r);
+  if constexpr (!RT) load_y<SCT>(a, tl, 0, y_r);
   const float nv = lane_noise(a, tl.b);
-  const Levels<NB> lv = load_levels<NB>(a, true);
+  const Levels<NB> lv = load_levels<NB>(a, true, SCT);
   const float2* hb = a.h + ((size_t)tl.b * a.n_sc + tl.sc0) * nr * m;
   // the tile: H and its Gram, element e of subcarrier scl at
   // [e * SCT + scl] (H's e = r * m + t, the Gram's e = t * m + u), then
@@ -836,7 +842,7 @@ __global__ void __launch_bounds__(THREADS) sic_demap_kernel(DemapArgs a) {
   for (int c0 = 0; c0 < a.n_sym * SCT; c0 += THREADS) {
     const int i = c0 + tid, sym = i / SCT, scl = i % SCT;
     if constexpr (!RT) {
-      if (c0 > 0) load_y(a, tl, c0, y_r);
+      if (c0 > 0) load_y<SCT>(a, tl, c0, y_r);
     }
     if (sym < a.n_sym && scl < tl.nsc) {
       const size_t re = (tl.row0 + sym) * a.n_sc + tl.sc0 + scl;
@@ -845,14 +851,15 @@ __global__ void __launch_bounds__(THREADS) sic_demap_kernel(DemapArgs a) {
         CVec<0> z{vre + nr * THREADS, THREADS};
         if (c0 > 0)
           for (int r = 0; r < nr; ++r) yres[r] = a.y[re * nr + r];
-        sic_apply(yres, hs, st, scl, z, nr, m, lv, nb, a.scale,
+        sic_apply<SCT>(yres, hs, st, scl, z, nr, m, lv, nb, a.scale,
                   a.x_hat + re * m, a.nv_eff + re * m,
                   a.llr + re * m * 2 * nb);
       } else {
         CVec<NT> z;
         float2 xo[NT];
         float no[NT], lo[NT * 2 * NB];
-        sic_apply(y_r, hs, st, scl, z, nr, m, lv, nb, a.scale, xo, no, lo);
+        sic_apply<SCT>(y_r, hs, st, scl, z, nr, m, lv, nb, a.scale, xo, no,
+                       lo);
         store_re<NT, NB>(a, re, xo, no, lo);
       }
     }
@@ -866,9 +873,21 @@ bool registered(int n_rx, int n_tx) {
          (n_rx == 4 && n_tx == 4) || (n_rx == 8 && n_tx == 4);
 }
 
+// The routes that also have SCT = 8 and 32 instances (16 is on every
+// route): those the main paths launch, the SISO and 2x2 ladders' QPSK and
+// 16-QAM, 4x8 64-QAM, the MU grid's SIC and every runtime-sized route
+// (<0, 0, 0>, e.g. SIC at 8x6).  kernels/rx_fused.py's TILED_ROUTES is
+// the same list.
+constexpr bool tiled_route(bool sic, int nr, int nt, int nb) {
+  if (nt == 0) return true;
+  if (sic) return nr == 4 && nt == 4 && nb == 2;
+  return ((nr == 1 && nt == 1) || (nr == 2 && nt == 2)) ? nb <= 2
+                                                       : nr == 8 && nb == 3;
+}
+
 // shared memory of a registered instance: SCT subcarriers' factors (SIC:
 // its tile) and, where the joint kernel stages, THREADS REs' outputs
-template <bool SIC, int NR, int NT, int NB>
+template <bool SIC, int NR, int NT, int NB, int SCT>
 int instance_smem() {
   if constexpr (SIC) return 4 * SCT * sic_tile_floats(NR, NT);
   return 4 * (SCT * factor_floats(NR, NT) +
@@ -886,55 +905,83 @@ cudaError_t allow_smem(Kernel kernel, int smem, int limit,
                                     hopper::current_device());
 }
 
-template <bool SIC, int NR, int NT, int NB>
+template <bool SIC, int NR, int NT, int NB, int SCT>
 int launch(const DemapArgs& a, cudaStream_t s) {
-  auto kernel = detect_demap_kernel<NR, NT, NB>;
-  if constexpr (SIC) kernel = sic_demap_kernel<NR, NT, NB>;
-  int smem = 0, limit = 0;
-  if constexpr (NT == 0) {
-    smem = 4 * ((a.ws == nullptr ? (int)route_floats(SIC, a.n_rx, a.n_tx)
-                                 : 0) +
-                (1 << a.nb));
-    limit = kSharedRoute + 4 * (1 << kMaxNb);
+  static_assert(SCT <= 32 && THREADS % SCT == 0,
+                "a warp's lane per subcarrier (SIC's stage factoring), "
+                "whole rows of subcarriers a chunk");
+  if constexpr (SCT != 16 && !tiled_route(SIC, NR, NT, NB)) {
+    return (int)cudaErrorInvalidValue;  // no such instance
   } else {
-    smem = limit = instance_smem<SIC, NR, NT, NB>();
+    auto kernel = detect_demap_kernel<NR, NT, NB, SCT>;
+    if constexpr (SIC) kernel = sic_demap_kernel<NR, NT, NB, SCT>;
+    int smem = 0, limit = 0;
+    if constexpr (NT == 0) {
+      smem = 4 * ((a.ws == nullptr
+                       ? (int)route_floats(SIC, a.n_rx, a.n_tx, SCT)
+                       : 0) +
+                  (1 << a.nb));
+      limit = kSharedRoute + 4 * (1 << kMaxNb);
+    } else {
+      smem = limit = instance_smem<SIC, NR, NT, NB, SCT>();
+    }
+    static std::atomic<unsigned long long> smem_set{0};  // per device
+    const cudaError_t err = allow_smem(kernel, smem, limit, smem_set);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (long long)a.batch * ((a.n_sc + SCT - 1) / SCT);
+    kernel<<<(unsigned)blocks, THREADS, smem, s>>>(a);
+    return (int)cudaGetLastError();
   }
-  static std::atomic<unsigned long long> smem_set{0};  // per device
-  const cudaError_t err = allow_smem(kernel, smem, limit, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)a.batch * ((a.n_sc + SCT - 1) / SCT);
-  kernel<<<(unsigned)blocks, THREADS, smem, s>>>(a);
-  return (int)cudaGetLastError();
 }
 
-template <bool SIC, int NR, int NT>
+template <bool SIC, int NR, int NT, int SCT>
 int launch_nb(const DemapArgs& a, cudaStream_t s) {
   static_assert(kMaxCompiledNb == 4, "one case per compiled width");
   switch (a.nb) {
-    case 1: return launch<SIC, NR, NT, 1>(a, s);
-    case 2: return launch<SIC, NR, NT, 2>(a, s);
-    case 3: return launch<SIC, NR, NT, 3>(a, s);
-    default: return launch<SIC, NR, NT, 4>(a, s);
+    case 1: return launch<SIC, NR, NT, 1, SCT>(a, s);
+    case 2: return launch<SIC, NR, NT, 2, SCT>(a, s);
+    case 3: return launch<SIC, NR, NT, 3, SCT>(a, s);
+    default: return launch<SIC, NR, NT, 4, SCT>(a, s);
   }
 }
 
+bool is_tile(int sct) {
+  for (int t : kTiles)
+    if (t == sct) return true;
+  return false;
+}
+
 long long workspace_floats(bool sic, int batch, int n_sym, int n_sc,
-                           int n_rx, int n_tx, int nb) {
+                           int n_rx, int n_tx, int nb, int sct) {
   sic = sic && n_tx > 1;  // one stream runs the joint kernel (dispatch)
-  const long long floats = route_floats(sic, n_rx, n_tx);
+  const long long floats = route_floats(sic, n_rx, n_tx, sct);
   if ((registered(n_rx, n_tx) && nb <= kMaxCompiledNb) ||
       4 * floats <= kSharedRoute)
     return 0;
-  return (long long)batch * ((n_sc + SCT - 1) / SCT) * floats;
+  return (long long)batch * ((n_sc + sct - 1) / sct) * floats;
+}
+
+// the route of a launch at subcarrier tile SCT
+template <bool SIC, int SCT>
+int route(const DemapArgs& a, cudaStream_t s) {
+  if (a.nb > kMaxCompiledNb) return launch<SIC, 0, 0, 0, SCT>(a, s);
+  if constexpr (!SIC) {
+    if (a.n_rx == 1 && a.n_tx == 1) return launch_nb<SIC, 1, 1, SCT>(a, s);
+  }
+  if (a.n_rx == 2 && a.n_tx == 2) return launch_nb<SIC, 2, 2, SCT>(a, s);
+  if (a.n_rx == 4 && a.n_tx == 4) return launch_nb<SIC, 4, 4, SCT>(a, s);
+  if (a.n_rx == 8 && a.n_tx == 4) return launch_nb<SIC, 8, 4, SCT>(a, s);
+  return launch<SIC, 0, 0, 0, SCT>(a, s);
 }
 
 template <bool SIC>
 int dispatch(const void* y, const void* h, const float* nv, int n_nv,
              const float* levels, float norm, float scale, void* x_hat,
              float* nv_eff, float* llr, float* ws, int batch, int n_sym,
-             int n_sc, int n_rx, int n_tx, int nb, void* stream) {
+             int n_sc, int n_rx, int n_tx, int nb, int sct, void* stream) {
   if (batch <= 0 || n_sym <= 0 || n_sc <= 0 || n_rx <= 0 || n_tx <= 0 ||
-      nb < 1 || nb > kMaxNb || n_nv < 1 || batch % n_nv != 0)
+      nb < 1 || nb > kMaxNb || n_nv < 1 || batch % n_nv != 0 ||
+      !is_tile(sct))
     return (int)cudaErrorInvalidValue;
   // one stream leaves nothing to cancel: SIC's only stage is the joint
   // problem, the same operations on the same operands, and its kernel
@@ -943,11 +990,11 @@ int dispatch(const void* y, const void* h, const float* nv, int n_nv,
     if (n_tx == 1)
       return dispatch<false>(y, h, nv, n_nv, levels, norm, scale, x_hat,
                              nv_eff, llr, ws, batch, n_sym, n_sc, n_rx, n_tx,
-                             nb, stream);
+                             nb, sct, stream);
   }
   const long long n_re = (long long)batch * n_sym * n_sc;
   if (n_re * n_tx * 2 * nb > 0x7fffffffLL ||
-      (workspace_floats(SIC, batch, n_sym, n_sc, n_rx, n_tx, nb) > 0 &&
+      (workspace_floats(SIC, batch, n_sym, n_sc, n_rx, n_tx, nb, sct) > 0 &&
        ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const DemapArgs a{static_cast<const float2*>(y),
@@ -968,25 +1015,23 @@ int dispatch(const void* y, const void* h, const float* nv, int n_nv,
                     nb,
                     batch / n_nv};
   cudaStream_t s = (cudaStream_t)stream;
-  if (nb > kMaxCompiledNb) return launch<SIC, 0, 0, 0>(a, s);
-  if constexpr (!SIC) {
-    if (n_rx == 1 && n_tx == 1) return launch_nb<SIC, 1, 1>(a, s);
-  }
-  if (n_rx == 2 && n_tx == 2) return launch_nb<SIC, 2, 2>(a, s);
-  if (n_rx == 4 && n_tx == 4) return launch_nb<SIC, 4, 4>(a, s);
-  if (n_rx == 8 && n_tx == 4) return launch_nb<SIC, 8, 4>(a, s);
-  return launch<SIC, 0, 0, 0>(a, s);
+  if (sct == 8) return route<SIC, 8>(a, s);
+  if (sct == 32) return route<SIC, 32>(a, s);
+  return route<SIC, 16>(a, s);
 }
 
 }  // namespace
 
 // Floats of the workspace a launch needs (0 for the registered antenna
 // shapes' compiled instances, and for any launch whose runtime-sized state
-// fits a block's shared memory); sic selects sic_demap_launch's.
+// fits a block's shared memory); sic selects sic_demap_launch's, sct the
+// subcarrier tile.
 extern "C" long long detect_demap_workspace(int sic, int batch, int n_sym,
                                             int n_sc, int n_rx, int n_tx,
-                                            int nb) {
-  return workspace_floats(sic != 0, batch, n_sym, n_sc, n_rx, n_tx, nb);
+                                            int nb, int sct) {
+  return is_tile(sct) ? workspace_floats(sic != 0, batch, n_sym, n_sc, n_rx,
+                                         n_tx, nb, sct)
+                      : 0;
 }
 
 // y (B, n_sym, n_sc, n_rx) complex64; h (B, n_sc, n_rx, n_tx) complex64;
@@ -996,17 +1041,19 @@ extern "C" long long detect_demap_workspace(int sic, int batch, int n_sym,
 // float, llr (B, n_sym, n_sc, n_tx, 2*nb) float, per original stream; ws
 // the workspace (detect_demap_workspace floats, or null where that is 0).
 // Any n_rx, n_tx >= 1, nb in 1..kMaxNb (1..4 compiled for the registered
-// shapes, wider modems at runtime sizes).  Each returns the launch's
-// cudaError_t.
+// shapes, wider modems at runtime sizes).  sct, the subcarriers a block,
+// is the caller's (kernels/rx_fused.py pick_subcarrier_tile): 16 on any
+// route, 8 or 32 on a tiled_route.  Each returns cudaErrorInvalidValue for
+// a tile with no instance, else the launch's cudaError_t.
 extern "C" int detect_demap_launch(const void* y, const void* h,
                                    const float* nv, int n_nv,
                                    const float* levels, float norm,
                                    float scale, void* x_hat, float* nv_eff,
                                    float* llr, float* ws, int batch,
                                    int n_sym, int n_sc, int n_rx, int n_tx,
-                                   int nb, void* stream) {
+                                   int nb, int sct, void* stream) {
   return dispatch<false>(y, h, nv, n_nv, levels, norm, scale, x_hat, nv_eff,
-                         llr, ws, batch, n_sym, n_sc, n_rx, n_tx, nb,
+                         llr, ws, batch, n_sym, n_sc, n_rx, n_tx, nb, sct,
                          stream);
 }
 
@@ -1014,8 +1061,9 @@ extern "C" int sic_demap_launch(const void* y, const void* h, const float* nv,
                                 int n_nv, const float* levels, float norm,
                                 float scale, void* x_hat, float* nv_eff,
                                 float* llr, float* ws, int batch, int n_sym,
-                                int n_sc, int n_rx, int n_tx, int nb,
+                                int n_sc, int n_rx, int n_tx, int nb, int sct,
                                 void* stream) {
   return dispatch<true>(y, h, nv, n_nv, levels, norm, scale, x_hat, nv_eff,
-                        llr, ws, batch, n_sym, n_sc, n_rx, n_tx, nb, stream);
+                        llr, ws, batch, n_sym, n_sc, n_rx, n_tx, nb, sct,
+                        stream);
 }

@@ -35,10 +35,12 @@
 //
 // Design: one block per codeword.  ldpc_minsum_kernel<SEG> (fp32) and
 // ldpc_minsum_q_kernel<SEG> (int8) take codes of at most 16 layers of at
-// most 16 edges whose z rows of S lanes (S the widest layer, to a power of
-// two) fit one block of 1024 threads (every registered code; z <= 128 at
-// S = 8): a row owns a segment of S lanes of one warp, lane e of it edge
-// slot e, so 32 / S rows a warp.  Each thread keeps, for every layer, its
+// most 16 edges whose z rows of S lanes (S >= the widest layer, a power of
+// two; the caller's choice, kernels/ldpc.py pick_segment, whose heuristic
+// takes the widest layer to a power of two, at least 4) fit one block of
+// 1024 threads (every registered code; z <= 128 at S = 8): a row owns a
+// segment of S lanes of one warp, lane e of it edge slot e (lanes past the
+// layer's edges idle), so 32 / S rows a warp.  Each thread keeps, for every layer, its
 // edge's rolled position and check message in registers; only the
 // posterior (n_b*z values, 3 KB for r12, int32 for int8) lives in shared
 // memory.  A layer is one barrier: t = v[pos] - c2v, then (min1, first
@@ -392,13 +394,18 @@ template <typename P>
 int launch(const P& p, const float* llr, float* post, int* iters,
            const int* layer_off, const int* edge_col, const int* edge_shift,
            void* ws, int n_cw, int n_b, int z, int n_layers, int n_edges,
-           int max_deg, int max_iters, cudaStream_t s) {
+           int max_deg, int max_iters, int seg, cudaStream_t s) {
   using V = typename P::V;
   if (z <= 0 || n_b <= 0 || n_layers <= 0 || max_deg <= 0 || n_cw < 0)
     return (int)cudaErrorInvalidValue;
-  // lanes a row: the widest layer, to a power of two (at least 4)
-  const int seg = max_deg <= 4 ? 4 : max_deg <= 8 ? 8 : 16;
-  if (n_layers <= REG_LAYERS && max_deg <= REG_DEG && z * seg <= 1024) {
+  // seg, the caller's: lanes a row of the segment kernels (4, 8 or 16, at
+  // least the widest layer, z rows of it in one block), or 0 for the row
+  // kernels
+  if (seg != 0 &&
+      ((seg != 4 && seg != 8 && seg != REG_DEG) || seg < max_deg ||
+       n_layers > REG_LAYERS || z * seg > 1024))
+    return (int)cudaErrorInvalidValue;
+  if (seg != 0) {
     const int threads = 32 * ((z * seg + 31) / 32);
     const size_t smem = sizeof(V) * (size_t)n_b * z;
     auto kernel = seg == 4   ? segment_kernel<4>(p)
@@ -439,18 +446,21 @@ int launch(const P& p, const float* llr, float* post, int* iters,
 // (n_cw,) int; the schedule is CSR over layers: layer_off (n_layers + 1),
 // edge_col / edge_shift (n_edges, shifts in [0, z)); max_deg is the
 // widest layer.  ws: room for n_cw * (n_edges + n_b) * z 4-byte values,
-// the row kernels' workspace (unused by the segment kernels).  Returns
-// the launch's cudaError_t (cudaErrorInvalidValue when the shared memory
-// asked for exceeds the device's, or ws is missing).
+// the row kernels' workspace (unused by the segment kernels).  seg, the
+// caller's (kernels/ldpc.py pick_segment): the segment kernels' lanes a
+// row, 4, 8 or 16 (at least max_deg, with z * seg <= 1024 and at most 16
+// layers), or 0 for the row kernels.  Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for a seg with no instance at this code, when the
+// shared memory asked for exceeds the device's, or ws is missing).
 extern "C" int ldpc_minsum_launch(const float* llr, float* post, int* iters,
                                   const int* layer_off, const int* edge_col,
                                   const int* edge_shift, void* ws, int n_cw,
                                   int n_b, int z, int n_layers, int n_edges,
                                   int max_deg, int max_iters, float alpha,
-                                  void* stream) {
+                                  int seg, void* stream) {
   return launch(Fp32{alpha}, llr, post, iters, layer_off, edge_col,
                 edge_shift, ws, n_cw, n_b, z, n_layers, n_edges, max_deg,
-                max_iters, (cudaStream_t)stream);
+                max_iters, seg, (cudaStream_t)stream);
 }
 
 // The int8 datapath, the same layouts; alpha_q8 = round(alpha * 256),
@@ -461,8 +471,9 @@ extern "C" int ldpc_minsum_q_launch(const float* llr, float* post,
                                     const int* edge_shift, void* ws,
                                     int n_cw, int n_b, int z, int n_layers,
                                     int n_edges, int max_deg, int max_iters,
-                                    int alpha_q8, float step, void* stream) {
+                                    int alpha_q8, float step, int seg,
+                                    void* stream) {
   return launch(Int8{alpha_q8, step}, llr, post, iters, layer_off, edge_col,
                 edge_shift, ws, n_cw, n_b, z, n_layers, n_edges, max_deg,
-                max_iters, (cudaStream_t)stream);
+                max_iters, seg, (cudaStream_t)stream);
 }

@@ -25,9 +25,12 @@
 // Each output (row, subcarrier) is a complex dot product over the pilots,
 // unrolled by 4 into four independent partial sums, so shared-memory
 // loads overlap instead of waiting on one accumulator; a thread has up to
-// four outputs, and where a block has at most 128 (the SISO batch of 8:
-// 8 rows x 16 subcarriers) two adjacent threads split an output's pilots
-// and meet by a shuffle, so no thread idles and the chain halves.
+// four outputs; or (TPO = 2, for a block of at most 16 rows) two adjacent
+// threads split an output's pilots and meet by a shuffle, so the chain
+// halves.  The caller picks TPO (kernels/rx_fused.py
+// pick_threads_per_output: a tuned winner, else 2 where a block has at
+// most 128 outputs, the SISO batch of 8: 8 rows x 16 subcarriers, so no
+// thread idles).
 // Accumulation is plain fp32 on the CUDA cores (no tensor cores, so no
 // TF32), and H is written directly in its (B, n_sc, n_rx, n_tx)
 // complex64 layout.
@@ -160,14 +163,17 @@ ls_che_kernel(const float2* __restrict__ y, const float2* __restrict__ op,
 // word w for symbol 64 w + k (summed in ascending order): word 0 by value,
 // so a slot of up to 64 symbols reads no mask from memory (up to 32, the
 // kernel scans one 32-bit word), the others in mask_rest on the device;
-// n_psym the number of bits set; h (batch, n_sc, n_rx, n_tx) complex64.
-// Returns the launch's cudaError_t.
+// n_psym the number of bits set; h (batch, n_sc, n_rx, n_tx) complex64;
+// tpo the threads an output, the caller's (kernels/rx_fused.py
+// pick_threads_per_output): 1, or 2 where a block's outputs are at most
+// those of 16 rows.  Returns cudaErrorInvalidValue for a tpo with no
+// instance at this shape, else the launch's cudaError_t.
 extern "C" int ls_che_launch(const void* y, const void* op, void* h,
                              int batch, int n_sym, int n_sc, int n_rx,
                              int n_tx, int stride,
                              unsigned long long mask0,
                              const unsigned long long* mask_rest,
-                             int n_psym, void* stream) {
+                             int n_psym, int tpo, void* stream) {
   const int n_p = n_sc / (stride * n_tx);
   const int n_rows = batch * n_rx;
   const int words = (n_sym + 63) / 64;
@@ -176,11 +182,14 @@ extern "C" int ls_che_launch(const void* y, const void* op, void* h,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n_sc + SC - 1) / SC, n_tx, (n_rows + RB - 1) / RB);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  // two threads an output where a block has at most 128 outputs
-  auto kernel = n_sym > 32 ? (n_rows * SC <= NT / 2 ? ls_che_kernel<2, true>
-                                                     : ls_che_kernel<1, true>)
-                            : (n_rows * SC <= NT / 2 ? ls_che_kernel<2, false>
-                                                     : ls_che_kernel<1, false>);
+  // two threads an output cover OPT / 2 x NT / 2 outputs a block
+  if (tpo != 1 && (tpo != 2 || (n_rows < RB ? n_rows : RB) * SC >
+                                   (OPT / 2) * (NT / 2)))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = n_sym > 32 ? (tpo == 2 ? ls_che_kernel<2, true>
+                                       : ls_che_kernel<1, true>)
+                           : (tpo == 2 ? ls_che_kernel<2, false>
+                                       : ls_che_kernel<1, false>);
   kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       static_cast<const float2*>(y), static_cast<const float2*>(op), mask0,
       mask_rest, words, static_cast<float2*>(h), n_rows, n_sym, n_sc, n_rx,

@@ -43,7 +43,9 @@
 // P V with P split as hi + lo bf16 (P rounded to bf16 alone would miss a
 // one-bf16-step gate where outputs cancel).
 // Small grids: when BH x ceil(Sq / 64) x slabs is well under the SM count,
-// a thread-block cluster of up to 8 blocks splits the key tiles; each
+// a thread-block cluster of up to 8 blocks splits the key tiles (its size
+// the caller's: kernels/mha.py pick_cluster, a tuned winner or the
+// heuristic that doubles it while the grid stays within one wave); each
 // block keeps its partial (m, l, O) and the cluster merges them through
 // distributed shared memory in one exchange, rescaled to the common max,
 // each block finishing 64 / cluster rows.  With the causal mask, key tiles
@@ -575,7 +577,8 @@ mha_kernel(const T* __restrict__ q, T* __restrict__ out,
 
 template <typename T, int DV>
 int launch(const T* q, const T* k, const T* v, T* out, int bh, int sq,
-           int sk, int d, int causal, float scale, cudaStream_t stream) {
+           int sk, int d, int causal, float scale, int cs,
+           cudaStream_t stream) {
   using C = Cfg<T, DV>;
   auto kernel = mha_kernel<T, DV>;
   const int dev = current_device();
@@ -593,12 +596,11 @@ int launch(const T* q, const T* k, const T* v, T* out, int bh, int sq,
   const long long kv_max = causal ? (sk < qtiles * BM ? sk : qtiles * BM)
                                   : sk;
   const long long tiles = (kv_max + BKV - 1) / BKV;
-  // a cluster splits the keys while the grid is under one wave
-  int cs = 1;
-  while (cs < MAX_CLUSTER && 2 * cs <= tiles &&
-         units * 2 * cs <= sm_count(dev))
-    cs *= 2;
-  if (units * cs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the caller's cluster splits the keys: 1, 2, 4 or 8 blocks, at most
+  // one a key tile
+  if ((cs != 1 && cs != 2 && cs != 4 && cs != MAX_CLUSTER) || cs > tiles ||
+      units * cs > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(units * cs));
   cfg.blockDim = dim3(NT);
@@ -619,18 +621,23 @@ int launch(const T* q, const T* k, const T* v, T* out, int bh, int sq,
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
-             int sq, int sk, int d, int causal, float scale, cudaStream_t s) {
+             int sq, int sk, int d, int causal, float scale, int cs,
+             cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   if (d <= 16)
-    return launch<T, 16>(qt, kt, vt, ot, bh, sq, sk, d, causal, scale, s);
+    return launch<T, 16>(qt, kt, vt, ot, bh, sq, sk, d, causal, scale,
+                         cs, s);
   if (d <= 32)
-    return launch<T, 32>(qt, kt, vt, ot, bh, sq, sk, d, causal, scale, s);
+    return launch<T, 32>(qt, kt, vt, ot, bh, sq, sk, d, causal, scale,
+                         cs, s);
   if (d <= 64)
-    return launch<T, 64>(qt, kt, vt, ot, bh, sq, sk, d, causal, scale, s);
-  return launch<T, 128>(qt, kt, vt, ot, bh, sq, sk, d, causal, scale, s);
+    return launch<T, 64>(qt, kt, vt, ot, bh, sq, sk, d, causal, scale,
+                         cs, s);
+  return launch<T, 128>(qt, kt, vt, ot, bh, sq, sk, d, causal, scale,
+                        cs, s);
 }
 
 }  // namespace
@@ -639,10 +646,14 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
 // dtype (0 = float32, 1 = bfloat16), 16-byte aligned with a row pitch of
 // a multiple of 16 bytes (d % 4 == 0 for fp32, d % 8 == 0 for bf16; pad
 // with zeros); scale is the true head dimension's ^-0.5 as the caller
-// rounds it.  Returns the launch's cudaError_t.
+// rounds it; cs the key-split cluster, the caller's (kernels/mha.py
+// pick_cluster): 1, 2, 4 or 8, at most the key tiles.  Returns
+// cudaErrorInvalidValue for a cluster with no instance, else the launch's
+// cudaError_t.
 extern "C" int mha_launch(const void* q, const void* k, const void* v,
                           void* out, int bh, int sq, int sk, int d,
-                          int causal, float scale, int dtype, void* stream) {
+                          int causal, float scale, int dtype, int cs,
+                          void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const int el = dtype == 0 ? 4 : 2;
@@ -654,7 +665,7 @@ extern "C" int mha_launch(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, bh, sq, sk, d, causal, scale, s);
+    return dispatch<float>(q, k, v, out, bh, sq, sk, d, causal, scale, cs, s);
   return dispatch<__nv_bfloat16>(q, k, v, out, bh, sq, sk, d, causal, scale,
-                                 s);
+                                 cs, s);
 }

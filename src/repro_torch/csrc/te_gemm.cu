@@ -23,11 +23,15 @@
 // one TMA copy per stage where the row pitch is a multiple of 16 bytes
 // (the map zero-fills past M and K),
 // 4-byte cp.async copies otherwise (DeepRx's conv_in, K = 54), plain
-// loads for bf16 rows of odd length.  The column slab is picked per call:
-// as wide as N needs, halved while the grid would have under 64 tiles (so
-// CE-ViT's M = 512 GEMMs still run on 64-96 blocks) or while the slab's
-// whole K would not fit (Fig. 10's 512^3 FC GEMM: 32 columns, not 64 in
-// four K chunks each loaded anew for every tile).
+// loads for bf16 rows of odd length.  The column slab and the grid's
+// blocks an SM are the caller's (kernels/te_gemm.py pick_block_shape: a
+// tuned winner, else its heuristic: a slab as wide as N needs, halved
+// while the grid would have under 64 tiles (so CE-ViT's M = 512 GEMMs
+// still run on 64-96 blocks) or while the slab's whole K would not fit
+// (Fig. 10's 512^3 FC GEMM: 32 columns, not 64 in four K chunks each
+// loaded anew for every tile); as many blocks an SM as its shared memory
+// holds, up to 4); this source only refuses a choice it has no instance
+// for.
 //
 // fp32 is 3xTF32: x = x_hi + x_lo with x_hi the top 19 bits of x (a
 // tf32) and x_lo = x - x_hi (exact), likewise W; the product is
@@ -69,8 +73,7 @@ constexpr int STAGES = 4;              // depth of the X ring
 constexpr int AHEAD = STAGES - 1;      // stages in flight while one computes
 constexpr int STAGE_BYTES = BM * 128;  // 64 rows x one 128-byte row of K
 constexpr int W_BUDGET = 160 * 1024;   // bytes of resident W (both slabs)
-constexpr int SMEM_PER_SM = 228 * 1024;
-constexpr int MIN_TILES = 64;          // narrower slabs below this many tiles
+constexpr int MAX_PER_SM = 4;          // persistent blocks an SM, at most
 constexpr int SPLIT_BN = 64;           // widest slab; a wider softmax row
                                        // takes two passes
 
@@ -484,7 +487,7 @@ int row_softmax(const float* z, const float2* stats, int tiles, void* out,
 
 template <typename T, int BN>
 int launch(const T* x, const T* w, const float* bias, void* out,
-           float2* stats, int m, int n, int k, int epilogue,
+           float2* stats, int m, int n, int k, int epilogue, int per_sm,
            cudaStream_t stream) {
   using L = Tile<T, BN>;
   auto kernel = te_gemm_kernel<T, BN>;
@@ -500,8 +503,6 @@ int launch(const T* x, const T* w, const float* bias, void* out,
   const long long tiles =
       (long long)((m + BM - 1) / BM) * ((n + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  int per_sm = SMEM_PER_SM / (smem + 2048);
-  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
   const long long cap = (long long)per_sm * sm_count(dev);
   const uintptr_t base = reinterpret_cast<uintptr_t>(x);
   const int row_bytes = k * L::EL;
@@ -519,30 +520,19 @@ int launch(const T* x, const T* w, const float* bias, void* out,
 template <typename T>
 int dispatch(const T* x, const T* w, const float* bias, void* out,
              float* logits, float2* stats, int m, int n, int k,
-             int epilogue, cudaStream_t s) {
-  int bn = 8;  // as wide as the row needs, up to 64 ...
-  while (bn < n && bn < SPLIT_BN) bn *= 2;
+             int epilogue, int bn, int per_sm, cudaStream_t s) {
   const bool split = epilogue == kSoftmax && n > bn;
-  if (epilogue != kSoftmax || split) {  // ... then narrower for more tiles
-    const long long rows = (m + BM - 1) / BM;
-    const int kpad = (k + Tile<T, 8>::KA - 1) / Tile<T, 8>::KA *
-                     Tile<T, 8>::KA;
-    // and until the whole K of W fits at once, if a narrower slab can
-    auto held = [](int b) {
-      return W_BUDGET / (Op<T>::SLABS * b * 128) * Tile<T, 8>::KA;
-    };
-    while (bn > 8 && (rows * ((n + bn - 1) / bn) < MIN_TILES ||
-                      kpad > held(bn)))
-      bn /= 2;
-  }
   // a split row: fp32 logits (in place for an fp32 output) and pairs
   void* dst = split ? (logits != nullptr ? (void*)logits : out) : out;
   const int epi = split ? kPartial : epilogue;
   const int err =
-      bn == 8    ? launch<T, 8>(x, w, bias, dst, stats, m, n, k, epi, s)
-      : bn == 16 ? launch<T, 16>(x, w, bias, dst, stats, m, n, k, epi, s)
-      : bn == 32 ? launch<T, 32>(x, w, bias, dst, stats, m, n, k, epi, s)
-                 : launch<T, 64>(x, w, bias, dst, stats, m, n, k, epi, s);
+      bn == 8    ? launch<T, 8>(x, w, bias, dst, stats, m, n, k, epi, per_sm, s)
+      : bn == 16 ? launch<T, 16>(x, w, bias, dst, stats, m, n, k, epi, per_sm,
+                                 s)
+      : bn == 32 ? launch<T, 32>(x, w, bias, dst, stats, m, n, k, epi, per_sm,
+                                 s)
+                 : launch<T, 64>(x, w, bias, dst, stats, m, n, k, epi, per_sm,
+                                 s);
   if (err != 0 || !split) return err;
   return row_softmax(static_cast<const float*>(dst), stats,
                      (n + bn - 1) / bn, out, m, n, sizeof(T) == 2, s);
@@ -552,17 +542,24 @@ int dispatch(const T* x, const T* w, const float* bias, void* out,
 
 // x (m, k), w (k, n), out (m, n), row-major and of one dtype: dtype 0 =
 // float32, 1 = bfloat16; bias (n,) fp32 or null.  epilogue: 0 none,
-// 1 relu, 2 silu, 3 row-softmax.  A softmax row wider than 64 takes two
-// passes and needs stats, room for m * ceil(n / 8) float2, and, for a
-// bf16 output, logits, an (m, n) fp32 buffer (an fp32 output is
-// normalised in place).  Returns the first failing launch's cudaError_t.
+// 1 relu, 2 silu, 3 row-softmax.  The launch shape is the caller's
+// (te_gemm.pick_block_shape): bn, the column slab a block holds (8, 16, 32
+// or 64), and per_sm, the persistent grid's blocks an SM (1..4, times the
+// SM count).  A softmax row wider than bn takes two passes and needs
+// stats, room for m * ceil(n / 8) float2, and, for a bf16 output, logits,
+// an (m, n) fp32 buffer (an fp32 output is normalised in place).  Returns
+// cudaErrorInvalidValue for a slab or grid cap with no instance, else the
+// first failing launch's cudaError_t.
 extern "C" int te_gemm_launch(const void* x, const void* w, const void* bias,
                               void* out, void* logits, void* stats, int m,
-                              int n, int k, int epilogue, int dtype,
-                              void* stream) {
+                              int n, int k, int epilogue, int dtype, int bn,
+                              int per_sm, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || epilogue < 0 || epilogue > kSoftmax)
     return (int)cudaErrorInvalidValue;
-  if (epilogue == kSoftmax && n > SPLIT_BN &&
+  if ((bn != 8 && bn != 16 && bn != 32 && bn != SPLIT_BN) || per_sm < 1 ||
+      per_sm > MAX_PER_SM)
+    return (int)cudaErrorInvalidValue;
+  if (epilogue == kSoftmax && n > bn &&
       (stats == nullptr || (dtype == 1 && logits == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -572,11 +569,11 @@ extern "C" int te_gemm_launch(const void* x, const void* w, const void* bias,
   if (dtype == 0)
     return dispatch(static_cast<const float*>(x),
                     static_cast<const float*>(w), b, out, lg, st, m, n, k,
-                    epilogue, s);
+                    epilogue, bn, per_sm, s);
   if (dtype == 1)
     return dispatch(static_cast<const __nv_bfloat16*>(x),
                     static_cast<const __nv_bfloat16*>(w), b, out, lg, st, m,
-                    n, k, epilogue, s);
+                    n, k, epilogue, bn, per_sm, s);
   return (int)cudaErrorInvalidValue;
 }
 

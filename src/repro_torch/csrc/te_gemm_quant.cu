@@ -14,7 +14,10 @@
 // (M = 28,672, K = 288, N = 32) 11.9 MB (3.6 us) against 0.53 GOP.
 //
 // Design: wgmma fed by asynchronous copies.  A block of one or two
-// warpgroups owns a BN-column slab of the output and walks 64-row tiles
+// warpgroups owns a BN-column slab of the output (BN the caller's:
+// kernels/te_gemm.py pick_block_shape, a tuned winner or its heuristic,
+// the whole row for the softmax, else 32 or 64 columns for more blocks at
+// small M) and walks 64-row tiles
 // (persistent: about two blocks per SM take the tiles in turn, so one
 // tile's epilogue overlaps the next tile's loads).  X, K-major already,
 // streams through a ring of five 64 x 128-code stages, three loading while
@@ -507,20 +510,19 @@ int launch(const void* xq, const void* wq, const float* xs, const float* ws,
 template <bool kInt8>
 int dispatch(const void* xq, const void* wq, const float* xs,
              const float* ws, const float* bias, void* out, int m, int n,
-             int k, int epilogue, int out_bf16, cudaStream_t s) {
-  // the softmax takes the whole row in one block; the other epilogues
-  // take 32 or 64 columns a block, for more blocks at small M
-  const int width = epilogue == kSoftmax ? n : (n <= 32 ? 32 : 64);
-  if (width <= 32)
+             int k, int epilogue, int out_bf16, int bn, cudaStream_t s) {
+  // the softmax takes the whole row in one block
+  if (epilogue == kSoftmax && n > bn) return (int)cudaErrorInvalidValue;
+  if (bn == 32)
     return launch<32, kInt8>(xq, wq, xs, ws, bias, out, m, n, k, epilogue,
                              out_bf16, s);
-  if (width <= 64)
+  if (bn == 64)
     return launch<64, kInt8>(xq, wq, xs, ws, bias, out, m, n, k, epilogue,
                              out_bf16, s);
-  if (width <= 128)
+  if (bn == 128)
     return launch<128, kInt8>(xq, wq, xs, ws, bias, out, m, n, k, epilogue,
                               out_bf16, s);
-  if (width <= 256)
+  if (bn == 256)
     return launch<256, kInt8>(xq, wq, xs, ws, bias, out, m, n, k, epilogue,
                               out_bf16, s);
   return (int)cudaErrorInvalidValue;
@@ -531,13 +533,16 @@ int dispatch(const void* xq, const void* wq, const float* xs,
 // xq (m, k) and wq (k, n) codes, row-major, of one type: qtype 0 = int8,
 // 1 = e4m3 (float8_e4m3fn); xs (m,) and ws (n,) fp32 scales; bias (n,)
 // fp32 or null; out (m, n) fp32 (out_bf16 = 0) or bf16 (1).  epilogue:
-// 0 none, 1 relu, 2 silu, 3 row-softmax (n <= 256).  Returns the
-// launch's cudaError_t.
+// 0 none, 1 relu, 2 silu, 3 row-softmax (n <= bn).  bn, the column slab a
+// block holds, is the caller's (kernels/te_gemm.py pick_block_shape): 32,
+// 64, 128 or 256.  Returns cudaErrorInvalidValue for a slab with no
+// instance (or narrower than a softmax row), else the launch's
+// cudaError_t.
 extern "C" int te_gemm_quant_launch(const void* xq, const void* wq,
                                     const void* xs, const void* ws,
                                     const void* bias, void* out, int m,
                                     int n, int k, int epilogue, int qtype,
-                                    int out_bf16, void* stream) {
+                                    int out_bf16, int bn, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || epilogue < 0 || epilogue > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -546,9 +551,9 @@ extern "C" int te_gemm_quant_launch(const void* xq, const void* wq,
   const float* b = static_cast<const float*>(bias);
   if (qtype == 0)
     return dispatch<true>(xq, wq, sx, sw, b, out, m, n, k, epilogue,
-                          out_bf16, s);
+                          out_bf16, bn, s);
   if (qtype == 1)
     return dispatch<false>(xq, wq, sx, sw, b, out, m, n, k, epilogue,
-                           out_bf16, s);
+                           out_bf16, bn, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,8 @@ edited source or header rebuilds.
 
 Every wrapper that launches a kernel adds one to :data:`launches` under
 the kernel's name, and nowhere else, so a run can show that its path went
-through the kernels (:func:`reset_launches` zeroes the counts).
+through the kernels (:func:`reset_launches` zeroes the counts); a kernel
+with launch choices also records the last one in :data:`launch_choices`.
 
 The kernels fill fresh tensors through ``ctypes``, which autograd cannot
 see, so :func:`require_cuda` refuses (:func:`require_no_grad`) an operand
@@ -24,11 +25,13 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -61,6 +64,10 @@ SOURCE_FLAGS = {
 SOURCES = tuple(SOURCE_FLAGS)
 
 launches: collections.Counter = collections.Counter()
+build_seconds: dict = {}  # the last build_all's seconds by source
+# the launch choice (the tuple a kernel's ``pick_*`` returns) of each
+# tuned kernel's last launch, under its launch counter's name
+launch_choices: dict = {}
 _libs: dict = {}
 
 
@@ -111,9 +118,12 @@ def library_path(name: str) -> Path:
 
 def build_all(names=SOURCES) -> float:
     """Compile every listed source whose library is missing, one ``nvcc``
-    process each, all started together.  Returns the seconds it took."""
+    process each, all started together.  Returns the seconds it took;
+    :data:`build_seconds` then holds each source's own (from the start to
+    its ``nvcc``'s exit)."""
     t0 = time.perf_counter()
     todo = [n for n in names if not library_path(n).exists()]
+    build_seconds.clear()
     if not todo:
         return 0.0
     exe = nvcc()
@@ -126,9 +136,21 @@ def build_all(names=SOURCES) -> float:
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         )))
+    logs = {}
+
+    def finish(name, proc):  # one thread a process, so each exit is timed
+        logs[name] = proc.communicate()[0]
+        build_seconds[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=finish, args=(name, proc))
+               for name, _, _, proc in procs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     failed = []
     for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
+        log = logs[name]
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n"
                           f"{log.decode(errors='replace')}")
@@ -163,6 +185,15 @@ def stream_of(t) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (read once per device), which
+    the launch heuristics size their grids by."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require_no_grad(name: str, *tensors) -> None:

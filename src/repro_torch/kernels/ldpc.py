@@ -12,7 +12,9 @@ exit) and the per-codeword iteration count is an output.
 the reference core's arithmetic) only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches ``csrc/ldpc_minsum.cu`` (one block
 per codeword, any code: past what one block's registers and shared memory
-hold, the check messages go to a global workspace) or raises.
+hold, the check messages go to a global workspace; the route and its
+lanes a row are :func:`pick_segment`'s, a winner of
+:mod:`repro_torch.kernels.tune` or the static heuristic) or raises.
 
 ``precision="int8"|"fp8"`` selects the integer datapath (the same for both
 1-byte policies): channel LLRs quantized onto the int8 grid
@@ -31,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, quant
+from repro_torch.kernels import _build, quant, tune
 
 DEFAULT_MAX_ITERS = 12
 DEFAULT_ALPHA = 0.8  # normalized-min-sum damping
@@ -222,14 +224,73 @@ def _schedule(code, device: torch.device):
     return as_t(off), as_t(cols), as_t(shifts), max(map(len, layers))
 
 
+# launch choice: ldpc_minsum.cu's lanes a lifted row (seg,); 0 is the row
+# kernels
+SEGMENTS = (4, 8, 16)
+ROW_KERNEL = 0
+_SEG_LAYERS = 16  # the segment kernels' codes: at most this many layers
+_BLOCK_THREADS = 1024
+
+
+def _code_shape(code) -> tuple:
+    """(layers, widest layer, z) of ``code``."""
+    return code.m_b, max(map(len, code.layers())), code.z
+
+
+def _valid_seg(choice: tuple, n_layers: int, max_deg: int, z: int) -> bool:
+    if len(choice) != 1:
+        return False
+    seg = choice[0]
+    return seg == ROW_KERNEL or (seg in SEGMENTS and seg >= max_deg
+                                 and n_layers <= _SEG_LAYERS
+                                 and z * seg <= _BLOCK_THREADS)
+
+
+def _seg_heuristic(n_layers: int, max_deg: int, z: int) -> tuple:
+    """ldpc_minsum.cu's route before it took one: the widest layer to a
+    power of two (at least 4) where z rows of it fit a block, else the row
+    kernels."""
+    seg = next((s for s in SEGMENTS if s >= max_deg), SEGMENTS[-1])
+    ok = _valid_seg((seg,), n_layers, max_deg, z)
+    return (seg if ok else ROW_KERNEL,)
+
+
+def pick_segment(code, max_iters: int = DEFAULT_MAX_ITERS,
+                 max_deg: Optional[int] = None) -> tuple:
+    """The LDPC decoders' lanes a lifted row (seg,) for ``code`` (0: the
+    row kernels): the ``cuda`` winner of :mod:`repro_torch.kernels.tune`
+    for ("ldpc_decode", (k_b, m_b, z, max_iters)) when the segment
+    kernels take it at this code, else the static heuristic.  Both
+    datapaths read it, as the reference's share the key.  ``max_deg``,
+    the widest layer, is computed when not given.  Memoized
+    (:func:`~repro_torch.kernels.tune.picked`)."""
+    n_layers, z = code.m_b, code.z
+    if max_deg is None:
+        max_deg = _code_shape(code)[1]
+    return tune.picked(
+        ("ldpc_decode", code.k_b, n_layers, z, max_iters, max_deg),
+        lambda: tune.resolve(
+            "ldpc_decode", (code.k_b, code.m_b, z, max_iters), "",
+            lambda c: _valid_seg(c, n_layers, max_deg, z),
+            lambda: _seg_heuristic(n_layers, max_deg, z)))
+
+
+def segment_candidates(code) -> list:
+    """The tuner's candidates: every segment width the code fits, and the
+    row kernels."""
+    n_layers, max_deg, z = _code_shape(code)
+    return [(s,) for s in SEGMENTS
+            if _valid_seg((s,), n_layers, max_deg, z)] + [(ROW_KERNEL,)]
+
+
 def _ldpc_lib(quantized: bool):
     lib = _build.library("ldpc_minsum")
     if quantized:
         fn = lib.ldpc_minsum_q_launch
-        scalars = [ctypes.c_int] * 8 + [ctypes.c_float]
+        scalars = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int]
     else:
         fn = lib.ldpc_minsum_launch
-        scalars = [ctypes.c_int] * 7 + [ctypes.c_float]
+        scalars = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + scalars + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -239,17 +300,21 @@ def _ldpc_lib(quantized: bool):
 def ldpc_decode_cuda(llr: torch.Tensor, code, *,
                      max_iters: int = DEFAULT_MAX_ITERS,
                      alpha: float = DEFAULT_ALPHA,
-                     precision: Optional[str] = None):
+                     precision: Optional[str] = None,
+                     choice: Optional[tuple] = None):
     """Launch ``csrc/ldpc_minsum.cu``, one block per codeword, for fp32 or
-    the int8 datapath (``precision="int8"|"fp8"``): the segment kernel
-    where the code fits one block's registers, else the row kernel, whose
+    the int8 datapath (``precision="int8"|"fp8"``): the segment kernel at
+    ``choice`` = (seg,) lanes a row, or the row kernel at (0,), whose
     check messages (and a posterior past the device's shared memory) go
-    to the workspace allocated here."""
+    to the workspace allocated here; by default :func:`pick_segment`'s
+    (the kernel refuses a seg the code does not fit)."""
     quantized = quant.is_quantized(precision)
     if llr.ndim != 2 or llr.shape[1] != code.n_mother:
         raise ValueError(f"llr {tuple(llr.shape)} is not (B, {code.n_mother})")
     _build.require_cuda("ldpc_minsum", llr=(llr, torch.float32))
     off, cols, shifts, max_deg = _schedule(code, llr.device)
+    choice = (pick_segment(code, max_iters, max_deg) if choice is None
+              else tune.as_choice(choice, 1, "ldpc_decode", "(seg,)"))
     n_edges = int(cols.numel())
     n_cw = llr.shape[0]
     ws = torch.empty(n_cw * (n_edges + code.n_b) * code.z, device=llr.device,
@@ -265,9 +330,11 @@ def ldpc_decode_cuda(llr: torch.Tensor, code, *,
         llr.data_ptr(), post.data_ptr(), iters.data_ptr(), off.data_ptr(),
         cols.data_ptr(), shifts.data_ptr(), ws.data_ptr(),
         n_cw, code.n_b, code.z, code.m_b, n_edges, max_deg, *scalars,
-        _build.stream_of(llr),
+        choice[0], _build.stream_of(llr),
     )
-    _build.launches["ldpc_decode_q" if quantized else "ldpc_decode"] += 1
+    counter = "ldpc_decode_q" if quantized else "ldpc_decode"
+    _build.launches[counter] += 1
+    _build.launch_choices[counter] = choice
     _build.check(err, "ldpc_minsum")
     return post, iters
 
@@ -275,15 +342,22 @@ def ldpc_decode_cuda(llr: torch.Tensor, code, *,
 def ldpc_decode(llr: torch.Tensor, code, *,
                 max_iters: int = DEFAULT_MAX_ITERS,
                 alpha: float = DEFAULT_ALPHA,
-                precision: Optional[str] = None):
+                precision: Optional[str] = None,
+                choice: Optional[tuple] = None):
     """Layered normalized-min-sum decode of ``llr`` (B, n_mother) in the
     log P(1)/P(0) convention (zero = punctured).  Returns (posterior LLRs,
     per-codeword iteration counts); hard decisions are ``posterior > 0``.
     ``precision="int8"|"fp8"`` runs the saturating integer datapath.
-    The CUDA kernel on a CUDA tensor, the plain twin on a CPU tensor."""
+    The CUDA kernel on a CUDA tensor (at ``choice`` = (seg,), by default
+    :func:`pick_segment`'s), the plain twin on a CPU tensor (an explicit
+    ``choice`` is still checked)."""
     precision = quant.resolve_precision(precision)
     if llr.device.type == "cpu":
+        if choice is not None and not _valid_seg(tuple(choice),
+                                                 *_code_shape(code)):
+            raise ValueError(f"ldpc_decode: no kernel instance for launch "
+                             f"choice {tuple(choice)}")
         return ldpc_decode_torch(llr, code, max_iters=max_iters,
                                  alpha=alpha, precision=precision)
     return ldpc_decode_cuda(llr.contiguous(), code, max_iters=max_iters,
-                            alpha=alpha, precision=precision)
+                            alpha=alpha, precision=precision, choice=choice)

@@ -9,7 +9,9 @@ on a CUDA tensor it launches ``csrc/mha.cu`` (tensor cores, online softmax
 over key tiles, scores never in device memory) or raises.  It takes any
 D: the kernel tiles the output's D over a grid axis, and the wrapper only
 zero-pads D to a 16-byte row pitch (:func:`align_head_dim`), run with the
-true D's scale and cut back.  Under grad it runs in :class:`MhaFunction`,
+true D's scale and cut back.  Its key-split cluster is
+:func:`pick_cluster`'s: a winner of :mod:`repro_torch.kernels.tune`,
+else the static heuristic.  Under grad it runs in :class:`MhaFunction`,
 whose backward is torch ops: the reference's has no backward kernel
 either.
 
@@ -27,15 +29,72 @@ twin of the reference's ``mha_quant_jnp``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, quant
+from repro_torch.kernels import _build, quant, tune
 
 NEG_INF = -1e30
 CODE_PITCH = 16  # codes a row of the quantized kernel's operands rounds to
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _QTYPE_CODE = {torch.int8: 0, quant.FP8_DTYPE: 1}
+
+# ---------------------------------------------------------------------------
+# launch choice: mha.cu's key-split cluster (cs,)
+# ---------------------------------------------------------------------------
+
+CLUSTERS = (1, 2, 4, 8)  # blocks of a cluster mha.cu launches
+_BM = _BKV = 64  # query rows and keys of a tile
+
+
+def _key_tiles(sq: int, sk: int, causal: bool) -> int:
+    """Key tiles the last query tile sees (all of them unless causal)."""
+    kv_max = min(sk, -(-sq // _BM) * _BM) if causal else sk
+    return -(-kv_max // _BKV)
+
+
+def _valid_cluster(choice: tuple, sq: int, sk: int, causal: bool) -> bool:
+    return (len(choice) == 1 and choice[0] in CLUSTERS
+            and choice[0] <= _key_tiles(sq, sk, causal))
+
+
+def _cluster_heuristic(bh: int, sq: int, sk: int, d: int, causal: bool,
+                       dtype: torch.dtype, sms: int) -> tuple:
+    """mha.cu's cluster before it took one: doubled while each block keeps
+    a key tile and the grid stays within one wave of ``sms`` SMs."""
+    per = 16 // (4 if dtype == torch.float32 else 2)
+    dp = -(-d // per) * per  # the 16-byte row pitch the wrapper pads to
+    dv = next((v for v in (16, 32, 64) if dp <= v), 128)
+    units = bh * -(-sq // _BM) * -(-dp // dv)
+    tiles = _key_tiles(sq, sk, causal)
+    cs = 1
+    while cs < CLUSTERS[-1] and 2 * cs <= tiles and units * 2 * cs <= sms:
+        cs *= 2
+    return (cs,)
+
+
+def pick_cluster(bh: int, sq: int, sk: int, d: int, causal: bool = True,
+                 dtype: torch.dtype = torch.float32, sms: int = 132
+                 ) -> tuple:
+    """``mha.cu``'s key-split cluster (cs,) for (bh, sq, sk, d) on a card
+    of ``sms`` SMs: the ``cuda`` winner of :mod:`repro_torch.kernels.tune`
+    for ("mha", (bh, sq, sk, d)) when it is at most the key tiles, else
+    the static heuristic.  Memoized
+    (:func:`~repro_torch.kernels.tune.picked`)."""
+    return tune.picked(
+        ("mha", bh, sq, sk, d, causal, dtype, sms),
+        lambda: tune.resolve(
+            "mha", (bh, sq, sk, d), "",
+            lambda c: _valid_cluster(c, sq, sk, causal),
+            lambda: _cluster_heuristic(bh, sq, sk, d, causal, dtype, sms)))
+
+
+def cluster_candidates(bh: int, sq: int, sk: int, d: int,
+                       causal: bool = True) -> list:
+    """The tuner's candidates: every cluster up to the key tiles."""
+    tiles = _key_tiles(sq, sk, causal)
+    return [(c,) for c in CLUSTERS if c <= tiles]
 
 
 def _probabilities(s: torch.Tensor, causal: bool) -> torch.Tensor:
@@ -98,16 +157,19 @@ def _lib():
     fn = _build.library("mha").mha_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-             causal: bool = True) -> torch.Tensor:
+             causal: bool = True,
+             choice: Optional[tuple] = None) -> torch.Tensor:
     """Launch ``csrc/mha.cu``: a warpgroup per (bh, 64-row query tile,
-    output slab of D), a cluster splitting the keys when that grid is
-    small; D zero-padded to a 16-byte row pitch."""
+    output slab of D), a cluster of ``choice`` = (cs,) blocks splitting
+    the keys (by default :func:`pick_cluster`'s; the kernel refuses a
+    cluster it has no instance for); D zero-padded to a 16-byte row
+    pitch."""
     if q.ndim != 3 or k.ndim != 3 or tuple(k.shape) != tuple(v.shape) or \
             k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"mha: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -122,24 +184,33 @@ def mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{q.dtype}")
     _build.require_cuda("mha", q=(q, q.dtype), k=(k, q.dtype),
                         v=(v, q.dtype))
+    launch = _lib()  # the kernel first: the picker reads the card
+    choice = (pick_cluster(bh, sq, sk, d, causal, q.dtype,
+                           _build.sm_count(q.get_device())) if choice is None
+              else tune.as_choice(choice, 1, "mha", "(cs,)"))
     q, k, v = align_head_dim(q, k, v)
     # TMA reads from 16-byte aligned bases (a view may start off one)
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     dp = q.shape[-1]
     out = torch.empty((bh, sq, dp), dtype=q.dtype, device=q.device)
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  bh, sq, sk, dp, int(causal), d ** -0.5,
-                 _DTYPE_CODE[q.dtype], _build.stream_of(q))
+                 _DTYPE_CODE[q.dtype], choice[0], _build.stream_of(q))
     _build.launches["mha"] += 1
+    _build.launch_choices["mha"] = choice
     _build.check(err, "mha")
     return out if dp == d else out[..., :d].contiguous()
 
 
-def _mha_forward(q, k, v, causal):
+def _mha_forward(q, k, v, causal, choice):
     if q.device.type == "cpu":
+        if choice is not None and not _valid_cluster(
+                tuple(choice), q.shape[1], k.shape[1], causal):
+            raise ValueError(f"mha: no kernel instance for launch choice "
+                             f"{tuple(choice)}")
         return mha_torch(q, k, v, causal=causal)
     return mha_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                    causal=causal)
+                    causal=causal, choice=choice)
 
 
 class MhaFunction(torch.autograd.Function):
@@ -154,10 +225,10 @@ class MhaFunction(torch.autograd.Function):
     operand's dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, choice=None):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        return _mha_forward(q, k, v, causal)
+        return _mha_forward(q, k, v, causal, choice)
 
     @staticmethod
     def backward(ctx, g):
@@ -169,23 +240,25 @@ class MhaFunction(torch.autograd.Function):
                            ctx.causal)
         dp = g @ v32.transpose(-1, -2)
         ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
-        need_q, need_k, need_v, _ = ctx.needs_input_grad
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
         return ((scale * (ds @ k32)).to(q.dtype) if need_q else None,
                 (scale * (ds.transpose(-1, -2) @ q32)).to(k.dtype)
                 if need_k else None,
                 (p.transpose(-1, -2) @ g).to(v.dtype) if need_v else None,
-                None)
+                None, None)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True) -> torch.Tensor:
+        causal: bool = True, choice: Optional[tuple] = None) -> torch.Tensor:
     """Attention over (BH, S, D) operands: the CUDA kernel on a CUDA tensor
-    (laid out contiguously first), the plain twin on a CPU tensor.  With
-    grad mode on and an operand that requires grad, the same route runs
-    inside :class:`MhaFunction`, whose backward is plain torch."""
+    (laid out contiguously first, launched with the cluster ``choice`` =
+    (cs,), by default :func:`pick_cluster`'s), the plain twin on a CPU
+    tensor (an explicit ``choice`` is still checked).  With grad mode on
+    and an operand that requires grad, the same route runs inside
+    :class:`MhaFunction`, whose backward is plain torch."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return MhaFunction.apply(q, k, v, causal)
-    return _mha_forward(q, k, v, causal)
+        return MhaFunction.apply(q, k, v, causal, choice)
+    return _mha_forward(q, k, v, causal, choice)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,15 @@ rule: a CPU tensor goes to the kernel's plain PyTorch twin, a CUDA tensor
 to the CUDA kernel, which raises when it cannot run (no card, no
 ``nvcc``, a shape it has no instance for); nothing falls back.
 
-The reference's TPU tiling arguments (``block_shape``, ``bq``, ``bkv``,
-``bm``, ``bk``, ``bc``, ``block_sc``, ``use_pallas``) and its autotuner's
-cached choices pick Pallas block shapes and mean nothing to these
-kernels, which mask their own edges, so the wrappers leave them out.
+Each kernel's launch shape is its own picker's: a winner the autotuner
+(:mod:`repro_torch.kernels.tune`) persisted for the op and shape on
+``cuda``, else the static heuristic (``te_gemm.pick_block_shape``,
+``mha.pick_cluster``, ``rx_fused.pick_subcarrier_tile`` and
+``pick_threads_per_output``), as the reference's wrappers consult its
+tuner before their heuristics.  The reference's TPU block-shape arguments
+(``block_shape``, ``bq``, ``bkv``, ``bm``, ``bk``, ``bc``, ``block_sc``,
+``use_pallas``) pick Pallas tiles, which the kernels here do not have:
+they mask their own edges, so the wrappers leave them out.
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ def te_gemm(x: torch.Tensor, w: torch.Tensor,
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         causal: bool = True) -> torch.Tensor:
-    """Flash attention over (BH, S, D) operands (``csrc/mha.cu``)."""
+    """Flash attention over (BH, S, D) operands (``csrc/mha.cu``), its
+    key-split cluster through :func:`repro_torch.kernels.mha.pick_cluster`
+    (the tuned winner for ("mha", (BH, Sq, Sk, D)), else the heuristic)."""
     return _mha.mha(q, k, v, causal=causal)
 
 

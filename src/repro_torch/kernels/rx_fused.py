@@ -21,7 +21,10 @@
 
 Each wrapper runs its plain PyTorch twin (``*_torch``, the same arithmetic
 in the same order) only because the tensor it was given lies on the CPU;
-on a CUDA tensor it launches the hand-written kernel or raises.
+on a CUDA tensor it launches the hand-written kernel or raises, at the
+launch choice of its picker (:func:`pick_subcarrier_tile`,
+:func:`pick_threads_per_output`: a winner of
+:mod:`repro_torch.kernels.tune`, else the static heuristic).
 ``precision="int8"|"fp8"`` rounds the LLRs onto the fixed int8 grid of
 :mod:`repro_torch.kernels.quant` after the kernel, as the reference does.
 
@@ -38,7 +41,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, quant
+from repro_torch.kernels import _build, quant, tune
 
 
 def noise_var_rows(noise_var, rows: int) -> torch.Tensor:
@@ -260,35 +263,86 @@ def _levels_on(levels: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(levels, dtype=torch.float32, device=device)
 
 
+# launch choice: detect_demap.cu's subcarriers a block (sct,)
+SUBCARRIER_TILES = (8, 16, 32)
+DEFAULT_SUBCARRIER_TILE = 16  # every route has it
+_MAX_COMPILED_NB = 4  # bits per axis of the compiled antenna shapes
+_REGISTERED = ((1, 1), (2, 2), (4, 4), (8, 4))
+# the compiled (n_rx, n_tx, nb) routes with every tile (detect_demap.cu's
+# tiled_route), besides the runtime-sized one: the main paths' shapes
+TILED_ROUTES = {False: ((1, 1, 1), (1, 1, 2), (2, 2, 1), (2, 2, 2),
+                        (8, 4, 3)),
+                True: ((4, 4, 2),)}
+
+
+def _tiles_of_route(sic: bool, n_rx: int, n_tx: int, nb: int) -> tuple:
+    """The subcarrier tiles the kernel compiles for the route a launch at
+    (n_rx, n_tx, nb) takes: every tile on a runtime-sized route or a
+    tiled one, else only the default."""
+    sic = sic and n_tx > 1  # one stream runs the joint kernel
+    compiled = (n_rx, n_tx) in _REGISTERED and nb <= _MAX_COMPILED_NB
+    if not compiled or (n_rx, n_tx, nb) in TILED_ROUTES[sic]:
+        return SUBCARRIER_TILES
+    return (DEFAULT_SUBCARRIER_TILE,)
+
+
+def pick_subcarrier_tile(sic: bool, n_sym: int, n_sc: int, n_rx: int,
+                         n_tx: int, nb: int) -> tuple:
+    """The subcarriers a block (sct,) of ``detect_demap.cu``'s joint
+    (``sic`` False) or SIC kernel: the ``cuda`` winner of
+    :mod:`repro_torch.kernels.tune` for ("rx_detect_demap" or
+    "rx_sic_demap", (n_sym, n_sc, n_rx, n_tx, 2^nb)) when the route has
+    that tile, else 16.  Every tile gives the same outputs.  Memoized
+    (:func:`~repro_torch.kernels.tune.picked`)."""
+    op = "rx_sic_demap" if sic else "rx_detect_demap"
+    return tune.picked(
+        (op, n_sym, n_sc, n_rx, n_tx, nb),
+        lambda: tune.resolve(
+            op, (n_sym, n_sc, n_rx, n_tx, 1 << nb), "",
+            lambda c: len(c) == 1 and c[0] in _tiles_of_route(
+                sic, n_rx, n_tx, nb),
+            lambda: (DEFAULT_SUBCARRIER_TILE,)))
+
+
+def subcarrier_tile_candidates(sic: bool, n_rx: int, n_tx: int,
+                               nb: int) -> list:
+    """The tuner's candidates: every tile the launch's route compiles."""
+    return [(t,) for t in _tiles_of_route(sic, n_rx, n_tx, nb)]
+
+
 def _demap_lib(entry: str):
     fn = getattr(_build.library("detect_demap"), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
             [ctypes.c_void_p] + [ctypes.c_float] * 2 + \
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _workspace_floats(sic: bool, b: int, n_sym: int, n_sc: int, n_rx: int,
-                      n_tx: int, nb: int) -> int:
-    """Floats of the workspace a launch needs (``detect_demap_workspace``
-    of the source): 0 for the compiled instances (the registered antenna
-    shapes at 1..4 bits per axis) and for the launches whose runtime-sized
-    state fits a block's shared memory."""
+                      n_tx: int, nb: int, sct: int) -> int:
+    """Floats of the workspace a launch at subcarrier tile ``sct`` needs
+    (``detect_demap_workspace`` of the source): 0 for the compiled
+    instances (the registered antenna shapes at 1..4 bits per axis) and
+    for the launches whose runtime-sized state fits a block's shared
+    memory."""
     fn = _build.library("detect_demap").detect_demap_workspace
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 7
+        fn.argtypes = [ctypes.c_int] * 8
         fn.restype = ctypes.c_longlong
-    return int(fn(int(sic), b, n_sym, n_sc, n_rx, n_tx, nb))
+    return int(fn(int(sic), b, n_sym, n_sc, n_rx, n_tx, nb, sct))
 
 
-def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
+def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem, choice):
     """Launch ``entry`` of ``csrc/detect_demap.cu`` at any (n_rx, n_tx)
     and 1..14 bits per axis (the source's ``kMaxNb``: its 2^nb levels sit
-    in a block's shared memory), with the workspace the source asks for.
-    ``noise_var`` holds 1 value or one per lane, a divisor of B."""
+    in a block's shared memory), with the workspace the source asks for,
+    at the subcarrier tile ``choice`` = (sct,) (by default
+    :func:`pick_subcarrier_tile`'s; the kernel refuses a tile its route
+    does not compile).  ``noise_var`` holds 1 value or one per lane, a
+    divisor of B."""
     b, n_sym, n_sc, n_rx = y.shape
     n_tx = h.shape[-1]
     nb = modem.bits_per_symbol // 2
@@ -305,6 +359,10 @@ def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
     _build.require_cuda("detect_demap", y=(y, torch.complex64),
                         h=(h, torch.complex64),
                         noise_var=(nv, torch.float32))
+    sic = entry == "sic_demap_launch"
+    choice = (pick_subcarrier_tile(sic, n_sym, n_sc, n_rx, n_tx, nb)
+              if choice is None else tune.as_choice(choice, 1, entry, "(sct,)"))
+    sct = choice[0]
     lv = _levels_on(tuple(float(v) for v in modem.levels), y.device)
     x_hat = torch.empty((b, n_sym, n_sc, n_tx), dtype=torch.complex64,
                         device=y.device)
@@ -312,8 +370,7 @@ def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
                          device=y.device)
     llr = torch.empty((b, n_sym, n_sc, n_tx, 2 * nb), dtype=torch.float32,
                       device=y.device)
-    n_ws = _workspace_floats(entry == "sic_demap_launch", b, n_sym, n_sc,
-                             n_rx, n_tx, nb)
+    n_ws = _workspace_floats(sic, b, n_sym, n_sc, n_rx, n_tx, nb, sct)
     ws = (torch.empty(n_ws, dtype=torch.float32, device=y.device)
           if n_ws else None)
     err = _demap_lib(entry)(
@@ -322,38 +379,47 @@ def _demap_cuda(entry: str, counter: str, y, h, noise_var, modem):
         float(modem.norm), float(np.sqrt(modem.norm)), x_hat.data_ptr(),
         nv_eff.data_ptr(), llr.data_ptr(),
         None if ws is None else ws.data_ptr(), b, n_sym, n_sc, n_rx, n_tx,
-        nb, _build.stream_of(y))
+        nb, sct, _build.stream_of(y))
     _build.launches[counter] += 1
+    _build.launch_choices[counter] = choice
     _build.check(err, entry)
     return x_hat, nv_eff, llr
 
 
-def mmse_detect_demap_cuda(y, h, noise_var, modem):
-    """Launch ``detect_demap_kernel``: a block per (batch row, 16
+def mmse_detect_demap_cuda(y, h, noise_var, modem, choice=None):
+    """Launch ``detect_demap_kernel``: a block per (batch row, sct
     subcarriers) factors each subcarrier's system once and applies it to
     every symbol's RE."""
     return _demap_cuda("detect_demap_launch", "mmse_detect_demap", y, h,
-                       noise_var, modem)
+                       noise_var, modem, choice)
 
 
-def sic_detect_demap_cuda(y, h, noise_var, modem):
-    """Launch ``sic_demap_kernel``: a block per (batch row, 16
+def sic_detect_demap_cuda(y, h, noise_var, modem, choice=None):
+    """Launch ``sic_demap_kernel``: a block per (batch row, sct
     subcarriers) factors every stage's system of each subcarrier once,
     then one thread per RE runs the stages on its residual (for a shape
     with no compiled instance, its vectors in shared memory or the
     workspace).  One stream has nothing to cancel; ``sic_demap_launch``
     then runs ``detect_demap_kernel``, the same operations."""
     return _demap_cuda("sic_demap_launch", "sic_detect_demap", y, h,
-                       noise_var, modem)
+                       noise_var, modem, choice)
 
 
-def _dispatch(twin, kernel, y, h, noise_var, modem, precision):
-    """The twin on a CPU tensor, the kernel (on contiguous operands) on a
-    CUDA one; quantized precisions round the LLRs onto the int8 grid."""
+def _dispatch(twin, kernel, y, h, noise_var, modem, precision, choice,
+              sic):
+    """The twin on a CPU tensor (an explicit ``choice`` checked against
+    the route's tiles), the kernel (on contiguous operands) on a CUDA one;
+    quantized precisions round the LLRs onto the int8 grid."""
     if y.device.type == "cpu":
+        tiles = _tiles_of_route(sic, y.shape[-1], h.shape[-1],
+                                modem.bits_per_symbol // 2)
+        if choice is not None and tuple(choice) not in [(t,) for t in tiles]:
+            raise ValueError(f"detect + demap: no kernel instance for "
+                             f"launch choice {tuple(choice)}")
         out = twin(y, h, noise_var, modem)
     else:
-        out = kernel(y.contiguous(), h.contiguous(), noise_var, modem)
+        out = kernel(y.contiguous(), h.contiguous(), noise_var, modem,
+                     choice)
     if not quant.is_quantized(precision):
         return out
     x_hat, nv_eff, llr = out
@@ -361,22 +427,25 @@ def _dispatch(twin, kernel, y, h, noise_var, modem, precision):
 
 
 def mmse_detect_demap(y, h, noise_var, modem, *,
-                      precision: Optional[str] = None):
-    """Fused MMSE equalize -> demap: the CUDA kernel on a CUDA tensor, the
-    plain twin on a CPU tensor.  ``precision="int8"|"fp8"`` returns LLRs
-    rounded onto the fixed int8 grid (still float32, so the chain keeps
-    its shapes and dtypes); :func:`mmse_detect_demap_int8` gives the raw
-    (codes, scale) pair."""
+                      precision: Optional[str] = None,
+                      choice: Optional[tuple] = None):
+    """Fused MMSE equalize -> demap: the CUDA kernel on a CUDA tensor (at
+    the subcarrier tile ``choice`` = (sct,), by default
+    :func:`pick_subcarrier_tile`'s), the plain twin on a CPU tensor.
+    ``precision="int8"|"fp8"`` returns LLRs rounded onto the fixed int8
+    grid (still float32, so the chain keeps its shapes and dtypes);
+    :func:`mmse_detect_demap_int8` gives the raw (codes, scale) pair."""
     return _dispatch(mmse_detect_demap_torch, mmse_detect_demap_cuda, y, h,
-                     noise_var, modem, precision)
+                     noise_var, modem, precision, choice, False)
 
 
 def sic_detect_demap(y, h, noise_var, modem, *,
-                     precision: Optional[str] = None):
+                     precision: Optional[str] = None,
+                     choice: Optional[tuple] = None):
     """Fused SIC equalize -> demap, dispatched and quantized as
     :func:`mmse_detect_demap`."""
     return _dispatch(sic_detect_demap_torch, sic_detect_demap_cuda, y, h,
-                     noise_var, modem, precision)
+                     noise_var, modem, precision, choice, True)
 
 
 def mmse_detect_demap_int8(y, h, noise_var, modem, *,
@@ -450,7 +519,8 @@ def _ls_lib():
     fn = _build.library("ls_che").ls_che_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
-            [ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -468,10 +538,45 @@ def _symbol_mask(symbols: tuple, n_sym: int, device: torch.device) -> tuple:
     return words[0], rest
 
 
-def ls_che_cuda(y, pilot_symbols: tuple, pilot_stride: int, op):
+# launch choice: ls_che.cu's threads an output (tpo,)
+THREADS_PER_OUTPUT = (1, 2)
+_LS_SC, _LS_RB = 16, 64  # a block's subcarriers and (batch, rx) rows
+_LS_TPO2_OUTPUTS = 256  # outputs a block covers at two threads an output
+
+
+def _valid_tpo(choice: tuple, rows: int) -> bool:
+    return len(choice) == 1 and (choice[0] == 1 or (
+        choice[0] == 2 and min(rows, _LS_RB) * _LS_SC <= _LS_TPO2_OUTPUTS))
+
+
+def pick_threads_per_output(n_sc: int, n_rx: int, n_tx: int, n_p: int,
+                            rows: int) -> tuple:
+    """``ls_che.cu``'s threads an output (tpo,) for ``rows`` = batch x
+    n_rx: the ``cuda`` winner of :mod:`repro_torch.kernels.tune` for
+    ("rx_ls_che", (n_sc, n_rx, n_tx, n_p)) when the kernel has it at these
+    rows, else 2 where a block holds at most 128 outputs (8 rows), else 1.
+    Memoized (:func:`~repro_torch.kernels.tune.picked`)."""
+    return tune.picked(
+        ("rx_ls_che", n_sc, n_rx, n_tx, n_p, rows),
+        lambda: tune.resolve(
+            "rx_ls_che", (n_sc, n_rx, n_tx, n_p), "",
+            lambda c: _valid_tpo(c, rows),
+            lambda: (2 if rows * _LS_SC <= 128 else 1,)))
+
+
+def threads_per_output_candidates(rows: int) -> list:
+    """The tuner's candidates at ``rows`` = batch x n_rx."""
+    return [(t,) for t in THREADS_PER_OUTPUT if _valid_tpo((t,), rows)]
+
+
+def ls_che_cuda(y, pilot_symbols: tuple, pilot_stride: int, op,
+                choice: Optional[tuple] = None):
     """Launch ``csrc/ls_che.cu``: one block per slab of 16 subcarriers
-    of one tx and up to 64 (batch, rx) rows; the pilot symbols (any
-    indices) go to the kernel as a mask of ``n_sym`` bits."""
+    of one tx and up to 64 (batch, rx) rows, ``choice`` = (tpo,) threads
+    an output (by default :func:`pick_threads_per_output`'s; the kernel
+    refuses a tpo it has no instance for at these rows); the pilot
+    symbols (any indices) go to the kernel as a mask of ``n_sym``
+    bits."""
     b, n_sym, n_sc, n_rx = y.shape
     n_tx, n_p, n_sc_op = op.shape
     if n_sc_op != n_sc or n_p * pilot_stride * n_tx != n_sc:
@@ -484,22 +589,33 @@ def ls_che_cuda(y, pilot_symbols: tuple, pilot_stride: int, op):
                          f"{n_sym} symbols")
     _build.require_cuda("ls_che", y=(y, torch.complex64),
                         op=(op, torch.complex64))
+    choice = (pick_threads_per_output(n_sc, n_rx, n_tx, n_p, b * n_rx)
+              if choice is None else tune.as_choice(choice, 1, "ls_che",
+                                                    "(tpo,)"))
     mask0, rest = _symbol_mask(symbols, n_sym, y.device)
     h = torch.empty((b, n_sc, n_rx, n_tx), dtype=torch.complex64,
                     device=y.device)
     err = _ls_lib()(y.data_ptr(), op.data_ptr(), h.data_ptr(), b, n_sym,
                     n_sc, n_rx, n_tx, pilot_stride, mask0,
                     None if rest is None else rest.data_ptr(), len(symbols),
-                    _build.stream_of(y))
+                    choice[0], _build.stream_of(y))
     _build.launches["ls_che"] += 1
+    _build.launch_choices["ls_che"] = choice
     _build.check(err, "ls_che")
     return h
 
 
-def ls_che(y, pilot_symbols: tuple, pilot_stride: int, op):
+def ls_che(y, pilot_symbols: tuple, pilot_stride: int, op, *,
+           choice: Optional[tuple] = None):
     """Fused LS CHE (comb extract -> divide -> interp): the CUDA kernel on
-    a CUDA tensor (laid out contiguously first), the plain twin on a CPU
-    tensor."""
+    a CUDA tensor (laid out contiguously first, at ``choice`` = (tpo,),
+    by default :func:`pick_threads_per_output`'s), the plain twin on a CPU
+    tensor (an explicit ``choice`` is still checked)."""
     if y.device.type == "cpu":
+        if choice is not None and not _valid_tpo(
+                tuple(choice), y.shape[0] * y.shape[-1]):
+            raise ValueError(f"ls_che: no kernel instance for launch "
+                             f"choice {tuple(choice)}")
         return ls_che_torch(y, pilot_symbols, pilot_stride, op)
-    return ls_che_cuda(y.contiguous(), pilot_symbols, pilot_stride, op)
+    return ls_che_cuda(y.contiguous(), pilot_symbols, pilot_stride, op,
+                       choice)

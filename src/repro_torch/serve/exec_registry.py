@@ -30,7 +30,11 @@ graph of the pipeline's whole receive chain, captured once per
   CPU there is no graph: the same staging runs, then the eager chain over
   the static inputs, so the staging, key checks and accounting run in the
   CPU tests.  A capture that fails raises; nothing falls back to eager
-  serving on CUDA.
+  serving on CUDA.  The kernels' launch choices (their ``pick_*``: a
+  winner of :mod:`repro_torch.kernels.tune`, else the static heuristic)
+  are resolved when the step is captured and baked into its graph, as
+  the reference's jit resolves its tuned block shapes at trace time; a
+  winner stored later takes effect at the next capture.
 * :class:`ExecRegistry` — an LRU-bounded map ``ExecKey -> CapturedStep``
   with the reference's accounting: ``compile_time_s`` is warm-up plus
   capture wall time, ``executables_compiled`` counts captures,

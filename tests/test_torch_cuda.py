@@ -1142,3 +1142,197 @@ def test_unfused_group_degrades_through_its_own_lane_step(dev):
     assert any(ref is st for st in sup.groups[key[0]]._execs.values())
     assert len(reg) == len(sup.groups[0]._execs)
     assert ref.graph is not None and torch.isfinite(ref.out["cw_llr"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch choices (repro_torch.kernels.tune and the pickers)
+# ---------------------------------------------------------------------------
+
+def _exact(got, want):
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+
+
+def _tune_operands(op, dev):
+    """One tuned op at a reduced main-path shape: ``call(choice)``, the
+    twin's result, ``hold(got, want)`` (raises on a mismatch: every launch
+    choice of detect, SIC, both decoders and the int8 GEMM bit for bit,
+    the fp32 / bf16 GEMMs and mha at the fp32 / bf16 gates, ls_che rtol
+    1e-5), the candidates, the launch counter and the cache key (op,
+    shape, extra) the wrapper's picker reads."""
+    from repro_torch.kernels import quant
+
+    gen = ofdm.make_generator(31, dev)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    cg = lambda *s: torch.complex(rnd(*s), rnd(*s))
+    if op in ("te_gemm", "te_gemm_bf16", "te_gemm_softmax"):
+        dtype = torch.bfloat16 if op == "te_gemm_bf16" else torch.float32
+        m, k, n, epi = ((512, 64, 64, "softmax") if op == "te_gemm_softmax"
+                        else (4096, 288, 32, "none"))
+        x, w = rnd(m, k).to(dtype), (rnd(k, n) / math.sqrt(k)).to(dtype)
+        rtol = _BF16_RTOL if dtype == torch.bfloat16 else 1e-4
+        return dict(
+            call=lambda c=None: te_gemm.te_gemm(x, w, epilogue=epi,
+                                                choice=c),
+            want=te_gemm.te_gemm_torch(x, w, epilogue=epi),
+            hold=lambda g_, w_: _close(g_, w_, rtol),
+            # a slab narrower than the softmax row splits it in two passes
+            # (3 blocks an SM: the heuristic's at this shape)
+            cands=([(b, 3) for b in te_gemm.SLABS] if epi == "softmax"
+                   else te_gemm.block_shape_candidates(m, n, k, dtype)),
+            counter="te_gemm",
+            key=("te_gemm", (m, n, k), quant.dtype_name(dtype)))
+    if op in ("te_gemm_int8", "te_gemm_fp8"):
+        prec = op.rsplit("_", 1)[1]
+        x, w = rnd(1024, 288), rnd(288, 32) / math.sqrt(288)
+        dtype = quant.storage_dtype(prec)
+        return dict(
+            call=lambda c=None: te_gemm.te_gemm_quant(x, w, precision=prec,
+                                                      choice=c),
+            want=te_gemm.te_gemm_quant_torch(x, w, precision=prec),
+            hold=(lambda g_, w_: _exact([g_], [w_])) if prec == "int8"
+            else (lambda g_, w_: _close(g_, w_, 1e-4)),
+            cands=te_gemm.block_shape_candidates(1024, 32, 288, dtype),
+            counter="te_gemm_quant",
+            key=("te_gemm", (1024, 32, 288), quant.dtype_name(dtype)))
+    if op == "mha":
+        q, k, v = rnd(16, 256, 64), rnd(16, 256, 64), rnd(16, 256, 64)
+        return dict(
+            call=lambda c=None: mha.mha(q, k, v, causal=True, choice=c),
+            want=mha.mha_torch(q, k, v, causal=True),
+            hold=lambda g_, w_: _close(g_, w_, 1e-4),
+            cands=mha.cluster_candidates(16, 256, 256, 64, True),
+            counter="mha", key=("mha", (16, 256, 256, 64), ""))
+    if op in ("detect", "detect_8x4", "sic", "sic_8x6"):
+        n_rx, n_tx, name = {"detect": (1, 1, "qam16"),
+                            "detect_8x4": (8, 4, "qam64"),
+                            "sic": (4, 4, "qam16"),
+                            "sic_8x6": (8, 6, "qam16")}[op]
+        y, h = cg(2, 14, 256, n_rx), cg(2, 256, n_rx, n_tx)
+        nv, modem = torch.tensor(0.05, device=dev), ofdm.make_modem(name)
+        sic = op.startswith("sic")
+        kernel, twin = ((rx_fused.sic_detect_demap,
+                         rx_fused.sic_detect_demap_torch) if sic else
+                        (rx_fused.mmse_detect_demap,
+                         rx_fused.mmse_detect_demap_torch))
+        return dict(
+            call=lambda c=None: kernel(y, h, nv, modem, choice=c),
+            want=twin(y, h, nv, modem), hold=_exact,
+            cands=rx_fused.subcarrier_tile_candidates(
+                sic, n_rx, n_tx, modem.bits_per_symbol // 2),
+            counter="sic_detect_demap" if sic else "mmse_detect_demap",
+            key=("rx_sic_demap" if sic else "rx_detect_demap",
+                 (14, 256, n_rx, n_tx, len(modem.levels)), ""))
+    if op in ("ldpc", "ldpc_int8"):
+        prec = "int8" if op == "ldpc_int8" else None
+        code, llr = _code_llrs("r12", 64, 2.0, dev)
+        return dict(
+            call=lambda c=None: ldpc.ldpc_decode(llr, code, precision=prec,
+                                                 choice=c),
+            want=ldpc.ldpc_decode_torch(llr, code, precision=prec),
+            hold=_exact, cands=ldpc.segment_candidates(code),
+            counter="ldpc_decode_q" if prec else "ldpc_decode",
+            key=("ldpc_decode", (code.k_b, code.m_b, code.z, 12), ""))
+    scn = scenarios.get_scenario({"ls_che": "siso-qam16-r12-snr15",
+                                  "ls_che_2x2": "mimo2x2-qam16-r12-snr17"}[op])
+    g = scn.grid
+    slot = scn.make_batch(ofdm.make_generator(4, dev), 8)
+    y = torch.fft.fft(slot["y_time"], dim=2).contiguous()
+    opr = torch.from_numpy(rx_fused.make_ls_interp_operator(
+        g.n_subcarriers, g.n_tx, g.pilot_stride,
+        ofdm.pilot_sequence_np(g))).to(dev)
+    args = (y, g.pilot_symbols, g.pilot_stride, opr)
+    return dict(
+        call=lambda c=None: rx_fused.ls_che(*args, choice=c),
+        want=rx_fused.ls_che_torch(*args),
+        hold=lambda g_, w_: torch.testing.assert_close(g_, w_, rtol=1e-5,
+                                                       atol=1e-6),
+        cands=rx_fused.threads_per_output_candidates(8 * g.n_rx),
+        counter="ls_che",
+        key=("rx_ls_che", (g.n_subcarriers, g.n_rx, g.n_tx, opr.shape[1]),
+             ""))
+
+
+_TUNED = ["te_gemm", "te_gemm_bf16", "te_gemm_softmax", "te_gemm_int8",
+          "te_gemm_fp8", "mha", "detect", "detect_8x4", "sic", "sic_8x6",
+          "ldpc", "ldpc_int8", "ls_che", "ls_che_2x2"]
+
+
+@pytest.mark.parametrize("op", _TUNED)
+def test_every_launch_choice_matches_twin(dev, op):
+    t = _tune_operands(op, dev)
+    assert len(t["cands"]) >= 2
+    for c in t["cands"]:
+        got = t["call"](c)
+        torch.cuda.synchronize()
+        assert _build.launch_choices[t["counter"]] == c
+        t["hold"](got, t["want"])
+
+
+@pytest.mark.parametrize("op", _TUNED)
+def test_stored_winner_is_what_the_wrapper_launches(dev, op, tmp_path):
+    from repro_torch.kernels import tune
+
+    t = _tune_operands(op, dev)
+    name, shape, extra = t["key"]
+    tune.set_cache_path(str(tmp_path / "tune.json"))
+    try:
+        t["call"]()
+        heuristic = _build.launch_choices[t["counter"]]
+        assert heuristic in t["cands"]
+        other = next(c for c in t["cands"] if c != heuristic)
+        for c in (other, heuristic):
+            tune.get_cache().store(tune.cache_key(name, shape, extra,
+                                                  backend="cuda"), c, 1.0)
+            got = t["call"]()
+            torch.cuda.synchronize()
+            assert _build.launch_choices[t["counter"]] == c, (op, c)
+            t["hold"](got, t["want"])
+        # the tuner itself, on the card: a winner among the candidates,
+        # persisted under cuda and launched by the wrapper
+        timings = {}
+        winner = tune.autotune(name, shape, t["cands"], t["call"], iters=2,
+                               extra=extra, backend="cuda", timings=timings)
+        assert set(timings) == set(t["cands"]) and winner in t["cands"]
+        t["call"]()
+        assert _build.launch_choices[t["counter"]] == winner
+    finally:
+        tune.set_cache_path(None)
+
+
+def test_impossible_explicit_choice_raises_on_card(dev):
+    """The kernels refuse a launch choice they have no instance for
+    (cudaErrorInvalidValue), and the wrapper raises: never a silent
+    fallback to another choice."""
+    for op, bads in (("te_gemm", [(12, 2), (16, 0), (16, 5)]),
+                     ("te_gemm_int8", [(48,)]),
+                     ("mha", [(3,), (16,)]),
+                     ("detect", [(64,), (12,)]),
+                     ("sic", [(4,)]),
+                     ("ldpc", [(4,), (32,)]),  # r12's widest layer: 5
+                     ("ls_che", [(3,)])):
+        call = _tune_operands(op, dev)["call"]
+        for bad in bads:
+            with pytest.raises(RuntimeError, match="cudaError_t"):
+                call(bad)
+    # a tile the route does not compile, a cluster past the key tiles, two
+    # threads an output past 16 rows, a slab narrower than a quantized
+    # softmax row
+    gen = ofdm.make_generator(5, dev)
+    cg = lambda *s: torch.complex(torch.randn(*s, generator=gen, device=dev),
+                                  torch.randn(*s, generator=gen, device=dev))
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        rx_fused.mmse_detect_demap(cg(1, 14, 64, 4), cg(1, 64, 4, 4),
+                                   torch.tensor(0.1, device=dev),
+                                   ofdm.make_modem("qam16"), choice=(8,))
+    q = torch.randn(2, 64, 16, device=dev)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        mha.mha(q, q, q, choice=(2,))
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        rx_fused.ls_che(cg(8, 14, 64, 4), (2, 11), 2,
+                        torch.zeros(1, 32, 64, dtype=torch.complex64,
+                                    device=dev), choice=(2,))
+    x = torch.randn(64, 32, device=dev)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        te_gemm.te_gemm_quant(x, torch.randn(32, 200, device=dev),
+                              epilogue="softmax", choice=(128,))

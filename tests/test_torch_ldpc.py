@@ -270,3 +270,29 @@ def test_int8_sweep_saturates_like_reference():
     for g, w in zip(got_c, want_c):
         assert np.array_equal(g.numpy(), np.asarray(w))
         assert np.abs(g.numpy()).max() == 127
+
+
+# ---------------------------------------------------------------------------
+# the port's numpy oracle (kernels/ref.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rate,snr_db", [("r12", 2.0), ("r34", 5.5),
+                                         ("r12", -6.0)])
+def test_port_oracle_equals_reference_oracle(rate, snr_db):
+    """``repro_torch.kernels.ref.ldpc_decode_ref`` is the reference's
+    per-codeword numpy loop: posteriors and iteration counts bit for bit
+    on shared LLRs, returned as tensors; the twin equals it too (the
+    kernels are held to it on the card by ``chip_smoke.py``)."""
+    from repro_torch.kernels import ref as port_ref
+
+    llr = _llrs(rate, 4, snr_db, seed=21)
+    post, iters = port_ref.ldpc_decode_ref(torch.from_numpy(llr),
+                                           coding.make_code(rate))
+    post_o, iters_o = ref.ldpc_decode_ref(llr, ref_coding.make_code(rate))
+    assert isinstance(post, torch.Tensor) and post.dtype == torch.float32
+    assert iters.dtype == torch.int32
+    assert np.array_equal(iters.numpy(), np.asarray(iters_o))
+    assert np.array_equal(post.numpy(), np.asarray(post_o))
+    twin_post, twin_iters = _twin(llr, rate)
+    assert np.array_equal(twin_iters, iters.numpy())
+    assert np.array_equal(twin_post, post.numpy())

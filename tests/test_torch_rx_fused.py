@@ -203,3 +203,75 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
             ofdm.make_modem("qpsk"))
 
+
+
+# ---------------------------------------------------------------------------
+# the port's unfused oracles (kernels/ref.py)
+# ---------------------------------------------------------------------------
+
+def _assert_llr_gate(llr, llrr):
+    """The port's LLR gate: >= 99.9% sign agreement, values within rtol
+    1e-3, atol 1e-5 of the largest |LLR|."""
+    llr, llrr = np.asarray(llr), np.asarray(llrr)
+    assert llr.shape == llrr.shape
+    assert np.mean((llr > 0) == (llrr > 0)) >= 0.999
+    np.testing.assert_allclose(llr, llrr, rtol=1e-3,
+                               atol=1e-5 * float(np.abs(llrr).max()))
+
+
+@pytest.mark.parametrize("n_rx,n_tx,modem_name,sic", [
+    (1, 1, "qam16", False), (2, 2, "qam16", False), (8, 4, "qam64", False),
+    (4, 4, "qam16", True), (2, 2, "qpsk", True), (8, 6, "qam16", True)])
+def test_demap_oracles_match_reference_and_twins(n_rx, n_tx, modem_name,
+                                                 sic):
+    """``mmse_detect_demap_ref`` / ``sic_detect_demap_ref`` of the port
+    (the linalg-solve detector and the modem's demapper, composed) equal
+    the reference's on shared inputs, and the fused twins equal them, at
+    the LLR gate (x_hat and nv_eff at the reference's own rtol 1e-3,
+    atol 1e-4)."""
+    from repro.kernels import ref as ref_ref
+    from repro_torch.kernels import ref
+
+    y, h, nv = _detect_inputs(n_rx, n_tx, modem_name, seed=40 + n_rx + n_tx,
+                              b=1)
+    fn, ref_fn, twin = (
+        (ref.sic_detect_demap_ref, ref_ref.sic_detect_demap_ref,
+         rx_fused.sic_detect_demap) if sic else
+        (ref.mmse_detect_demap_ref, ref_ref.mmse_detect_demap_ref,
+         rx_fused.mmse_detect_demap))
+    args = (torch.from_numpy(y), torch.from_numpy(h), torch.tensor(nv),
+            port_modem(modem_name))
+    got = [o.numpy() for o in fn(*args)]
+    want = [np.asarray(o) for o in ref_fn(
+        jnp.asarray(y), jnp.asarray(h), jnp.float32(nv),
+        ref_modem(modem_name))]
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4)
+    _assert_llr_gate(got[2], want[2])
+    _assert_llr_gate(twin(*args)[2].numpy(), got[2])
+
+
+@pytest.mark.parametrize("n_rx,n_tx", [(1, 1), (2, 2), (4, 4)])
+def test_ls_che_oracle_matches_reference_and_twin(n_rx, n_tx):
+    """``ls_che_ref`` (the staggered-comb LS + clamped interpolation) of
+    the port equals the reference's on a shared grid, and the fused twin
+    equals it, at rtol 1e-4."""
+    from repro.kernels import ref as ref_ref
+    from repro_torch.kernels import ref
+
+    y, op, stride = _ls_inputs(n_tx, n_rx, seed=60 + n_rx, n_sc=256)
+    g = ref_ofdm.GridConfig(n_subcarriers=256, fft_size=256, n_tx=n_tx,
+                            n_rx=n_rx)
+    seq = np.array(ref_ofdm.pilot_sequence(g))
+    masks = ref_ofdm.link_pilot_masks_np(g)
+    got = ref.ls_che_ref(torch.from_numpy(y), torch.from_numpy(seq),
+                         torch.from_numpy(masks), stride).numpy()
+    want = np.asarray(ref_ref.ls_che_ref(jnp.asarray(y), jnp.asarray(seq),
+                                         jnp.asarray(masks), stride))
+    assert got.shape == want.shape == (2, 256, n_rx, n_tx)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * float(np.abs(want).max()))
+    twin = rx_fused.ls_che(torch.from_numpy(y), g.pilot_symbols, stride,
+                           torch.from_numpy(op)).numpy()
+    np.testing.assert_allclose(twin, got, rtol=1e-4,
+                               atol=1e-5 * float(np.abs(got).max()))

@@ -101,7 +101,8 @@ _MODULES = [
     "repro_torch.kernels.ldpc", "repro_torch.kernels.te_gemm",
     "repro_torch.kernels.mha", "repro_torch.kernels.fc_softmax",
     "repro_torch.kernels.dwconv_block", "repro_torch.kernels.ops",
-    "repro_torch.kernels.ref", "repro_torch.common",
+    "repro_torch.kernels.ref", "repro_torch.kernels.tune",
+    "repro_torch.core.balance", "repro_torch.common",
     "repro_torch.common.params", "repro_torch.phy.models",
     "repro_torch.core.machine",
     "repro_torch.core.pool", "repro_torch.analysis.costmodel",
