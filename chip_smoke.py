@@ -211,7 +211,26 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    choice, must launch the winner (``_build.launch_choices``) and still
    equal the twin.  Each case prints its candidates, the heuristic's
    choice and the winner; the phase its wall time.
-8. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
+8. The LM model zoo (``repro_torch.configs``, ``repro_torch.models``),
+   plain torch (no hand-written kernel may launch; the counts are zeroed
+   just before and read just after). (a) Each of the ten archs' smoke
+   configs on the card against the same module on the CPU, the same weights
+   and tokens: forward, prefill and 4 decode steps, every logits and cache
+   leaf within rtol 1e-4 + 5e-5 of the largest |value| (whisper 5e-4). (b)
+   One model a family at its published width, batch 2, random weights from
+   seed 0: llama3-8b (32 layers), moonshot-v1-16b-a3b (4 of 48),
+   pixtral-12b (4 of 40, 1024 stub image tokens), zamba2-7b (81),
+   rwkv6-1.6b (24), each on 256-token prompts, and whisper-tiny (1500 stub
+   frames, 64 tokens): a teacher-forced forward, the prefill / decode
+   consistency in fp32 compute (< 1e-3 of scale; llama3 at 2 layers and
+   zamba2 at 7, where a random stack's chaos makes the full depth miss it
+   in the reference too, the deeper stacks' errors printed), moonshot's
+   no-drop identity (< 1e-4), then in bf16 compute the prefill and 16
+   greedy decode steps, each under
+   ``torch.cuda.set_sync_debug_mode("error")`` (after 2 more untimed), and
+   10 more traced. A JSON line a model: params, GB, peak memory, forward /
+   prefill ms, decode ms a step (median of 16), tokens/s, the idle share.
+9. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 and prints no result.
@@ -3072,6 +3091,317 @@ def drive_autotune(dev) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the LM model zoo (repro_torch.configs, repro_torch.models)
+# ---------------------------------------------------------------------------
+
+LM = "lm zoo"
+LM_SMOKE_BATCH, LM_SMOKE_SEQ, LM_SMOKE_DECODE = 2, 17, 4
+# card against CPU at fp32 (TF32 off): |card - cpu| <= rtol |cpu| + atol x
+# max |cpu|.  The card's exp, rsqrt and tanh differ from the CPU's by an
+# ulp or two, and each arch amplifies that by its own conditioning (one
+# ulp of weight noise moves the smoke logits by 4e-6 to 3e-5 of their
+# largest value, whisper-tiny's most; tests/_lm_parity.py), so atol is
+# 5e-5 of max where the CPU tests hold the port to the reference at
+# 1e-5, and 5e-4 for whisper-tiny (1e-4 there)
+LM_RTOL, LM_ATOL = 1e-4, 5e-5
+LM_ATOL_BY_ARCH = {"whisper-tiny": 5e-4}
+# one model per family at its published width, batch 2: (arch, layers kept
+# (None: all of them), text tokens of the prompt); pixtral's prompt adds
+# its 1024 stub image tokens, whisper's encoder its 1500 stub frames
+LM_FULL = (("llama3-8b", None, 256), ("moonshot-v1-16b-a3b", 4, 256),
+           ("pixtral-12b", 4, 256), ("zamba2-7b", None, 256),
+           ("rwkv6-1.6b", None, 256), ("whisper-tiny", None, 64))
+LM_BATCH = 2
+LM_WARM_STEPS = 2  # untimed decode steps ahead of the timed ones
+LM_DECODE_STEPS = 16
+LM_TRACED_STEPS = 10
+# a stack of random layers is chaotic: rounding differences between the
+# prefill and decode paths grow with depth, about tenfold a layer past
+# the second in llama3-8b at full width (the schema's "scaled" init
+# takes the second-to-last dim as the fan-in, the head count for wq and
+# wk, so the scores are large and the softmax nearly one-hot), in the
+# reference too (16 layers
+# of llama3 at width 256 miss the check in both packages:
+# tests/test_torch_models.py::
+# test_consistency_error_grows_with_depth_in_both_packages).  These
+# models are held to the check at the first depth listed (zamba2: one
+# super-block and a tail layer); the others and the full depth are
+# printed
+LM_CONSISTENCY_LAYERS = {"llama3-8b": (2, 4, 8), "zamba2-7b": (7, 12, 24)}
+
+
+def _lm_close(got, want, rtol: float, atol: float, what: str) -> float:
+    """Elementwise ``|got - want| <= rtol |want| + atol x max |want|`` (on
+    the host); returns the largest error over max |want|."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    check(g.shape == w.shape, f"{LM} {what}: shape {tuple(g.shape)} != "
+          f"{tuple(w.shape)}")
+    scale = float(w.abs().max()) or 1.0
+    err = (g - w).abs()
+    check(bool((err <= rtol * w.abs() + atol * scale).all()),
+          f"{LM} {what}: card against CPU, max error {float(err.max()):.3g} "
+          f"at scale {scale:.3g}")
+    return float(err.max()) / scale
+
+
+def check_lm_smoke(dev) -> dict:
+    """(a) Every arch's smoke config on the card against the same module on
+    the CPU, the same weights (drawn on the CPU, copied) and tokens: the
+    forward logits, the prefill's and each of 4 decode steps' logits and
+    every cache leaf after each.  Returns the largest error over scale by
+    arch."""
+    import torch
+
+    from repro_torch.common.params import tree_map
+    from repro_torch.configs import ARCH_IDS, ShapeConfig, get_smoke_config
+    from repro_torch.models import get_model
+
+    b, s, steps = LM_SMOKE_BATCH, LM_SMOKE_SEQ, LM_SMOKE_DECODE
+    worst = {}
+    for arch in ARCH_IDS:
+        m = get_model(get_smoke_config(arch))
+        gen = torch.Generator().manual_seed(0)
+        p_cpu = m.init(gen)
+        inputs = m.make_inputs(gen, ShapeConfig("lm", s, b, "prefill"))
+        toks = torch.randint(0, m.cfg.vocab_size, (steps, b, 1),
+                             generator=gen, dtype=torch.int32)
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+
+        def run(params, device):
+            batch = {k: v.to(device) for k, v in inputs.items()}
+            out = [("forward", m.forward(params, batch)[0])]
+            cache = m.init_cache(b, 32, device=device)
+            logits, cache = m.prefill(params, batch, cache)
+            out += [("prefill", logits)] + [
+                (f"prefill {k}", cache[k].clone()) for k in sorted(cache)]
+            for i, t in enumerate(toks):
+                logits, cache = m.decode_step(params, t.to(device), cache)
+                out += [(f"decode {i}", logits)] + [
+                    (f"decode {i} {k}", cache[k].clone())
+                    for k in sorted(cache)]
+            return out
+
+        with torch.no_grad():
+            want, got = run(p_cpu, "cpu"), run(p_dev, dev)
+        errs = []
+        for (what, w), (_, g) in zip(want, got):
+            check(g.device.type == torch.device(dev).type,
+                  f"{LM} {arch} {what} off the card")
+            if what.endswith(" pos"):
+                check(int(g) == int(w), f"{LM} {arch} {what}: {int(g)} != "
+                      f"{int(w)}")
+                continue
+            errs.append(_lm_close(g, w, LM_RTOL,
+                                  LM_ATOL_BY_ARCH.get(arch, LM_ATOL),
+                                  f"{arch} {what}"))
+        worst[arch] = max(errs)
+    return worst
+
+
+def _lm_events_ms(fn, reps: int) -> list:
+    """Milliseconds of each of ``reps`` calls of ``fn`` by CUDA events,
+    read after the last call."""
+    import torch
+
+    marks = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in marks]
+
+
+def _lm_trace(run, steps: int) -> dict:
+    """Host wall, device busy time and idle share over ``steps`` calls of
+    ``run`` under a CUPTI trace (``profile_window``'s method; device
+    activity only, which keeps the trace of thousands of launches a step
+    quick to read)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = _device_events(prof)
+    check(bool(events), f"{LM}: the traced decode steps hold no device "
+          "event")
+    busy = sum(us for _, us in events)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "device_events_per_step": len(events) / steps}
+
+
+def _lm_consistency(m, params, batch, seq: int, dev) -> float:
+    """The reference test's check on the card: decode(prefill(t[:-1]),
+    t[-1]) against prefill(t)'s last logits, err / scale."""
+    full, _ = m.prefill(params, batch, m.init_cache(LM_BATCH, seq,
+                                                    device=dev))
+    pre = dict(batch, tokens=batch["tokens"][:, :-1])
+    _, cache = m.prefill(params, pre, m.init_cache(LM_BATCH, seq,
+                                                   device=dev))
+    dec, _ = m.decode_step(params, batch["tokens"][:, -1:], cache)
+    err = float((dec[:, 0] - full[:, 0]).abs().max())
+    return err / (float(full.abs().max()) + 1e-6)
+
+
+def _lm_model(dev, cfg, seq: int, seed: int = 0) -> tuple:
+    """(model, weights drawn on the card from ``seed``, a prompt batch)."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import get_model
+
+    m = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = m.init(gen)
+    return m, params, m.make_inputs(gen, ShapeConfig("lm", seq, LM_BATCH,
+                                                     "prefill"))
+
+
+def drive_lm_full(dev, arch: str, layers, text: int) -> dict:
+    """(b) One family's model at its published width on the card, batch 2,
+    weights drawn from seed 0 in its ``param_dtype``: a teacher-forced
+    forward; the reference test's prefill / decode consistency in fp32
+    compute (err / scale < 1e-3; at :data:`LM_CONSISTENCY_LAYERS` where
+    the stack is cut for it, the full depth's error reported); for a MoE
+    the no-drop identity (forward = prefill, < 1e-4); then, in the
+    config's own ``compute_dtype``, the prefill and 16 greedy decode
+    steps, each under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+    sync raises; the first 2 untimed), then 10 more under a CUPTI
+    trace."""
+    import torch
+
+    from repro_torch.common.params import count_params, tree_size_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    published = get_config(arch)
+    cfg = published if layers is None else published.replace(
+        num_layers=layers)
+    n_img = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    seq = text + n_img  # the positions a prompt fills in the cache
+    f32 = {"compute_dtype": "float32"}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    row = {"model": arch, "layers": cfg.num_layers,
+           "published_layers": published.num_layers, "batch": LM_BATCH,
+           "text_tokens": text, "image_tokens": n_img,
+           "audio_frames": cfg.enc_ctx if cfg.family == "audio" else 0,
+           "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype}
+    with torch.no_grad():
+        by_depth = {}
+        for n in LM_CONSISTENCY_LAYERS.get(arch, ()):
+            cut = _lm_model(dev, cfg.replace(num_layers=n, **f32), seq)
+            by_depth[n] = _lm_consistency(*cut, seq, dev)
+            del cut
+            torch.cuda.empty_cache()
+        if by_depth:
+            row["consistency_layers"] = min(by_depth)
+            row["consistency_err_over_scale"] = by_depth[min(by_depth)]
+        m, params, batch = _lm_model(dev, cfg, seq)
+        row["params"] = count_params(m.schema())
+        row["params_gb"] = tree_size_bytes(params) / 1e9
+
+        # teacher-forced forward in the compute dtype
+        logits, _ = m.forward(params, batch)
+        check(tuple(logits.shape) == (LM_BATCH, text, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{LM} {arch}: forward logits {tuple(logits.shape)} not "
+              "finite or of the wrong shape")
+        del logits
+        row["forward_ms"] = _lm_events_ms(
+            lambda: m.forward(params, batch), 1)[0]
+
+        # the reference's consistency check, fp32 compute
+        err = _lm_consistency(get_model(cfg.replace(**f32)), params,
+                              batch, seq, dev)
+        if by_depth:
+            by_depth[cfg.num_layers] = err
+            row["consistency_by_depth"] = by_depth
+        else:
+            row["consistency_err_over_scale"] = err
+        check(row["consistency_err_over_scale"] < 1e-3,
+              f"{LM} {arch}: decode/prefill mismatch "
+              f"{row['consistency_err_over_scale']:.3g} (fp32 compute)")
+
+        if cfg.family == "moe":
+            nd = get_model(cfg.replace(
+                capacity_factor=float(cfg.num_experts), **f32))
+            fwd, _ = nd.forward(params, batch)
+            pl, _ = nd.prefill(params, batch,
+                               nd.init_cache(LM_BATCH, seq, device=dev))
+            row["nodrop_max_abs_err"] = float(
+                (pl[:, 0] - fwd[:, -1]).abs().max())
+            check(row["nodrop_max_abs_err"] < 1e-4,
+                  f"{LM} {arch}: no-drop forward != prefill "
+                  f"({row['nodrop_max_abs_err']:.3g})")
+            del fwd, pl
+
+        # serving in the compute dtype: prefill, then greedy decode
+        steps = LM_WARM_STEPS + LM_DECODE_STEPS + LM_TRACED_STEPS
+        cache = m.init_cache(LM_BATCH, seq + steps + 1, device=dev)
+        row["prefill_ms"] = _lm_events_ms(
+            lambda: m.prefill(params, batch, cache), 1)[0]
+        logits, cache = m.prefill(params, batch, cache)
+        state = {"tok": logits[:, -1:].argmax(-1)}
+
+        def step():
+            out, _ = m.decode_step(params, state["tok"], cache)
+            state["tok"] = out[:, -1:].argmax(-1)
+
+        def checked_step():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        for _ in range(LM_WARM_STEPS):
+            checked_step()
+        ms = _lm_events_ms(checked_step, LM_DECODE_STEPS)
+        row["decode_ms_per_step"] = statistics.median(ms)
+        row["decode_ms_steps"] = ms
+        row["tokens_per_s"] = LM_BATCH * 1e3 / row["decode_ms_per_step"]
+        row.update(_lm_trace(step, LM_TRACED_STEPS))
+        check(int(cache["pos"]) == seq + steps,
+              f"{LM} {arch}: cache at {int(cache['pos'])} after {steps} "
+              "steps")
+    row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["wall_s"] = time.perf_counter() - t0
+    del m, params, batch, cache, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def drive_lm(dev) -> tuple:
+    """Phase 8, with the kernels' launch counts zeroed just before and read
+    just after: the models are plain torch (the reference computes their
+    products and attention outside any Pallas kernel), so no hand-written
+    kernel may launch."""
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    smoke = check_lm_smoke(dev)
+    smoke["wall_s"] = time.perf_counter() - t0
+    rows = [drive_lm_full(dev, *spec) for spec in LM_FULL]
+    launches = {k: n for k, n in _build.launches.items() if n}
+    check(not launches, f"{LM}: the models launched hand-written kernels "
+          f"{launches}")
+    return smoke, rows
+
+
 def device_total_us(fn, reps: int = 20) -> float:
     """Device microseconds per call of ``fn``, every kernel it launches
     summed (CUPTI): each kernel's mean over its recorded launches, times
@@ -3287,6 +3617,16 @@ def main() -> int:
               f"{json.dumps(row)}", flush=True)
     print(f"{TUNE}: phase 7 wall {time.perf_counter() - t7:.1f}s, cache "
           f"{tune.get_cache().path} | {nvidia_smi_line()}", flush=True)
+
+    t8 = time.perf_counter()
+    smoke, rows = drive_lm(dev)
+    print(f"{LM} (a) smoke configs, card against CPU, largest error over "
+          f"scale by arch (and the check's wall): {json.dumps(smoke)}",
+          flush=True)
+    for row in rows:
+        print(f"{LM} (b) {row['model']}: {json.dumps(row)}", flush=True)
+    print(f"{LM}: phase 8 wall {time.perf_counter() - t8:.1f}s | "
+          f"{nvidia_smi_line()}", flush=True)
 
     needs_by_path = {label: needs for label, *_, needs in PATHS}
     needs_by_path.update({label: needs for label, *_, needs in MESH_PATHS})

@@ -1,7 +1,10 @@
-"""Parameter schemas (port of the parts of :mod:`repro.common.params` the
-PHY models need): a model declares a nested dict whose leaves are
-:class:`Param`, and :func:`init_params` materializes it into the same
-nested dict of tensors.
+"""Parameter schemas (port of :mod:`repro.common.params`): a model declares
+a nested dict whose leaves are :class:`Param`, and :func:`init_params`
+materializes it into the same nested dict of tensors.  From the schema
+also come the logical axes (:func:`schema_axes`), shapes as ``meta``
+tensors that allocate nothing (:func:`schema_shapes`) and the count
+(:func:`count_params`); :func:`stack_schemas` stacks a per-layer schema
+along a leading ``layers`` dim, the layout the LM models loop over.
 
 Randomness comes from an explicit :class:`torch.Generator`, one draw per
 leaf in the reference's leaf order (dict keys sorted, lists in order).
@@ -45,17 +48,22 @@ def _init_leaf(p: Param, gen: torch.Generator) -> torch.Tensor:
         return torch.zeros(p.shape, dtype=p.dtype, device=dev)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=p.dtype, device=dev)
+    # scaled in place: one leaf's draw is all the memory an init adds
     if p.init == "normal":
-        return (p.scale * torch.randn(p.shape, generator=gen, device=dev)
-                ).to(p.dtype)
+        return torch.randn(p.shape, generator=gen, device=dev).mul_(
+            p.scale).to(p.dtype)
     if p.init == "scaled":  # 1/sqrt(fan_in), fan_in = second-to-last dim
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
-        return (torch.randn(p.shape, generator=gen, device=dev)
-                / math.sqrt(fan_in)).to(p.dtype)
+        return torch.randn(p.shape, generator=gen, device=dev).div_(
+            math.sqrt(fan_in)).to(p.dtype)
     if p.init == "uniform":
         u = torch.rand(p.shape, generator=gen, device=dev)
         return ((2.0 * u - 1.0) * p.scale).to(p.dtype)
     raise ValueError(f"unknown init {p.init}")
+
+
+def is_param(x: Any) -> bool:
+    return isinstance(x, Param)
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
@@ -113,17 +121,53 @@ def params_from_numpy(schema: PyTree, tree: PyTree,
     """Arrays laid out as ``schema`` (the reference's params as numpy) ->
     tensors of the schema's dtypes on ``device``."""
     check_shapes(schema, tree)
-    return tree_map(
-        lambda p, x: torch.from_numpy(np.array(x, copy=True)).to(
-            device, p.dtype),
-        schema, tree,
-    )
+    return tree_map(lambda p, x: _from_numpy(x).to(device, p.dtype),
+                    schema, tree)
+
+
+def _from_numpy(x) -> torch.Tensor:
+    """A host copy of ``x``; a bfloat16 array (numpy has no such dtype of
+    its own) is carried bit for bit through its 16-bit pattern."""
+    a = np.array(x, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_to_numpy(tree: PyTree) -> PyTree:
     """The reverse of :func:`params_from_numpy`: the same nested dict with
     each tensor as a numpy array on the host (the reference's layout)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def schema_axes(schema: PyTree) -> PyTree:
+    """Logical-axis tree matching the parameter tree's structure."""
+    return tree_map(lambda p: p.axes, schema)
+
+
+def schema_shapes(schema: PyTree) -> PyTree:
+    """The parameter tree as ``meta`` tensors of the schema's shapes and
+    dtypes (no storage)."""
+    return tree_map(
+        lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), schema)
+
+
+def stack_schemas(schema: PyTree, n: int, axis_name: str = "layers"
+                  ) -> PyTree:
+    """Stack a per-layer schema ``n`` times along a leading dim with the
+    logical axis ``axis_name`` (the models loop over that dim)."""
+    return tree_map(
+        lambda p: Param(shape=(n,) + tuple(p.shape),
+                        axes=(axis_name,) + tuple(p.axes), init=p.init,
+                        scale=p.scale, dtype=p.dtype),
+        schema)
+
+
+def cast_floating(tree: PyTree, dtype: torch.dtype) -> PyTree:
+    """Every floating-point tensor of ``tree`` cast to ``dtype``; integer
+    leaves unchanged."""
+    return tree_map(
+        lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
 def count_params(schema_or_params: PyTree) -> int:

@@ -1,8 +1,9 @@
 """Machine models (port of :mod:`repro.core.machine`): the paper's
 processor, which the PHY cycle model and the energy model price receiver
-stages against, and the H100 the port runs on, which the balance model
-(:mod:`repro_torch.core.balance`), the kernel tuner and ``chip_smoke.py``'s
-bounds read.  The reference's TPU entry has no counterpart here."""
+stages against, its TeraPool baseline (paper Table II), and the H100 the
+port runs on, which the balance model (:mod:`repro_torch.core.balance`),
+the kernel tuner and ``chip_smoke.py``'s bounds read.  The reference's
+TPU entry has no counterpart here."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,6 +34,16 @@ TENSORPOOL_N7 = Machine(
     link_bw=64e9,  # one TE's 512-bit L1 port @ 1 GHz
     fast_mem_bytes=4 * 1024 * 1024,
     freq_hz=1e9,
+)
+
+# TeraPool baseline (paper Table II): 1024 PEs x 2 FP16 MACs/cycle @ 0.9 GHz.
+TERAPOOL_12N = Machine(
+    name="terapool-12n",
+    peak_flops=3.7e12,
+    hbm_bw=1024e9,
+    link_bw=64e9,
+    fast_mem_bytes=4 * 1024 * 1024,
+    freq_hz=0.9e9,
 )
 
 # The card the port runs on: an NVIDIA H100 SXM (NVIDIA's data sheet; the

@@ -86,3 +86,8 @@ def dwconv_block(x_padded: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor,
     """Depthwise 3x3 -> pointwise -> LayerNorm -> ReLU
     (``csrc/dwconv_block.cu``)."""
     return _dw.dwconv_block(x_padded, dw, pw, gamma, beta)
+
+
+# the reference's alias of the GEMM's launch-shape picker (its TPU tiles
+# (bm, bn, bk); here the Hopper kernels' choice, see te_gemm's docstring)
+pick_block_shape = _te.pick_block_shape

@@ -506,25 +506,43 @@ def autotune_rx_sic(batch: int, n_sym: int, n_sc: int, n_rx: int,
                         n_tx, modem, iters, cache, device, timings)
 
 
-def autotune_ldpc(batch: int, code, *, max_iters: int = 12,
-                  iters: int = 3, cache: Optional[TuneCache] = None,
-                  device=None, timings: Optional[dict] = None) -> tuple:
-    """Tune the LDPC decoders' lanes a lifted row (seg,) and persist it
-    (both datapaths read the winner, as the reference's share one key)."""
+# the SNR (dB) of the codewords the LDPC tuner decodes: BPSK over AWGN at
+# the main path's r12 point, where the decoder sweeps several times
+LDPC_TUNE_SNR_DB = 3.0
+
+
+def ldpc_tune_llrs(batch: int, code, device=None):
+    """(batch, n_mother) channel LLRs of random codewords sent as BPSK
+    over AWGN at :data:`LDPC_TUNE_SNR_DB`, rate-matched and de-rate-matched
+    as the receiver sees them.  The reference's tuner draws amplitude-3
+    symbols with noise 0.7 (about +12.6 dB), which the decoder's entry
+    syndrome check passes at once; a candidate timed there is timed on
+    its exit path only, so the port draws codewords that iterate."""
     import torch
 
-    from repro_torch.kernels import ldpc as _ldpc
     from repro_torch.phy import coding as _coding
 
     dev = _device(device)
     gen = _gen(dev)
     bits = (torch.rand((batch, code.k), generator=gen, device=dev)
             < 0.5).to(torch.int32)
-    cw = _coding.encode(code, bits)
-    noise = torch.randn(cw.shape, generator=gen, device=dev) * 0.7
-    llr = _coding.derate_match(
-        code, ((2.0 * cw - 1.0) * 3.0 + noise)[..., : code.e_bits]
-    )
+    tx = _coding.rate_match(code, _coding.encode(code, bits)).float()
+    s2 = 10.0 ** (-LDPC_TUNE_SNR_DB / 10.0)
+    y = (2.0 * tx - 1.0) + s2 ** 0.5 * torch.randn(
+        tx.shape, generator=gen, device=dev)
+    return _coding.derate_match(code, 2.0 * y / s2).contiguous()
+
+
+def autotune_ldpc(batch: int, code, *, max_iters: int = 12,
+                  iters: int = 3, cache: Optional[TuneCache] = None,
+                  device=None, timings: Optional[dict] = None) -> tuple:
+    """Tune the LDPC decoders' lanes a lifted row (seg,) on
+    :func:`ldpc_tune_llrs` and persist it under the reference's key (both
+    datapaths read the winner, as the reference's share one key)."""
+    from repro_torch.kernels import ldpc as _ldpc
+
+    dev = _device(device)
+    llr = ldpc_tune_llrs(batch, code, dev)
     return autotune(
         "ldpc_decode", (code.k_b, code.m_b, code.z, max_iters),
         _ldpc.segment_candidates(code),

@@ -67,6 +67,11 @@ def test_tensorpool_entry_equals_reference():
         dataclasses.asdict(ref_machine.TENSORPOOL_N7)
 
 
+def test_terapool_entry_equals_reference():
+    assert dataclasses.asdict(machine.TERAPOOL_12N) == \
+        dataclasses.asdict(ref_machine.TERAPOOL_12N)
+
+
 def test_h100_entry_is_the_cards():
     """The card's constants (NVIDIA's data sheet), the figures
     ``chip_smoke.py``'s bounds read: 67 TFLOP/s fp32, 3.35 TB/s of HBM,

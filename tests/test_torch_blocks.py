@@ -252,6 +252,17 @@ def test_ops_te_gemm_and_mha_match_reference():
         rtol=1e-5, atol=1e-6)
 
 
+def test_ops_pick_block_shape_is_the_gemm_picker():
+    """The reference's ``ops.pick_block_shape`` alias: here the Hopper
+    GEMM's launch-shape picker."""
+    from repro_torch.kernels import te_gemm
+
+    assert callable(ref_ops.pick_block_shape)
+    assert ops.pick_block_shape is te_gemm.pick_block_shape
+    assert ops.pick_block_shape(28672, 32, 288) == \
+        te_gemm.pick_block_shape(28672, 32, 288, torch.float32)
+
+
 def test_ops_receiver_kernels_match_reference():
     from test_torch_rx_fused import _PSYM, _detect_inputs, _ls_inputs
 

@@ -1336,3 +1336,60 @@ def test_impossible_explicit_choice_raises_on_card(dev):
     with pytest.raises(RuntimeError, match="cudaError_t"):
         te_gemm.te_gemm_quant(x, torch.randn(32, 200, device=dev),
                               epilogue="softmax", choice=(128,))
+
+
+# -- the LM model zoo (plain torch) on the card against the CPU --------------
+
+# |card - cpu| <= 1e-4 |cpu| + 5e-5 x max |cpu|: chip_smoke.py phase 8's
+# card-against-CPU tolerance (the card's exp / rsqrt differ by an ulp)
+_LM_ARCHS = ("llama3-8b", "moonshot-v1-16b-a3b", "zamba2-7b")
+
+
+def _lm_close(got, want, what):
+    g, w = got.float().cpu(), want.float()
+    scale = float(w.abs().max()) or 1.0
+    err = (g - w).abs()
+    assert bool((err <= 1e-4 * w.abs() + 5e-5 * scale).all()), \
+        (what, float(err.max()), scale)
+
+
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_smoke_model_on_card_matches_cpu(dev, arch):
+    """A dense, a MoE and a recurrent smoke config: forward, prefill and
+    two decode steps (logits and every cache leaf) on the card against
+    the CPU on the same weights and tokens, no kernel of ours launched,
+    and each decode step free of host syncs."""
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.models import get_model
+
+    m = get_model(get_smoke_config(arch))
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = m.init(gen)
+    batch = m.make_inputs(gen, ShapeConfig("lm", 17, 2, "prefill"))
+    toks = torch.randint(0, m.cfg.vocab_size, (2, 2, 1), generator=gen)
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+
+    def run(params, device):
+        b = {k: v.to(device) for k, v in batch.items()}
+        out = [m.forward(params, b)[0]]
+        logits, cache = m.prefill(params, b, m.init_cache(2, 32,
+                                                          device=device))
+        out += [logits] + [cache[k].clone() for k in sorted(cache)]
+        for t in toks:
+            t = t.to(device)
+            if device != "cpu":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, cache = m.decode_step(params, t, cache)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out += [logits] + [cache[k].clone() for k in sorted(cache)]
+        return out
+
+    _build.reset_launches()
+    with torch.no_grad():
+        want, got = run(p_cpu, "cpu"), run(p_dev, dev)
+    assert not +_build.launches
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        _lm_close(g, w, (arch, i))

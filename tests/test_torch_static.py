@@ -117,6 +117,12 @@ _MODULES = [
     "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
     "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.train",
     "repro_torch.train.neural_receiver",
+    "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.registry", "repro_torch.models",
+    "repro_torch.models.layers", "repro_torch.models.transformer",
+    "repro_torch.models.moe", "repro_torch.models.mamba2",
+    "repro_torch.models.hybrid", "repro_torch.models.rwkv6",
+    "repro_torch.models.whisper", "repro_torch.models.registry",
 ]
 
 
@@ -124,6 +130,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = (
         "import importlib, sys\n"
         f"for m in {_MODULES!r}: importlib.import_module(m)\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "for a in ARCH_IDS: get_config(a)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -223,6 +231,25 @@ def test_entry_points_default_to_cuda():
                               prebuild=False)
         with pytest.raises(RuntimeError, match="CUDA"):
             CellMeshEngine([cell("c0", scn)], prebuild=False)
+    # the LM zoo: parameters, inputs and caches land on the card
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.models import get_model
+
+    lm = get_model(get_smoke_config("llama3-8b"))
+    shape = ShapeConfig("s", 8, 1, "prefill")
+    if torch.cuda.is_available():
+        assert lm.init()["ln_f"]["scale"].device.type == "cuda"
+        assert lm.make_inputs(None, shape)["tokens"].device.type == "cuda"
+        assert lm.init_cache(1, 8)["pos"].device.type == "cuda"
+    else:
+        for call in (lm.init, lambda: lm.make_inputs(None, shape),
+                     lambda: lm.init_cache(1, 8)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
+    assert lm.init(device="cpu")["ln_f"]["scale"].device.type == "cpu"
+    assert lm.make_inputs(None, shape, device="cpu")["tokens"].device.type \
+        == "cpu"
+    assert lm.init_cache(1, 8, device="cpu")["k"].device.type == "cpu"
     assert MeshSlotScheduler([closed_cell("c0", "siso-coded")],
                              prebuild=False, device="cpu").device.type \
         == "cpu"

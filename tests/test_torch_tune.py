@@ -455,3 +455,20 @@ def test_autotune_reports_each_candidate_s_time(cache_path):
     assert set(timings) == set(ldpc.segment_candidates(_CODE))
     assert choice == min(timings, key=timings.get)
     assert all(np.isfinite(us) and us > 0 for us in timings.values())
+
+
+def test_ldpc_tuner_draws_codewords_that_iterate():
+    """The LDPC tuner's LLRs (r12 at +3 dB) make the decoder sweep: more
+    than one iteration on most codewords, where the reference's own draw
+    (amplitude 3, noise 0.7) converges at the entry syndrome check on
+    every one, which would time only the exit path."""
+    llr = tune.ldpc_tune_llrs(216, _CODE, "cpu")
+    assert tuple(llr.shape) == (216, _CODE.n_mother)
+    _, iters = ldpc.ldpc_decode(llr, _CODE)
+    assert float((iters > 1).float().mean()) > 0.9
+    gen = torch.Generator().manual_seed(0)
+    bits = (torch.rand((216, _CODE.k), generator=gen) < 0.5).to(torch.int32)
+    cw = coding.encode(_CODE, bits)
+    easy = coding.derate_match(_CODE, ((2.0 * cw - 1.0) * 3.0 + torch.randn(
+        cw.shape, generator=gen) * 0.7)[..., : _CODE.e_bits])
+    assert int(ldpc.ldpc_decode(easy, _CODE)[1].max()) == 0
