@@ -228,10 +228,38 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    no-drop identity (< 1e-4), then in bf16 compute the prefill and 16
    greedy decode steps, each under
    ``torch.cuda.set_sync_debug_mode("error")`` (after 2 more untimed), and
-   10 more traced. A JSON line a model: params, GB, peak memory, forward /
-   prefill ms, decode ms a step (median of 16), tokens/s, the idle share.
-9. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result line
-   ``{"ok": true, "device": {...}}``.
+   10 more traced. (d) Each model served through ``ServeEngine`` on
+   ``launch/serve.py``'s workload (8 requests, prompts of 4-32 tokens from
+   ``default_rng(0)``, batch 4, 16 new tokens, ``max_len`` 256 past
+   pixtral's image tokens), decode one CUDA graph: its tokens equal an
+   eager greedy loop of ``prefill`` / ``decode_step`` run here, one
+   capture an engine and one replay a decode step, a second
+   ``generate`` under a CUPTI trace captures nothing. A JSON line a
+   model: params, GB, peak memory, forward / prefill ms, decode ms a step
+   (median of 16), tokens/s, the idle share; the graph's decode ms a step
+   (median of 16 replays) beside the eager steps' at batch 4, generate
+   tokens/s and the traced generate's idle share.
+9. LM training, plain torch (no hand-written kernel may launch; counts
+   zeroed just before, read just after): (a) smollm-360m's published
+   config (fp32 parameters, bf16 compute, ``remat="full"``; the schema's
+   ``scaled`` leaves re-drawn N(0, 0.02^2), as the reference's own init
+   explodes at this depth: ``_lmt_conditioned``) on
+   ``TokenStream(49152, 8, 2048)`` in 2 microbatches, lr 1e-3 (2e-3
+   oscillates at this width) after 5 warm-up steps: a ``Trainer`` runs 20 steps, checkpointing every 10
+   under ``build/``, a fresh one resumes at step 20 bit for bit and runs
+   10 more; every loss finite, the last 5 below the first 5; (d) the
+   trained parameters served through ``ServeEngine``, every token in the
+   vocabulary; 5 more steps under a CUPTI trace. (b) One step at 1 and at
+   4 microbatches, fp32 compute, one state: losses at rtol 1e-4,
+   parameters within 1e-4 of each leaf's largest |value|. (c)
+   moonshot-v1-16b-a3b at published width, 2 of 48 layers, on
+   ``TokenStream(163840, 4, 1024)``, 10 steps, every loss, router loss
+   and gradient norm finite. Printed: ms a step, tokens/s, MFU (6 N
+   tokens at 989 TFLOP/s bf16), peak memory beside the state's and the
+   full fp32 logits' bytes, the traced steps' idle share and device time
+   by kernel, the losses, the ``nvidia-smi`` line.
+10. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result
+   line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 and prints no result.
 """
@@ -3129,6 +3157,11 @@ LM_TRACED_STEPS = 10
 # super-block and a tail layer); the others and the full depth are
 # printed
 LM_CONSISTENCY_LAYERS = {"llama3-8b": (2, 4, 8), "zamba2-7b": (7, 12, 24)}
+# (d) serving through ServeEngine: launch/serve.py's workload (8 requests,
+# prompts of 4-32 tokens from default_rng(0), batch 4, 16 new tokens,
+# max_len 256 past the prompt's stub image tokens), decode one CUDA graph
+LM_SERVE_REQUESTS, LM_SERVE_BATCH, LM_SERVE_NEW, LM_SERVE_LEN = 8, 4, 16, 256
+LM_GRAPH_STEPS = 16  # timed replays of the captured decode step
 
 
 def _lm_close(got, want, rtol: float, atol: float, what: str) -> float:
@@ -3267,6 +3300,128 @@ def _lm_model(dev, cfg, seq: int, seed: int = 0) -> tuple:
                                                      "prefill"))
 
 
+def lm_requests(vocab: int) -> list:
+    """``launch/serve.py``'s requests (its ``--seed 0`` draws)."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(prompt=rng.integers(0, vocab, size=(
+        int(rng.integers(4, 32)),)).astype(np.int32),
+        max_new_tokens=LM_SERVE_NEW) for _ in range(LM_SERVE_REQUESTS)]
+
+
+def lm_serve_len(cfg) -> int:
+    return LM_SERVE_LEN + (cfg.num_image_tokens if cfg.family == "vlm"
+                           else 0)
+
+
+def eager_greedy(m, params, reqs: list, max_len: int, dev) -> tuple:
+    """The reference engine's batches run eagerly by this script, apart
+    from the engine: left-padded prompts (token 0, no mask), zero stub
+    embeddings, ``model.prefill``, then ``max(max_new_tokens)`` steps of
+    record / ``model.decode_step`` / argmax.  -> (tokens per request,
+    CUDA-event ms of every decode step)."""
+    import torch
+
+    cfg, b = m.cfg, LM_SERVE_BATCH
+    out, step_ms = [], []
+    for i in range(0, len(reqs), b):
+        part = reqs[i:i + b]
+        plen = max(len(r.prompt) for r in part)
+        prompts = torch.zeros((b, plen), dtype=torch.int32)
+        for j, r in enumerate(part):
+            prompts[j, plen - len(r.prompt):] = torch.from_numpy(r.prompt)
+        batch = {"tokens": prompts.to(dev)}
+        if cfg.family == "audio":
+            batch["audio_embeds"] = torch.zeros(
+                (b, cfg.enc_ctx, cfg.d_model), dtype=cfg.dtype(), device=dev)
+        elif cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros(
+                (b, cfg.num_image_tokens, 1024), dtype=cfg.dtype(),
+                device=dev)
+        logits, cache = m.prefill(params, batch,
+                                  m.init_cache(b, max_len, device=dev))
+        state = {"tok": torch.argmax(logits[:, -1, :], -1)[:, None].to(
+            torch.int32), "rec": []}
+
+        def step():
+            state["rec"].append(state["tok"][:, 0].clone())
+            logits, _ = m.decode_step(params, state["tok"], cache)
+            state["tok"] = torch.argmax(logits[:, -1, :], -1)[:, None].to(
+                torch.int32)
+
+        step_ms += _lm_events_ms(step, max(r.max_new_tokens for r in part))
+        rec = torch.stack(state["rec"]).cpu()
+        for j, r in enumerate(part):
+            out.append(rec[:r.max_new_tokens, j].tolist())
+    return out, step_ms
+
+
+def drive_lm_serve(m, params, dev) -> dict:
+    """(d) ``ServeEngine`` on ``launch/serve.py``'s workload: (i) its
+    tokens equal :func:`eager_greedy`'s token for token; (ii) one capture
+    per engine and one replay a decode step (the engine's counts and the
+    captured step's); (iii) a second ``generate`` under a CUPTI trace
+    captures nothing.  Returns the graph's decode ms a step (CUDA events,
+    median of 16 replays), the eager steps' (the same batches), generate
+    tokens/s (host wall of a whole ``generate``, eager prefills
+    included) and the traced ``generate``'s idle share."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    cfg = m.cfg
+    max_len = lm_serve_len(cfg)
+    eng = ServeEngine(m, params, batch_size=LM_SERVE_BATCH, max_len=max_len,
+                      device=dev)
+    t_start = t0 = time.perf_counter()
+    reqs = eng.generate(lm_requests(cfg.vocab_size))  # captures
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, eager_ms = eager_greedy(m, params, lm_requests(cfg.vocab_size),
+                                  max_len, dev)
+    eager_s = time.perf_counter() - t0
+    for k, (r, w) in enumerate(zip(reqs, want)):
+        check(r.out_tokens == w, f"{LM} {cfg.arch} (d): request {k}'s "
+              f"tokens {r.out_tokens} != the eager loop's {w}")
+    n_steps = LM_SERVE_NEW * math.ceil(LM_SERVE_REQUESTS / LM_SERVE_BATCH)
+    check(eng.captures == 1 and eng.replays == eng.decoder.replays
+          == n_steps and eng.decoder.graph is not None,
+          f"{LM} {cfg.arch} (d): {eng.captures} captures, {eng.replays} / "
+          f"{eng.decoder.replays} replays for {n_steps} decode steps")
+    decoder = eng.decoder
+    graph_ms = _lm_events_ms(decoder.replay, LM_GRAPH_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.generate(lm_requests(cfg.vocab_size))
+    wall_s = time.perf_counter() - t0
+    check([r.out_tokens for r in again] == want,
+          f"{LM} {cfg.arch} (d): a second generate differs")
+    replays = eng.replays
+    t0 = time.perf_counter()
+    trace = _lm_trace(lambda: eng.generate(lm_requests(cfg.vocab_size)), 1)
+    trace_s = time.perf_counter() - t0
+    check(eng.captures == 1 and eng.decoder is decoder
+          and eng.replays == replays + n_steps,
+          f"{LM} {cfg.arch} (d): the traced generate captured or replayed "
+          f"off count ({eng.captures} captures, "
+          f"{eng.replays - replays} replays)")
+    tokens = sum(len(r.out_tokens) for r in again)
+    return {"serve_batch": LM_SERVE_BATCH, "serve_max_len": max_len,
+            "serve_requests": LM_SERVE_REQUESTS, "serve_tokens": tokens,
+            "graph_decode_ms_per_step": statistics.median(graph_ms),
+            "eager_decode_ms_per_step_b4": statistics.median(eager_ms),
+            "first_generate_s": first_s, "eager_loop_s": eager_s,
+            "traced_generate_s": trace_s,
+            "serve_wall_s": time.perf_counter() - t_start,
+            "generate_tokens_per_s": tokens / wall_s,
+            "generate_idle_share": trace["device_idle_share"],
+            "generate_traced": trace, "captures": eng.captures,
+            "replays": eng.replays}
+
+
 def drive_lm_full(dev, arch: str, layers, text: int) -> dict:
     """(b) One family's model at its published width on the card, batch 2,
     weights drawn from seed 0 in its ``param_dtype``: a teacher-forced
@@ -3377,9 +3532,11 @@ def drive_lm_full(dev, arch: str, layers, text: int) -> dict:
         check(int(cache["pos"]) == seq + steps,
               f"{LM} {arch}: cache at {int(cache['pos'])} after {steps} "
               "steps")
+        del cache, state
+        row.update(drive_lm_serve(m, params, dev))
     row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     row["wall_s"] = time.perf_counter() - t0
-    del m, params, batch, cache, state
+    del m, params, batch
     torch.cuda.empty_cache()
     return row
 
@@ -3400,6 +3557,324 @@ def drive_lm(dev) -> tuple:
     check(not launches, f"{LM}: the models launched hand-written kernels "
           f"{launches}")
     return smoke, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: LM training at published width (repro_torch.train, data, optim)
+# ---------------------------------------------------------------------------
+
+LMT = "lm train"
+LMT_ARCH = "smollm-360m"
+LMT_BATCH, LMT_SEQ, LMT_MICRO = 8, 2048, 2
+LMT_STEPS, LMT_RESUMED_STEPS, LMT_TRACED_STEPS = 20, 10, 5
+LMT_LR = 1e-3
+LMT_MOE = ("moonshot-v1-16b-a3b", 2, 4, 1024, 10)  # arch, layers, B, S, steps
+LMT_PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s, the MFU yardstick
+# (b): the reference test's step config (lr 3e-6 at step 1, so a gradient
+# near 0 whose sign differs moves its parameter by at most 6e-6), held
+# within 1e-4 of each leaf's largest |value| (>= ~0.1 at this width)
+LMT_MB_RTOL, LMT_MB_PARAM_TOL = 1e-4, 1e-4
+
+
+def _lmt_conditioned(m, params, seed: int):
+    """``params`` with every leaf the schema draws ``scaled`` re-drawn
+    N(0, 0.02^2) (GPT-2's init) from ``seed`` on their device.
+
+    The schema's ``scaled`` init takes the second-to-last dim as the
+    fan-in: for the attention projections that is the head count (15,
+    5) or the head width (64), not d_model (960), so each layer toward
+    the input multiplies the gradient, in the reference too
+    (``tests/test_torch_lm_train.py::
+    test_reference_init_gradient_grows_with_depth_in_both_packages``);
+    at 32 layers step 0's norm is ~1e17 (``schema_init_grad_norm``).
+    Clipped to norm 1, every other coordinate's gradient falls below
+    Adam's eps (1e-8) and does not train: from the schema's weights the
+    loss stays at ~11.0 for 30 steps at lr 2e-3, 1e-3 or 3e-4
+    (``scripts/lm_train_lr.py --schema-init``).  Phase 9 (a) and (b)
+    therefore start from these weights; the model, the step and the
+    trainer are the reference's."""
+    import torch
+
+    from repro_torch.common.params import tree_leaves, tree_map
+
+    gen = torch.Generator(device=tree_leaves(params)[0].device)
+    gen.manual_seed(seed)
+    return tree_map(
+        lambda p, x: (torch.randn(x.shape, generator=gen, device=x.device)
+                      .mul_(0.02).to(x.dtype) if p.init == "scaled" else x),
+        m.schema(), params)
+
+
+def _lmt_config(**kw):
+    """lr 1e-3: at 2e-3 (the reference test's) smollm-360m's losses
+    alternate by +-0.3 from step 5 on and the last 5 of 30 average only
+    0.06 below the first 5; at 1e-3 they fall 0.23, 10.996 -> 10.766
+    (``scripts/lm_train_lr.py``)."""
+    from repro_torch.configs import TrainConfig
+
+    return TrainConfig(learning_rate=LMT_LR, warmup_steps=5, total_steps=100,
+                       **kw)
+
+
+def _lmt_trace(run, steps: int) -> dict:
+    """:func:`_lm_trace` of ``steps`` calls of ``run``, and the device
+    time by kernel (the top 8 names, ms over the window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = _device_events(prof)
+    check(bool(events), f"{LMT}: the traced steps hold no device event")
+    by_name: dict = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "device_events_per_step": len(events) / steps,
+            "top_device_ms": [(n[:70], us / 1e3) for n, us in top]}
+
+
+def _same_state(a, b) -> bool:
+    """Every leaf of two state trees equal bit for bit."""
+    import torch
+
+    from repro_torch.common.params import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.view(torch.uint8) if x.is_floating_point() else x,
+                        y.view(torch.uint8) if y.is_floating_point() else y)
+        for x, y in zip(la, lb))
+
+
+def drive_lm_train_lifecycle(dev) -> tuple:
+    """(a) smollm-360m's published config (fp32 parameters, bf16 compute,
+    ``remat="full"``), from :func:`_lmt_conditioned` weights, trains 20
+    steps on ``TokenStream(49152, 8, 2048)``
+    with 2 microbatches, checkpointing every 10 under ``build/``; a fresh
+    ``Trainer`` resumes at step 20 with the saved state bit for bit and
+    trains 10 more; every loss finite and the last 5 losses' mean below
+    the first 5's (``tests/test_train.py``'s criterion).  (d) The trained
+    parameters served through ``ServeEngine`` (phase 8's workload), every
+    token in the vocabulary.  Then 5 more steps under a CUPTI trace.
+    Returns (summary, the trained state's trace)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.common.params import count_params, tree_size_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import get_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import Trainer
+
+    cfg = get_config(LMT_ARCH)
+    m = get_model(cfg)
+    stream = TokenStream(cfg.vocab_size, LMT_BATCH, LMT_SEQ, seed=0)
+    ckpt = ROOT / "build" / f"lm-ckpt-{os.getpid()}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tc = _lmt_config(microbatches=LMT_MICRO, checkpoint_every=10,
+                     async_checkpoint=False, checkpoint_dir=str(ckpt))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = []
+    try:
+        tr = Trainer(m, tc, stream, device=dev)
+        state, start = tr.init_or_resume(seed=0)
+        check(start == 0, f"{LMT}: a fresh run resumed at {start}")
+        # the schema's own weights: step 0's gradient norm, not trained on
+        _, met = tr.step_fn(state, {k: torch.from_numpy(v).to(dev)
+                                    for k, v in stream.batch_at(0).items()})
+        schema_gnorm = float(met["grad_norm"])
+        del met
+        state["params"] = _lmt_conditioned(m, state["params"], 0)
+        state_bytes = tree_size_bytes(state)  # parameters and moments
+        t0 = time.perf_counter()
+        state, nxt, hist = tr.run(state, 0, LMT_STEPS, log_every=10,
+                                  log_fn=log.append)
+        run1_s = time.perf_counter() - t0
+        check(nxt == LMT_STEPS and tr.ckpt.latest_step() == LMT_STEPS,
+              f"{LMT}: ran to {nxt}, latest checkpoint "
+              f"{tr.ckpt.latest_step()}")
+        t0 = time.perf_counter()
+        tr2 = Trainer(m, tc, stream, device=dev)
+        state2, start2 = tr2.init_or_resume(seed=0)
+        resume_s = time.perf_counter() - t0
+        check(start2 == LMT_STEPS and _same_state(state2, state),
+              f"{LMT}: the resumed state (step {start2}) differs from the "
+              "saved one")
+        del state
+        t0 = time.perf_counter()
+        state2, nxt2, hist2 = tr2.run(state2, start2, LMT_RESUMED_STEPS,
+                                      log_every=10, log_fn=log.append)
+        run2_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [float(h["loss"]) for h in hist + hist2]
+    gnorms = [float(h["grad_norm"]) for h in hist + hist2]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{LMT}: non-finite loss or gradient norm {losses} {gnorms}")
+    first, last = statistics.fmean(losses[:5]), statistics.fmean(losses[-5:])
+    check(last < first, f"{LMT}: the loss did not fall ({first:.4f} -> "
+          f"{last:.4f})")
+    # steady steps: the first of each run builds the autograd graph's
+    # workspaces; each 10th saves a checkpoint
+    times = tr.step_times[1:] + tr2.step_times[1:]
+    step_s = statistics.median(times)
+    tokens = LMT_BATCH * LMT_SEQ
+    n = count_params(m.schema())
+
+    # (d) serve the trained parameters
+    t0 = time.perf_counter()
+    eng = ServeEngine(m, state2["params"], batch_size=LM_SERVE_BATCH,
+                      max_len=lm_serve_len(cfg), device=dev)
+    reqs = eng.generate(lm_requests(cfg.vocab_size))
+    served = [t for r in reqs for t in r.out_tokens]
+    check(len(served) == LM_SERVE_REQUESTS * LM_SERVE_NEW
+          and all(0 <= t < cfg.vocab_size for t in served),
+          f"{LMT} (d): served tokens out of the vocabulary or missing")
+    del eng
+    serve_s = time.perf_counter() - t0
+
+    # the traced steps: Trainer.run of one step at a time, no checkpoint
+    tr3 = Trainer(m, tc.replace(checkpoint_dir=None), stream, device=dev)
+    box = {"state": state2, "step": nxt2}
+
+    def one_step():
+        box["state"], box["step"], _ = tr3.run(box["state"], box["step"], 1,
+                                               log_fn=lambda *_: None)
+
+    del state2
+    t0 = time.perf_counter()
+    trace = _lmt_trace(one_step, LMT_TRACED_STEPS)
+    trace_s = time.perf_counter() - t0
+    summary = {
+        "model": LMT_ARCH, "layers": cfg.num_layers, "params": n,
+        "init": "schema; scaled leaves N(0, 0.02^2) (_lmt_conditioned)",
+        "schema_init_grad_norm": schema_gnorm,
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "remat": cfg.remat, "batch": LMT_BATCH, "seq": LMT_SEQ,
+        "microbatches": LMT_MICRO, "steps": len(losses),
+        "resumed_at": start2, "losses": losses, "grad_norms": gnorms,
+        "loss_first5": first, "loss_last5": last,
+        "ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu_bf16": 6 * n * tokens / step_s / LMT_PEAK_BF16,
+        "first_step_ms": tr.step_times[0] * 1e3,
+        "run1_wall_s": run1_s, "resume_s": resume_s, "run2_wall_s": run2_s,
+        "serve_s": serve_s, "traced_steps_s": trace_s,
+        "peak_memory_gb": peak / 1e9, "state_gb": state_bytes / 1e9,
+        "full_logits_fp32_gb": tokens * cfg.vocab_size * 4 / 1e9,
+        "served_tokens": len(served), "log": log,
+    }
+    del box, tr, tr2, tr3
+    torch.cuda.empty_cache()
+    return summary, trace
+
+
+def check_lm_microbatches(dev) -> dict:
+    """(b) One step at 1 and one at 4 microbatches of smollm-360m at
+    published width, fp32 compute, from one state, on ``batch_at(0)``:
+    the losses at rtol 1e-4, every updated parameter within 1e-4 of its
+    leaf's largest |value|."""
+    import torch
+
+    from repro_torch.common.params import tree_leaves
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import get_model
+    from repro_torch.train import init_state, make_train_step
+
+    m = get_model(get_config(LMT_ARCH).replace(compute_dtype="float32"))
+    state = init_state(m, torch.Generator(device=dev).manual_seed(1))
+    state["params"] = _lmt_conditioned(m, state["params"], 1)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenStream(
+        m.cfg.vocab_size, LMT_BATCH, LMT_SEQ, seed=0).batch_at(0).items()}
+    out1, m1 = make_train_step(m, TrainConfig(microbatches=1))(state, batch)
+    l1 = float(m1["loss"])
+    p1 = out1["params"]
+    del out1, m1
+    out4, m4 = make_train_step(m, TrainConfig(microbatches=4))(state, batch)
+    l4 = float(m4["loss"])
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(tree_leaves(out4["params"]), tree_leaves(p1)))
+    check(abs(l1 - l4) <= LMT_MB_RTOL * abs(l1),
+          f"{LMT} (b): loss {l1} at 1 microbatch, {l4} at 4")
+    check(worst <= LMT_MB_PARAM_TOL,
+          f"{LMT} (b): updated parameters differ by {worst:.3g} of a leaf's "
+          "largest value")
+    del state, out4, p1
+    torch.cuda.empty_cache()
+    return {"loss_mb1": l1, "loss_mb4": l4,
+            "loss_rel_err": abs(l1 - l4) / abs(l1),
+            "param_err_over_leaf_max": worst}
+
+
+def drive_lm_moe_train(dev) -> dict:
+    """(c) moonshot-v1-16b-a3b at published width, 2 of its 48 layers, on
+    ``TokenStream(163840, 4, 1024)`` for 10 steps: the MoE backward and
+    the router loss; every loss, router loss and gradient norm finite."""
+    import torch
+
+    from repro_torch.common.params import count_params
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import get_model
+    from repro_torch.train import Trainer
+
+    arch, layers, b, s, steps = LMT_MOE
+    cfg = get_config(arch).replace(num_layers=layers)
+    m = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(m, _lmt_config(), TokenStream(cfg.vocab_size, b, s),
+                 device=dev)
+    # no reference to the initial state outside run(), which drops it
+    # after the first step: a step holds two states (the step is
+    # functional), and a third would not fit at this width
+    state, _, hist = tr.run(tr.init_or_resume(seed=0)[0], 0, steps,
+                            log_fn=lambda *_: None)
+    keys = ("loss", "ce", "router_loss", "grad_norm")
+    vals = {k: [float(h[k]) for h in hist] for k in keys}
+    check(all(math.isfinite(x) for k in keys for x in vals[k]),
+          f"{LMT} (c) {arch}: non-finite values {vals}")
+    step_s = statistics.median(tr.step_times[1:])
+    n = count_params(m.schema())
+    row = {"model": arch, "layers": layers,
+           "published_layers": get_config(arch).num_layers, "params": n,
+           "batch": b, "seq": s, "steps": steps, **vals,
+           "ms_per_step": step_s * 1e3, "tokens_per_s": b * s / step_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, tr
+    torch.cuda.empty_cache()
+    return row
+
+
+def drive_lm_train(dev) -> tuple:
+    """Phase 9, with the kernels' launch counts zeroed just before and read
+    just after: the reference's training step reaches no Pallas kernel,
+    so no hand-written kernel may launch."""
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    summary, trace = drive_lm_train_lifecycle(dev)
+    mb = check_lm_microbatches(dev)
+    moe = drive_lm_moe_train(dev)
+    launches = {k: n for k, n in _build.launches.items() if n}
+    check(not launches, f"{LMT}: training launched hand-written kernels "
+          f"{launches}")
+    return summary, trace, mb, moe
 
 
 def device_total_us(fn, reps: int = 20) -> float:
@@ -3625,7 +4100,34 @@ def main() -> int:
           flush=True)
     for row in rows:
         print(f"{LM} (b) {row['model']}: {json.dumps(row)}", flush=True)
+    for row in rows:
+        print(f"{LM} (d) {row['model']}: decode {row['graph_decode_ms_per_step']:.3f} "
+              f"ms a step through the graph at batch {row['serve_batch']} "
+              f"(eager {row['eager_decode_ms_per_step_b4']:.3f} at batch "
+              f"{row['serve_batch']}, {row['decode_ms_per_step']:.3f} at "
+              f"batch {LM_BATCH}), generate "
+              f"{row['generate_tokens_per_s']:.1f} tokens/s, traced "
+              f"generate idle {row['generate_idle_share']:.4f}", flush=True)
     print(f"{LM}: phase 8 wall {time.perf_counter() - t8:.1f}s | "
+          f"{nvidia_smi_line()}", flush=True)
+
+    t9 = time.perf_counter()
+    summary, trace, mb, moe = drive_lm_train(dev)
+    print(f"{LMT} (a) {LMT_ARCH}: {json.dumps(summary)}", flush=True)
+    print(f"{LMT} (a) traced steps: {json.dumps(trace)}", flush=True)
+    print(f"{LMT} (b) microbatches 1 vs 4, fp32: {json.dumps(mb)}",
+          flush=True)
+    print(f"{LMT} (c) {moe['model']}: {json.dumps(moe)}", flush=True)
+    print(f"{LMT} (a) {LMT_ARCH}: {summary['ms_per_step']:.1f} ms a step, "
+          f"{summary['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{summary['mfu_bf16']:.4f} (6 N tokens at 989 TFLOP/s bf16), "
+          f"peak {summary['peak_memory_gb']:.2f} GB (state "
+          f"{summary['state_gb']:.2f} GB, full fp32 logits "
+          f"{summary['full_logits_fp32_gb']:.2f} GB), loss "
+          f"{summary['loss_first5']:.4f} -> {summary['loss_last5']:.4f}, "
+          f"traced idle {trace['device_idle_share']:.4f}; (c) router loss "
+          f"{moe['router_loss'][-1]:.4g}, {moe['ms_per_step']:.1f} ms a "
+          f"step | phase 9 wall {time.perf_counter() - t9:.1f}s | "
           f"{nvidia_smi_line()}", flush=True)
 
     needs_by_path = {label: needs for label, *_, needs in PATHS}

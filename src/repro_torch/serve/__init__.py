@@ -1,4 +1,6 @@
-"""PHY serving on the port: the shared slot-scheduler core and the
+"""Serving on the port: LM request batching (:class:`ServeEngine`, its
+decode step one captured CUDA graph, :mod:`repro_torch.serve.engine`), and
+PHY serving: the shared slot-scheduler core and the
 closed-loop TTI runtime (:mod:`repro_torch.serve.runtime`), the open-loop
 single-cell engine (:mod:`repro_torch.serve.phy_engine`), multi-cell
 serving with its lanes folded into the kernels' batch axis, open loop
@@ -10,6 +12,7 @@ top: deterministic fault injection (:class:`FaultPlan` /
 supervised runtime (:class:`Supervisor`, :class:`SupervisedBatchRunner`,
 :mod:`repro_torch.serve.supervisor`) with non-finite guards, bounded
 retries, cell quarantine and checkpointed crash recovery."""
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.exec_registry import (
     BucketPolicy, CapturedStep, CostModelBuckets, ExecKey, ExecRegistry,
     ExecStats, FixedBuckets, PowerOfTwoBuckets, exec_key_for, get_registry,

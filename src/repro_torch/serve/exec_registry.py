@@ -469,6 +469,11 @@ class CapturedStep:
         self.check(batch)
         for k in self._tensor_keys:
             self.static[k].copy_(batch[k])
+        return self.replay()
+
+    def replay(self) -> dict:
+        """Run the step over its static inputs as they stand: a caller
+        that writes ``static`` in place itself stages nothing."""
         self.replays += 1
         if self.graph is None:
             return self.fn(self.static)

@@ -73,13 +73,21 @@ def _np(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def case(arch: str, compute: str = "float32") -> Case:
+def pair(arch: str, compute: str = "float32") -> tuple:
+    """(port config, reference config, port model, reference model, the
+    port's CPU tensors, the reference's parameters from PRNGKey(0))."""
     ref_cfg = ref_smoke(arch).replace(compute_dtype=compute)
     cfg = get_smoke_config(arch).replace(compute_dtype=compute)
     rm, m = ref_get_model(ref_cfg), get_model(cfg)
     rp = rm.init(jax.random.PRNGKey(0))
     params = params_from_numpy(m.schema(), jax.tree.map(np.asarray, rp),
                                "cpu")
+    return cfg, ref_cfg, m, rm, params, rp
+
+
+@functools.lru_cache(maxsize=None)
+def case(arch: str, compute: str = "float32") -> Case:
+    cfg, ref_cfg, m, rm, params, rp = pair(arch, compute)
     rng = np.random.default_rng(SEED)
     inputs = draw_inputs(cfg, rng)
     token = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
@@ -147,18 +155,23 @@ def check_fp32(c: Case, which: str) -> None:
         assert_close(got[key], want[key], RTOL, a, f"{c.arch} {which} {key}")
 
 
+def ulp_noisy(ref_params):
+    """The reference's fp32 parameters, every weight moved by one ulp (a
+    seeded sign each)."""
+    rng = np.random.default_rng(2)
+    return jax.tree.map(
+        lambda t: jnp.asarray((np.asarray(t) * (1 + 2.0 ** -23 * np.sign(
+            rng.standard_normal(t.shape)))).astype(np.float32)),
+        ref_params)
+
+
 def ulp_sensitivity(c: Case) -> float:
     """How far the reference's own fp32 forward logits move, over their
     largest value, when every weight moves by one ulp (a seeded sign
     each): the error any other fp32 rounding of the same model may
     show."""
-    rng = np.random.default_rng(2)
-    noisy = jax.tree.map(
-        lambda t: jnp.asarray((np.asarray(t) * (1 + 2.0 ** -23 * np.sign(
-            rng.standard_normal(t.shape)))).astype(np.float32)),
-        c.ref_params)
     rb = {k: jnp.asarray(v) for k, v in c.inputs.items()}
-    moved = np.asarray(c.ref_model.forward(noisy, rb)[0])
+    moved = np.asarray(c.ref_model.forward(ulp_noisy(c.ref_params), rb)[0])
     want = c.ref["forward"]
     return float(np.abs(moved - want).max() / np.abs(want).max())
 

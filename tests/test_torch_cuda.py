@@ -12,7 +12,7 @@ import math
 import pytest
 import torch
 
-from repro_torch.common.params import tree_map
+from repro_torch.common.params import tree_leaves, tree_map
 from repro_torch.core import pool
 from repro_torch.kernels import (_build, dwconv_block, fc_softmax, ldpc, mha,
                                  ops, rx_fused, te_gemm)
@@ -1393,3 +1393,98 @@ def test_lm_smoke_model_on_card_matches_cpu(dev, arch):
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.device.type == "cuda" and g.dtype == w.dtype
         _lm_close(g, w, (arch, i))
+
+
+# -- LM serving (the captured decode step) and training on the card ----------
+
+_LM_FAMILIES = ("qwen1.5-0.5b", "pixtral-12b", "moonshot-v1-16b-a3b",
+                "zamba2-7b", "rwkv6-1.6b", "whisper-tiny")
+
+
+def _eager_greedy(m, params, prompts, max_new, max_len, dev):
+    """The reference engine's batch, eagerly: left-padded prompts, zero
+    stub embeddings, prefill, then ``max_new`` decode steps; (max_new, B)
+    tokens."""
+    cfg = m.cfg
+    b = prompts.shape[0]
+    batch = {"tokens": prompts.to(dev)}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.zeros(
+            (b, cfg.enc_ctx, cfg.d_model), dtype=cfg.dtype(), device=dev)
+    elif cfg.family == "vlm":
+        batch["image_embeds"] = torch.zeros(
+            (b, cfg.num_image_tokens, 1024), dtype=cfg.dtype(), device=dev)
+    logits, cache = m.prefill(params, batch, m.init_cache(b, max_len,
+                                                          device=dev))
+    tok = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
+    out = []
+    for _ in range(max_new):
+        out.append(tok[:, 0].clone())
+        logits, cache = m.decode_step(params, tok, cache)
+        tok = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
+    return torch.stack(out).cpu()
+
+
+@pytest.mark.parametrize("arch", _LM_FAMILIES)
+def test_lm_captured_decode_matches_eager_loop(dev, arch):
+    """One smoke config a family: ``ServeEngine`` on the card (decode as
+    one CUDA graph, captured once) gives the eager greedy loop's tokens
+    for two batches, one padded; one replay a decode step."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    m = get_model(get_smoke_config(arch))
+    params = tree_map(lambda t: t.to(dev),
+                      m.init(torch.Generator().manual_seed(0)))
+    max_len = 48 + (m.cfg.num_image_tokens if m.cfg.family == "vlm" else 0)
+    rng = np.random.default_rng(1)
+    reqs = [Request(rng.integers(0, m.cfg.vocab_size, size=(
+        int(rng.integers(3, 12)),)).astype(np.int32), 6) for _ in range(6)]
+    eng = ServeEngine(m, params, batch_size=4, max_len=max_len, device=dev)
+    _build.reset_launches()
+    with torch.no_grad():
+        eng.generate(reqs)
+        for i in (0, 4):
+            part = reqs[i:i + 4]
+            plen = max(len(r.prompt) for r in part)
+            prompts = torch.zeros((4, plen), dtype=torch.int32)
+            for j, r in enumerate(part):
+                prompts[j, plen - len(r.prompt):] = torch.from_numpy(r.prompt)
+            want = _eager_greedy(m, params, prompts, 6, max_len, dev)
+            for j, r in enumerate(part):
+                assert r.out_tokens == want[:, j].tolist(), (arch, i + j)
+    assert not +_build.launches
+    assert eng.decoder.graph is not None
+    assert eng.captures == 1 and eng.replays == eng.decoder.replays == 12
+
+
+def test_lm_train_step_on_card_matches_cpu(dev):
+    """One smoke train step (4 microbatches, fp32) on the card against the
+    same step on the CPU, same state and batch: loss and metrics at rtol
+    1e-5 (the gradient norm 1e-4), parameters at rtol 2e-4 / atol 2e-5."""
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.models import get_model
+    from repro_torch.train import init_state, make_train_step
+
+    m = get_model(get_smoke_config("smollm-360m"))
+    state = init_state(m, torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in TokenStream(
+        m.cfg.vocab_size, 8, 32).batch_at(0).items()}
+    # the default warmup keeps step 1's lr at 3e-6: a gradient near 0
+    # whose sign differs moves its parameter by at most 2 lr
+    step = make_train_step(m, TrainConfig(microbatches=4))
+    want, wm = step(state, batch)
+    on_dev = lambda t: tree_map(lambda x: x.to(dev), t)
+    _build.reset_launches()
+    got, gm = step(on_dev(state), on_dev(batch))
+    assert not +_build.launches
+    for k in wm:
+        rel = 1e-4 if k == "grad_norm" else 1e-5
+        assert float(gm[k]) == pytest.approx(float(wm[k]), rel=rel), k
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-5)
