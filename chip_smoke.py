@@ -258,7 +258,26 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    tokens at 989 TFLOP/s bf16), peak memory beside the state's and the
    full fp32 logits' bytes, the traced steps' idle share and device time
    by kernel, the losses, the ``nvidia-smi`` line.
-10. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result
+10. The sharded LM paths and the roofline dry run (plain torch, no
+   hand-written kernel may launch): (a) on a one-rank NCCL group
+   (``dist.HashStore``, no socket) and ``make_host_mesh()``, smollm-360m's
+   smoke config trains 3 steps through ``Trainer`` with its state placed
+   as DTensors by the sharding rules, from the state the unsharded
+   ``Trainer`` starts from: losses and parameters equal (fp32, rtol 1e-6);
+   (b) ``ServeEngine`` with ``cache_shardings`` on that mesh, one smoke
+   config a family: tokens equal the unsharded engine's, the decode step
+   one CUDA graph over the DTensor cache; (c) in a subprocess,
+   ``launch.dryrun`` reports on a (1, 1, 1) mesh (a one-rank fake group,
+   the H100's bf16 peak) for phase 8 (d)'s llama3-8b decode at batch 4 and
+   phase 9 (a)'s smollm-360m train step at 8 x 2048 in 2 microbatches,
+   with the fp32 params those steps keep, each beside the measured ms a
+   step and MFU: a measured step faster than its roofline's
+   ``t_overlap_s`` fails the run; (d) the same process's llama3-8b
+   ``train_4k`` cell on the 16x16 production mesh (a fake 256-rank
+   group): its ``row()``, collective counts and ``trace_s``.  Every dry
+   run: ``status`` ok, every term finite, and the ideal FLOPs at most the
+   executed FLOPs of all ranks (:func:`executed_flops_ratio`, unclamped).
+11. The ``kernels`` JSON line, the ``nvidia-smi`` line, and the result
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 and prints no result.
@@ -3877,6 +3896,224 @@ def drive_lm_train(dev) -> tuple:
     return summary, trace, mb, moe
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the sharded train and serve paths, and the roofline dry run
+# (repro_torch.distributed.sharding, launch.mesh, analysis, launch.dryrun)
+# ---------------------------------------------------------------------------
+
+SHARD = "lm shard"
+SHARD_ARCH = "smollm-360m"  # (a): its smoke config
+SHARD_STEPS = 3
+SHARD_RTOL = 1e-6
+# (b): one smoke config a family
+SHARD_ENGINE_ARCHS = ("llama3-8b", "pixtral-12b", "moonshot-v1-16b-a3b",
+                      "zamba2-7b", "rwkv6-1.6b", "whisper-tiny")
+SHARD_ENGINE_BATCH, SHARD_ENGINE_LEN, SHARD_ENGINE_NEW = 2, 48, 6
+DRYRUN_TIMEOUT_S = 300
+
+# (c) and (d) in one process of their own: the dry run's fake group is
+# process-wide; argv: the decode cell's max_len, then the train cell's
+# batch, seq and microbatches
+_DRYRUN = r"""
+import json, sys
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch import dryrun
+dec_len, b, s, micro = (int(x) for x in sys.argv[1:5])
+# (c)'s cells keep the params' dtype of the steps phases 8 and 9 timed
+own = lambda arch: {"param_dtype": get_config(arch).param_dtype}
+rows = {
+    "decode": dryrun.run_cell("llama3-8b", ShapeConfig("serve", dec_len, 4,
+                              "decode"), False, verbose=False,
+                              dims=(1, 1, 1), cfg_override=own("llama3-8b")),
+    "train": dryrun.run_cell("smollm-360m", ShapeConfig("lmt", s, b,
+                             "train"), False, verbose=False,
+                             microbatches=micro, dims=(1, 1, 1),
+                             cfg_override=own("smollm-360m")),
+    "production": dryrun.run_cell("llama3-8b", "train_4k", False,
+                                  verbose=False),
+}
+dryrun.dist.destroy_process_group()
+print(json.dumps(rows, default=str))
+"""
+
+
+def drive_sharded(dev) -> dict:
+    """(a) and (b) on a one-rank NCCL group (an in-memory store, no
+    socket) and ``make_host_mesh()``'s (1, 1) mesh: (a) ``Trainer`` on
+    :data:`SHARD_ARCH`'s smoke config, one state drawn on the card carried
+    into both, :data:`SHARD_STEPS` steps with the state placed by
+    ``param_shardings`` / ``opt_state_shardings`` against the unsharded
+    ``Trainer``'s: losses and every parameter at rtol 1e-6; (b)
+    ``ServeEngine`` with ``cache_shardings`` against the unsharded engine,
+    one smoke config a family: tokens equal, the decode step still one
+    CUDA graph over a DTensor cache.  No hand-written kernel may launch."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.params import tree_leaves, tree_map
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import Trainer, init_state
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        mesh = make_host_mesh()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        m = get_model(get_smoke_config(SHARD_ARCH))
+        tc = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+        stream = TokenStream(m.cfg.vocab_size, 8, 32, seed=0)
+        state = init_state(m, torch.Generator(device=dev).manual_seed(0))
+        quiet = lambda *a, **k: None
+        pshard = shd.param_shardings(m, mesh)
+        ssh = {"params": pshard, "opt": shd.opt_state_shardings(pshard, mesh)}
+        plain = Trainer(m, tc, stream, device=dev)
+        want, _, wh = plain.run(tree_map(torch.clone, state), 0, SHARD_STEPS,
+                                log_fn=quiet)
+        tr = Trainer(m, tc, stream, mesh=mesh, state_shardings=ssh,
+                     device=dev)
+        got, _, gh = tr.run(shd.distribute(state, ssh), 0, SHARD_STEPS,
+                            log_fn=quiet)
+        losses = [[float(h["loss"]) for h in hist] for hist in (wh, gh)]
+        for a, b in zip(*losses):
+            check(abs(a - b) <= SHARD_RTOL * abs(a), f"{SHARD} (a): sharded "
+                  f"losses {losses[1]} != unsharded {losses[0]}")
+        worst = 0.0
+        for g, w in zip(tree_leaves(shd.full_tensor(got)), tree_leaves(want)):
+            err = float(((g - w).abs() - SHARD_RTOL * w.abs()).max())
+            worst = max(worst, float((g - w).abs().max()))
+            check(err <= 0, f"{SHARD} (a): a parameter differs by {err:.3g} "
+                  "past rtol 1e-6")
+        out["trainer"] = {"model": SHARD_ARCH, "steps": SHARD_STEPS,
+                          "losses_unsharded": losses[0],
+                          "losses_sharded": losses[1],
+                          "param_max_abs_err": worst,
+                          "ms_per_step_sharded": statistics.median(
+                              tr.step_times) * 1e3,
+                          "ms_per_step_unsharded": statistics.median(
+                              plain.step_times) * 1e3,
+                          "wall_s": time.perf_counter() - t0}
+        del want, got, state
+
+        t0 = time.perf_counter()
+        engines = {}
+        for arch in SHARD_ENGINE_ARCHS:
+            m = get_model(get_smoke_config(arch))
+            params = m.init(torch.Generator(device=dev).manual_seed(0))
+            max_len = SHARD_ENGINE_LEN + (m.cfg.num_image_tokens
+                                          if m.cfg.family == "vlm" else 0)
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, m.cfg.vocab_size, 5 + i).astype(
+                np.int32) for i in range(3)]
+            reqs = lambda: [Request(p, SHARD_ENGINE_NEW) for p in prompts]
+            plain = ServeEngine(m, params, SHARD_ENGINE_BATCH, max_len,
+                                device=dev).generate(reqs())
+            cache = m.init_cache(SHARD_ENGINE_BATCH, max_len, device="meta")
+            eng = ServeEngine(m, params, SHARD_ENGINE_BATCH, max_len,
+                              device=dev, cache_shardings=shd.cache_shardings(
+                                  m.cfg, cache, mesh))
+            got = eng.generate(reqs())
+            check([r.out_tokens for r in got] == [r.out_tokens for r in plain],
+                  f"{SHARD} (b) {arch}: the sharded engine's tokens differ")
+            check(eng.decoder.graph is not None and eng.captures == 1
+                  and type(eng.decoder.static["pos"]).__name__ == "DTensor",
+                  f"{SHARD} (b) {arch}: the decode step over the DTensor "
+                  "cache was not captured")
+            engines[arch] = {"tokens_equal": True,
+                             "replays": eng.decoder.replays}
+        out["engines"] = engines
+        out["engines_wall_s"] = time.perf_counter() - t0
+        launches = {k: n for k, n in _build.launches.items() if n}
+        check(not launches, f"{SHARD}: hand-written kernels launched "
+              f"{launches}")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def executed_flops_ratio(row: dict, cfg) -> float:
+    """A dry-run row's ideal FLOPs over the executed FLOPs of all its
+    ranks, unclamped (``build_report``'s ``model_flops_ratio`` stops at 1,
+    as the reference's does).  The ideal (6 or 2 x N x tokens) is taken
+    less an untied input embedding table's share, which a gather reads
+    and no product computes.  Above 1, the traced count missed products."""
+    ideal = row["model_flops_global"]
+    if not cfg.tie_embeddings:
+        ideal *= 1 - cfg.vocab_size * cfg.d_model / row["n_params_active"]
+    return ideal / (row["flops"] * row["chips"])
+
+
+def run_dry_runs() -> dict:
+    """(c) and (d) in a subprocess (see :data:`_DRYRUN`)."""
+    from repro_torch.configs import get_config
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    args = [str(lm_serve_len(get_config("llama3-8b"))), str(LMT_BATCH),
+            str(LMT_SEQ), str(LMT_MICRO)]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _DRYRUN, *args],
+                         capture_output=True, text=True, env=env,
+                         timeout=DRYRUN_TIMEOUT_S)
+    check(res.returncode == 0, f"{SHARD}: the dry run failed: "
+          f"{res.stderr[-3000:]}")
+    rows = json.loads(res.stdout.strip().splitlines()[-1])
+    for name, row in rows.items():
+        check(row.get("status") == "ok", f"{SHARD} {name}: dry run "
+              f"{row.get('error')}")
+        terms = [row[k] for k in ("compute_s", "memory_s", "collective_s",
+                                  "t_overlap_s", "t_serial_s")]
+        check(all(math.isfinite(t) for t in terms),
+              f"{SHARD} {name}: a roofline term is not finite {terms}")
+        ratio = executed_flops_ratio(row, get_config(row["cell"].split(
+            ":")[0]))
+        row["executed_flops_ratio"] = ratio
+        check(ratio <= 1.0, f"{SHARD} {name}: the ideal FLOPs are "
+              f"{ratio:.4f} x the executed FLOPs of all ranks: the traced "
+              "count missed products")
+    rows["wall_s"] = time.perf_counter() - t0
+    return rows
+
+
+def check_calibration(dry: dict, lm_rows: list, lmt: dict) -> list:
+    """(c) Each measured step beside its roofline on a (1, 1, 1) mesh:
+    llama3-8b's graph decode at batch 4 (phase 8 (d)) and smollm-360m's
+    train step at 8 x 2048 in 2 microbatches (phase 9 (a)).  A step faster
+    than its roofline's ``t_overlap_s`` means the count is wrong: gated."""
+    dec = next(r for r in lm_rows if r["model"] == "llama3-8b")
+    out = []
+    for name, measured_ms, mfu in (
+            ("decode", dec["graph_decode_ms_per_step"], None),
+            ("train", lmt["ms_per_step"], lmt["mfu_bf16"])):
+        row = dry[name]
+        check(measured_ms / 1e3 >= row["t_overlap_s"],
+              f"{SHARD} (c) {row['cell']}: measured {measured_ms:.3f} ms "
+              f"beats its roofline's {row['t_overlap_s'] * 1e3:.3f} ms")
+        out.append({"cell": row["cell"], "mesh": "1x1x1",
+                    "measured_ms": measured_ms,
+                    "t_overlap_ms": row["t_overlap_s"] * 1e3,
+                    "t_serial_ms": row["t_serial_s"] * 1e3,
+                    "bottleneck": row["bottleneck"],
+                    "compute_ms": row["compute_s"] * 1e3,
+                    "memory_ms": row["memory_s"] * 1e3,
+                    "collective_ms": row["collective_s"] * 1e3,
+                    "mfu_overlap": row["mfu_overlap"], "measured_mfu": mfu,
+                    "measured_over_roofline": measured_ms / 1e3
+                    / row["t_overlap_s"],
+                    "flops": row["flops"], "hbm_bytes": row["hbm_bytes"],
+                    "param_dtype": row["param_dtype"],
+                    "executed_flops_ratio": row["executed_flops_ratio"],
+                    "machine": row["machine"], "trace_s": row["trace_s"]})
+    return out
+
+
 def device_total_us(fn, reps: int = 20) -> float:
     """Device microseconds per call of ``fn``, every kernel it launches
     summed (CUPTI): each kernel's mean over its recorded launches, times
@@ -4128,6 +4365,37 @@ def main() -> int:
           f"traced idle {trace['device_idle_share']:.4f}; (c) router loss "
           f"{moe['router_loss'][-1]:.4g}, {moe['ms_per_step']:.1f} ms a "
           f"step | phase 9 wall {time.perf_counter() - t9:.1f}s | "
+          f"{nvidia_smi_line()}", flush=True)
+
+    t10 = time.perf_counter()
+    sharded = drive_sharded(dev)
+    print(f"{SHARD} (a) {json.dumps(sharded['trainer'])} | "
+          f"{nvidia_smi_line()}", flush=True)
+    print(f"{SHARD} (b) engines, sharded cache vs unsharded: "
+          f"{json.dumps(sharded['engines'])} in "
+          f"{sharded['engines_wall_s']:.1f}s | {nvidia_smi_line()}",
+          flush=True)
+    dry = run_dry_runs()
+    for row in check_calibration(dry, rows, summary):
+        print(f"{SHARD} (c) {row['cell']}: measured {row['measured_ms']:.3f} "
+              f"ms a step, roofline t_overlap {row['t_overlap_ms']:.3f} ms "
+              f"({row['bottleneck']}-bound), mfu_overlap "
+              f"{row['mfu_overlap']:.4f}, measured MFU {row['measured_mfu']} "
+              f"| {nvidia_smi_line()}; {json.dumps(row)}", flush=True)
+    prod = dry["production"]
+    print(f"{SHARD} (d) {prod['cell']} {prod['mesh']}: "
+          f"c={prod['compute_s'] * 1e3:.3f}ms m={prod['memory_s'] * 1e3:.3f}ms "
+          f"n={prod['collective_s'] * 1e3:.3f}ms -> {prod['bottleneck']} "
+          f"MFU={prod['mfu_overlap'] * 100:.1f}% "
+          f"useful={prod['model_flops_ratio'] * 100:.1f}% (ideal over "
+          f"executed, embedding lookup aside, "
+          f"{prod['executed_flops_ratio']:.4f}); collectives "
+          f"{json.dumps(prod['collective_counts'])}, args "
+          f"{prod['arg_bytes'] / 1e9:.2f} GB, temp "
+          f"{prod['temp_bytes'] / 1e9:.2f} GB, trace_s {prod['trace_s']}, "
+          f"dry-run process {dry['wall_s']:.1f}s (host work) | "
+          f"{nvidia_smi_line()}", flush=True)
+    print(f"{SHARD}: phase 10 wall {time.perf_counter() - t10:.1f}s | "
           f"{nvidia_smi_line()}", flush=True)
 
     needs_by_path = {label: needs for label, *_, needs in PATHS}

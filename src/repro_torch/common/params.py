@@ -117,12 +117,20 @@ def check_shapes(schema: PyTree, tree: PyTree) -> None:
 
 
 def params_from_numpy(schema: PyTree, tree: PyTree,
-                      device: torch.device) -> PyTree:
+                      device: torch.device, shardings: PyTree = None
+                      ) -> PyTree:
     """Arrays laid out as ``schema`` (the reference's params as numpy) ->
-    tensors of the schema's dtypes on ``device``."""
+    tensors of the schema's dtypes on ``device``; with ``shardings``
+    (:func:`repro_torch.distributed.sharding.param_shardings`), DTensors
+    placed by them (each rank keeps its shard of the full array)."""
     check_shapes(schema, tree)
-    return tree_map(lambda p, x: _from_numpy(x).to(device, p.dtype),
-                    schema, tree)
+    out = tree_map(lambda p, x: _from_numpy(x).to(device, p.dtype),
+                   schema, tree)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute
+
+        out = distribute(out, shardings)
+    return out
 
 
 def _from_numpy(x) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Placement of the port's multi-cell PHY steps
-(:mod:`repro_torch.distributed.sharding`; the LM sharding rules of the
-reference's module wait for the LM stack)."""
+"""Sharding rules and placements of the port
+(:mod:`repro_torch.distributed.sharding`): the LM rules on DTensor, and
+the multi-cell PHY step's placement."""
 from repro_torch.distributed.sharding import LaneCheck, cell_slot_placement

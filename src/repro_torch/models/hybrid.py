@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.common.params import stack_schemas
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 
@@ -59,6 +60,7 @@ def schema(cfg: ModelConfig):
 
 
 def _attn_block(ap, x, cfg, positions, cache_kv=None, cache_pos=None):
+    x = constrain(x, ("batch", "seq", "embed"))
     h = L.apply_norm(ap["ln1"], x, cfg)
     cache = None if cache_kv is None else {"k": cache_kv[0], "v": cache_kv[1]}
     attn_out, new_cache = L.attention_layer(
@@ -74,6 +76,7 @@ def _attn_block(ap, x, cfg, positions, cache_kv=None, cache_pos=None):
 
 def _mamba_residual(mp, x, cfg, conv_state=None, ssm_state=None,
                     decode=False):
+    x = constrain(x, ("batch", "seq", "embed"))
     y, states = M.mamba_block(
         mp, x, cfg, conv_state=conv_state, ssm_state=ssm_state, decode=decode
     )
@@ -141,8 +144,8 @@ def _run_cached(params, cfg, x, positions, cache, cache_pos, decode):
     def mamba(mp, h, conv, ssm):
         h, (ncs, nss) = _mamba_residual(
             mp, h, cfg, conv_state=conv, ssm_state=ssm, decode=decode)
-        conv.copy_(ncs)
-        ssm.copy_(nss)
+        L.assign(conv, ncs)
+        L.assign(ssm, nss)
         return h
 
     for i in range(n_super):

@@ -19,8 +19,9 @@ Attention is a KV-chunked running-softmax loop, the online-softmax
 semantics of FlashAttention, so the score matrix never materializes
 beyond (q_len, chunk).  Products and attention are plain ``torch`` ops,
 as the reference computes them in ``jnp`` outside any Pallas kernel.  The
-reference's activation-sharding hooks (``constrain``, ``sp_active``) are
-identities without an activation mesh, so the port has none.
+activation-sharding hooks (``constrain``, ``sp_active`` of
+:mod:`repro_torch.distributed.sharding`) sit where the reference's do; they
+are identities without an activation mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +36,10 @@ from torch.utils.checkpoint import (
 
 from repro_torch.common.params import Param, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    _ACT_RULES_BY_MODE, carry_mesh, constrain, get_activation_mesh,
+    mesh_axes, mesh_shape, placements, sharding_mode, sp_active, spec_for,
+)
 
 Params = Any
 Pos = Union[int, torch.Tensor]
@@ -105,9 +110,60 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # Chunked attention (online softmax: FlashAttention semantics in torch ops)
 # ---------------------------------------------------------------------------
 
+def _divides_model_axis(n: int) -> bool:
+    """Whether ``n`` heads split evenly over the activation mesh's
+    ``model`` axis (True without a mesh)."""
+    mesh = get_activation_mesh()
+    if mesh is None:
+        return True
+    return n % dict(zip(mesh_axes(mesh), mesh_shape(mesh))).get("model", 1) == 0
+
+
 def _gqa_reshape(q: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
     b, s, h, d = q.shape
+    if not _divides_model_axis(num_kv_heads):
+        # DTensor cannot split a model-sharded head dim into kv groups
+        # that do not divide the axis: gather the heads first
+        q = constrain(q, ("batch", "seq", None, None))
     return q.reshape(b, s, num_kv_heads, h // num_kv_heads, d)
+
+
+def _merge_heads(out: torch.Tensor, b: int, s: int, h: int, d: int,
+                 kh: int) -> torch.Tensor:
+    """(B, S, KH, G, D) -> (B, S, H, D).  Where :func:`_gqa_reshape`
+    gathered the heads, the merged heads are held replicated too: the
+    backward splits this merge again, and a gradient that arrives sharded
+    over the heads could not be split into the kv groups."""
+    out = out.reshape(b, s, h, d)
+    if not _divides_model_axis(kh):
+        out = constrain(out, ("batch", "seq", None, None))
+    return out
+
+
+def head_projection(eq: str, x: torch.Tensor, w: torch.Tensor,
+                    n_heads: int) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` of a (B, S, D) input and a (D, heads,
+    head_dim) weight.  Under an activation mesh whose model axis does not
+    divide ``n_heads``, DTensor would shard the flattened heads x head_dim
+    columns over ``model`` and then fail to unflatten them, so there the
+    product runs in ``local_map`` on the rows' shard with the weight
+    gathered (the heads replicated, as the reference's rules leave them)."""
+    if _divides_model_axis(n_heads):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = get_activation_mesh()
+    x = constrain(x, ("batch", "seq", None))
+    w = constrain(w, (None,) * w.ndim)
+    out_axes = ("batch", "seq", None, None)
+    out = placements(spec_for((x.shape[0], x.shape[1], w.shape[1],
+                               w.shape[2]), out_axes,
+                              _ACT_RULES_BY_MODE[sharding_mode()], mesh),
+                     mesh)
+    return local_map(lambda a, b: torch.einsum(eq, a, b),
+                     out_placements=(out,),
+                     in_placements=(x.placements, w.placements),
+                     device_mesh=mesh)(x, w)
 
 
 def chunked_attention(
@@ -164,7 +220,7 @@ def chunked_attention(
         acc = acc * corr[..., None] + torch.einsum("bqhgc,bchd->bqhgd", p, vc)
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return _merge_heads(out, b, sq, h, d, kh).to(q.dtype)
 
 
 def decode_attention(
@@ -184,7 +240,11 @@ def decode_attention(
     scores = torch.where(kpos <= pos, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqhgs,bshd->bqhgd", probs, v_cache.to(F32))
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    # under a mesh: a kv_seq-sharded cache leaves partial sums over its
+    # shards; reduce them before the head merge (DTensor mis-sizes the
+    # merge of a pending reduction)
+    out = constrain(out, ("batch", None, None, None, None))
+    return _merge_heads(out, b, 1, h, d, kh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -208,14 +268,103 @@ def attention_schema(cfg: ModelConfig, d_model: Optional[int] = None):
     return sch
 
 
+def _is_dtensor(x) -> bool:
+    return type(x).__name__ == "DTensor"
+
+
+def assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` for a cache entry.  A DTensor entry keeps its
+    placements: ``src`` is resharded to them and each rank writes its own
+    shard (DTensor's in-place copy may re-place ``dst`` instead); a plain
+    entry takes a DTensor ``src`` whole."""
+    if _is_dtensor(dst):
+        if not _is_dtensor(src):
+            src = _replicated_on(src, dst.device_mesh)
+        src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src.full_tensor() if _is_dtensor(src) else src)
+
+
+def _replicated_on(x: torch.Tensor, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _write_sharded(buf, new: torch.Tensor, pos: Pos) -> None:
+    """:func:`write_cache` into a DTensor cache whose seq dim (1) may be
+    sharded (``kv_seq``): ``new`` is laid out as ``buf`` with its seq dim
+    whole, and each rank writes the positions that fall in its own seq
+    range.  A device ``pos`` touches ``min(s, cap_l)`` rows of the local
+    shard (``cap_l`` its seq length), never the whole shard for ``s``
+    new rows."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = buf.device_mesh
+    pl = list(buf.placements)
+    seq_dims = [i for i, q in enumerate(pl) if isinstance(q, Shard)
+                and q.dim == 1]
+    want = [Replicate() if i in seq_dims else q for i, q in enumerate(pl)]
+    if not _is_dtensor(new):
+        new = _replicated_on(new, mesh)
+    new_l = new.redistribute(mesh, want).to_local().to(buf.dtype)
+    buf_l = buf.to_local()
+    coord = mesh.get_coordinate()
+    lin = 0
+    for i in seq_dims:  # the rank's seq block, mesh dims major to minor
+        lin = lin * mesh.size(i) + coord[i]
+    cap, cap_l, s = buf.shape[1], buf_l.shape[1], new.shape[1]
+    off = lin * cap_l
+    if isinstance(pos, torch.Tensor):
+        if _is_dtensor(pos):
+            pos = pos.to_local()
+        start = torch.clamp(pos, 0, cap - s)
+        if not seq_dims:  # the seq dim whole on every rank
+            idx = start + torch.arange(s, device=buf_l.device)
+            buf_l.index_copy_(1, idx, new_l)
+        elif s < cap_l:
+            # the s rows' indices in this shard; a row outside it writes
+            # back the value at its index mod cap_l, which no row inside
+            # writes (s < cap_l consecutive indices stay distinct mod
+            # cap_l)
+            idx = start - off + torch.arange(s, device=buf_l.device)
+            tgt = torch.remainder(idx, cap_l)
+            ok = ((idx >= 0) & (idx < cap_l)).reshape(
+                (1, s) + (1,) * (buf_l.ndim - 2))
+            rows = torch.where(ok, new_l, buf_l.index_select(1, tgt))
+            buf_l.index_copy_(1, tgt, rows)
+        else:  # s >= cap_l: each shard row takes its source row, if any
+            src = torch.arange(cap_l, device=buf_l.device) + off - start
+            ok = (src >= 0) & (src < s)
+            rows = new_l.index_select(1, torch.clamp(src, 0, s - 1))
+            ok = ok.reshape((1, cap_l) + (1,) * (buf_l.ndim - 2))
+            buf_l.copy_(torch.where(ok, rows, buf_l))
+    else:
+        start = min(max(int(pos), 0), cap - s)
+        a, b = max(start, off), min(start + s, off + cap_l)
+        if a < b:
+            buf_l[:, a - off:b - off].copy_(new_l[:, a - start:b - start])
+
+
 def write_cache(buf: torch.Tensor, new: torch.Tensor, pos: Pos) -> None:
     """Write ``new`` (B, s, ...) into ``buf`` (B, S, ...) at sequence
     offset ``pos``, in place, with ``lax.dynamic_update_slice``'s clamp
     (the start moves back so the update fits).  A device ``pos`` is used
-    as a device index (``index_copy_``), so nothing is read to the host."""
+    as a device index (``index_copy_``), so nothing is read to the host.
+    A DTensor ``buf`` is written shard by shard (:func:`_write_sharded`);
+    a plain ``buf`` takes a DTensor ``new`` whole."""
     s, cap = new.shape[1], buf.shape[1]
     if s > cap:
         raise ValueError(f"{s} positions do not fit a cache of {cap}")
+    if _is_dtensor(buf):
+        _write_sharded(buf, new, pos)
+        return
+    if _is_dtensor(new):
+        new = new.full_tensor()
+    if _is_dtensor(pos):
+        pos = pos.full_tensor()
     new = new.to(buf.dtype)
     if isinstance(pos, torch.Tensor):
         start = torch.clamp(pos, 0, cap - s)
@@ -242,9 +391,10 @@ def attention_layer(
     dt = cfg.dtype()
     x = x.to(dt)
     kv_src = memory if memory is not None else x
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"].to(dt))
+    h, kh = cfg.num_heads, cfg.num_kv_heads
+    q = head_projection("bsd,dhk->bshk", x, p["wq"].to(dt), h)
+    k = head_projection("bsd,dhk->bshk", kv_src, p["wk"].to(dt), kh)
+    v = head_projection("bsd,dhk->bshk", kv_src, p["wv"].to(dt), kh)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -252,6 +402,13 @@ def attention_layer(
     if cfg.pos_embed == "rope" and memory is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+
+    if sp_active() and x.shape[1] > 1:
+        # sequence-parallel attention: queries stay seq-sharded over the
+        # model axis; K/V are all-gathered
+        q = constrain(q, ("batch", "seq", None, None))
+        k = constrain(k, ("batch", "full_seq", None, None))
+        v = constrain(v, ("batch", "full_seq", None, None))
 
     new_cache = None
     if cache is not None and memory is None:
@@ -337,8 +494,23 @@ def embedding_schema(cfg: ModelConfig):
 def take_rows(table: torch.Tensor, idx: torch.Tensor,
               dt: torch.dtype) -> torch.Tensor:
     """``jnp.take(table.astype(dt), idx, axis=0)``: the rows are gathered
-    first and then cast, the same values without casting the table."""
-    return F.embedding(idx.long(), table).to(dt)
+    first and then cast, the same values without casting the table.
+
+    Under an activation mesh the table's embed dim is gathered first (the
+    FSDP weight gather; rows stay vocab-sharded), and the rows are reduced
+    over the vocab shards at once: DTensor's embedding strategy mis-sizes
+    its vocab mask when the table's embed dim and the indices' batch dim
+    share a mesh axis, and its pending vocab reduction can be applied only
+    once."""
+    table = constrain(table, ("vocab", None))
+    rows = F.embedding(idx.long(), table)
+    if _is_dtensor(rows):  # the vocab reduction first, then the layout
+        from torch.distributed.tensor import Replicate
+
+        rows = rows.redistribute(rows.device_mesh, [
+            Replicate() if q.is_partial() else q for q in rows.placements])
+        rows = constrain(rows, ("batch", "seq", "embed")[-rows.ndim:])
+    return rows.to(dt)
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -389,6 +561,6 @@ def remat_wrap(fn, cfg: ModelConfig):
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return checkpoint(carry_mesh(fn), *args, use_reentrant=False, **kw)
 
     return wrapped

@@ -1,5 +1,5 @@
 """Mixture-of-Experts transformer (moonshot-v1-16b-a3b, dbrx-132b); port of
-:mod:`repro.models.moe`, its local path.
+:mod:`repro.models.moe`.
 
 Expert dispatch is sort-based with a capacity bound (GShard-style dropping,
 MegaBlocks-style sorted grouping): assignments are sorted by expert id,
@@ -7,11 +7,16 @@ ranked within their expert group, and placed into an (E, C) slot grid.  The
 two large data movements are pure gathers (dispatch: slot -> token row;
 combine: assignment -> slot row).
 
-The reference shards dispatch and combine per data shard with
-``shard_map`` when an activation mesh with several data shards is
-installed; that branch needs the LM sharding rules and lanes across cards,
-which the port does not have yet, so :func:`moe_mlp_layer` raises for such
-a mesh.
+Under an activation mesh with several data shards that divide the tokens,
+dispatch and combine run per data shard with a per-shard capacity, as
+the reference's ``shard_map`` branch: DTensor's ``local_map`` hands each
+rank its token rows, each model rank keeps the block of experts it owns
+(``mesh.get_local_rank("model")``, the reference's ``axis_index``), and
+the combine's per-shard partial sums leave ``local_map`` as a ``Partial``
+placement over ``model``, which the next constraint all-reduces (the
+reference's ``psum``).  The index work (sort, ``scatter_add_``) has no
+DTensor sharding strategy, so under a mesh the local path runs it in
+``local_map`` on replicated tokens as well.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.params import Param, stack_schemas
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 
 Params = Any
@@ -98,20 +105,18 @@ def _dispatch_indices(idx: torch.Tensor, t: int, k: int, e: int, c: int):
     return slot_token, slot_of_assign
 
 
-def _data_shards(mesh) -> int:
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    return math.prod(sizes[a] for a in ("pod", "data") if a in sizes)
+def _dp_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in shd.mesh_axes(mesh))
 
 
 def moe_mlp_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   serving: bool = False, mesh=None):
     """x: (B, S, D). Returns (y, aux) with router load-balance loss.
 
-    Dispatch and combine run locally, as the reference's do without an
-    activation mesh (or with one data shard).  ``mesh`` (an object with
-    ``axis_names`` and ``devices``, as a JAX mesh has) with several data
-    shards dividing the tokens would take the reference's ``shard_map``
-    branch, which is not ported: it raises ``NotImplementedError``.
+    Dispatch and combine are local per data shard (per-shard capacity)
+    when the mesh (``mesh``, else the activation mesh) has several data
+    shards dividing the tokens (:func:`_sharded_dispatch`); otherwise the
+    tokens form one shard.
     """
     dt = cfg.dtype()
     b, s, d = x.shape
@@ -120,7 +125,9 @@ def moe_mlp_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
     xt = x.reshape(t, d)
 
     # --- routing (fp32) ---
-    logits = torch.einsum("td,de->te", xt.to(torch.float32), p["router"])
+    # a bf16 router (serving params cast whole) promotes to fp32, as jnp's
+    logits = torch.einsum("td,de->te", xt.to(torch.float32),
+                          p["router"].to(torch.float32))
     probs = torch.softmax(logits, dim=-1)  # (T, E)
     gate, idx = top_k(probs, k)  # (T, k)
     gate = gate / torch.sum(gate, dim=-1, keepdim=True)
@@ -132,20 +139,105 @@ def moe_mlp_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
     ce = torch.mean(torch.sum(one_hot.to(torch.float32), dim=1), dim=0)
     aux_loss = e * torch.sum(me * ce) / k
 
-    dp = _data_shards(mesh) if mesh is not None else 1
-    if dp > 1 and t % dp == 0:
-        raise NotImplementedError(
-            f"MoE dispatch over {dp} data shards (the reference's shard_map "
-            "branch) is not ported: it waits for the LM sharding rules "
-            "(ROADMAP.md 14e) and lanes across cards (item 7 part 3)")
-    x_disp, soa = _dispatch_local(cfg, xt, idx, t, e, k, serving)
-    y_e = _expert_ffn(p, x_disp.to(dt), cfg)
-    y = _combine_local(y_e, soa, gate, t, e, k, d)
+    mesh = shd.get_activation_mesh() if mesh is None else mesh
+    if mesh is not None:
+        sizes = dict(zip(shd.mesh_axes(mesh), shd.mesh_shape(mesh)))
+        dp_axes = _dp_axes(mesh)
+        dp = math.prod(sizes[a] for a in dp_axes)
+        if not (dp > 1 and t % dp == 0):  # the tokens form one shard
+            dp_axes = ()
+        y = _sharded_dispatch(p, xt, idx, gate, cfg, serving, mesh, dp_axes)
+    else:
+        x_disp, soa = _dispatch_local(cfg, xt, idx, t, e, k, serving)
+        y_e = _expert_ffn(p, x_disp.to(dt), cfg)
+        y = _combine_local(y_e, soa, gate, t, e, k, d)
 
     if cfg.num_shared_experts > 0:
         y = y + L.mlp_layer(p["shared"], xt[None], cfg).reshape(t, d)
 
     return y.reshape(b, s, d).to(dt), aux_loss
+
+
+def _placements_on(mesh, dims: dict) -> tuple:
+    """Placements from {mesh axis: placement}; Replicate elsewhere."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(dims.get(a, Replicate()) for a in shd.mesh_axes(mesh))
+
+
+def _sharded_dispatch(p, xt, idx, gate, cfg, serving, mesh, dp_axes):
+    """The reference's ``shard_map`` branch: per-data-shard dispatch with
+    per-shard capacity, expert-parallel FFN, per-shard combine summed over
+    the model axis.  With no ``dp_axes`` (data shards that do not divide
+    the tokens) the rows stay whole on every rank: the slots and capacity
+    of the local path, the FFN still expert-parallel."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dt = cfg.dtype()
+    t, d = xt.shape
+    e, k = cfg.num_experts, cfg.top_k
+    sizes = dict(zip(shd.mesh_axes(mesh), shd.mesh_shape(mesh)))
+    t_loc = t // math.prod(sizes[a] for a in dp_axes)
+    c_loc = _capacity(cfg, t_loc, serving)
+    tp = sizes.get("model", 1)
+    ep = tp if (tp > 1 and e % tp == 0) else 1
+    e_loc = e // ep
+    disp_ax = "dispatch" if dp_axes else None
+
+    def on(tensor_dim_of_dp, model=None):
+        dims = {a: Shard(tensor_dim_of_dp) for a in dp_axes}
+        if model is not None:
+            dims["model"] = model
+        return _placements_on(mesh, dims)
+
+    rows = on(0)  # (t, ...) rows over the data shards, replicated on model
+    xt = constrain(xt, (disp_ax, None))
+    idx = constrain(idx, (disp_ax, None))
+    gate = constrain(gate, (disp_ax, None))
+
+    def disp(xt_l, idx_l):
+        # local slot assignment + gather; each model shard slices the block
+        # of experts it owns (no communication at all)
+        st, soa_l = _dispatch_indices(idx_l, t_loc, k, e, c_loc)
+        x_pad = torch.cat([xt_l, xt_l.new_zeros((1, d))], dim=0)
+        x_disp_full = x_pad[st].reshape(e, c_loc, d)
+        if ep > 1:
+            me = mesh.get_local_rank("model")
+            x_disp_full = x_disp_full[me * e_loc:(me + 1) * e_loc]
+        return x_disp_full, soa_l
+
+    disp_out = on(1, Shard(0) if ep > 1 else None)
+    x_disp, soa = local_map(
+        disp, out_placements=(disp_out, rows), in_placements=(rows, rows),
+        device_mesh=mesh)(xt, idx)
+    # expert-parallel grouped GEMMs: weights are EP-sharded over model, so
+    # each shard runs a local grouped GEMM
+    x_disp = constrain(x_disp.to(dt), ("expert", disp_ax, "embed"))
+    y_e = _expert_ffn(p, x_disp, cfg)
+    y_e = constrain(y_e, ("expert", disp_ax, "embed"))
+
+    def comb(y_l, soa_l, gate_l):
+        # per-model-shard partial combine: each shard sums the
+        # contributions of its own experts
+        n_loc = y_l.shape[0] * c_loc
+        offset = mesh.get_local_rank("model") * n_loc if ep > 1 else 0
+        local = soa_l - offset
+        ok = (local >= 0) & (local < n_loc)
+        y_pad = torch.cat([y_l.reshape(n_loc, d), y_l.new_zeros((1, d))],
+                          dim=0)
+        y_flat = y_pad[torch.where(ok, local, n_loc)]  # (t_loc*k, d)
+        return torch.sum(
+            y_flat.reshape(t_loc, k, d) * gate_l[..., None].to(y_flat.dtype),
+            dim=1)
+
+    y = local_map(
+        comb, out_placements=(on(0, Partial() if ep > 1 else None),),
+        in_placements=(y_e.placements, rows, rows), device_mesh=mesh,
+    )(y_e, soa, gate)
+    # the partial sums of the model shards, all-reduced (the reference's
+    # psum over "model")
+    return constrain(y, (disp_ax, None))
 
 
 def _expert_ffn(p: Params, x_disp: torch.Tensor,
@@ -193,6 +285,7 @@ def schema(cfg: ModelConfig):
 
 def _block(lp, x, cfg, positions, cache_kv=None, cache_pos=None,
            serving=False):
+    x = constrain(x, ("batch", "seq", "embed"))
     h = L.apply_norm(lp["ln1"], x, cfg)
     cache = None if cache_kv is None else {"k": cache_kv[0], "v": cache_kv[1]}
     attn_out, new_cache = L.attention_layer(

@@ -16,6 +16,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.params import Param, stack_schemas
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 
 Params = Any
@@ -141,6 +142,9 @@ def time_mix(
     xxx = x + xx * p["maa_x"].to(dt)
     # data-dependent interpolation (ddlerp): (B,S,5,D)
     mix = torch.tanh(torch.einsum("bsd,de->bse", xxx, p["mix_w1"].to(dt)))
+    # under a mesh: the 5 x LORA_MIX columns whole before the split (DTensor
+    # cannot split a model-sharded dim into 5 groups)
+    mix = constrain(mix, ("batch", "seq", None))
     mix = mix.reshape(b, s, 5, LORA_MIX)
     mix = torch.einsum("bsme,med->bsmd", mix, p["mix_w2"].to(dt))
     anchors = p["maa_wkvrg"].to(dt)[None, None]  # (1,1,5,D)
@@ -195,6 +199,7 @@ def channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def _block(lp, x, cfg, states, chunk):
     """states: dict(tm_x (B,1,D), wkv (B,H,K,V), cm_x (B,1,D))."""
+    x = constrain(x, ("batch", "seq", "embed"))
     h1 = L.apply_norm(lp["ln1"], x, cfg)
     tm_out, (tm_x, wkv) = time_mix(
         lp["time_mix"], h1, cfg, states["tm_x"], states["wkv"], chunk
@@ -231,7 +236,7 @@ def _run(params, cfg: ModelConfig, x, states, chunk, write: bool):
         x, new = layer_fn(x, L.layer(params["layers"], i), st)
         if write:
             for key in STATE_KEYS:
-                st[key].copy_(new[key])
+                L.assign(st[key], new[key])
     return x
 
 

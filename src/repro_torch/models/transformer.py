@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.common.params import Param, stack_schemas
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 
 Params = Any
@@ -48,6 +49,7 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
            positions: torch.Tensor, cache_kv: Optional[tuple] = None,
            cache_pos=None):
     """One transformer block. Returns (x, new_kv or None)."""
+    x = constrain(x, ("batch", "seq", "embed"))
     h = L.apply_norm(lp["ln1"], x, cfg)
     cache = None
     if cache_kv is not None:

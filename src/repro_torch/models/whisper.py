@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.common.params import Param, stack_schemas
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 
 Params = Any
@@ -66,6 +67,7 @@ def encode(params, cfg: ModelConfig, audio_embeds: torch.Tensor
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def layer_fn(h, lp):
+        h = constrain(h, ("batch", "seq", "embed"))
         a = L.apply_norm(lp["ln1"], h, cfg)
         attn_out, _ = L.attention_layer(
             lp["attn"], a, cfg, positions=positions, causal=False
@@ -81,6 +83,7 @@ def encode(params, cfg: ModelConfig, audio_embeds: torch.Tensor
 
 
 def _dec_block(lp, x, cfg, positions, memory, cache_kv=None, cache_pos=None):
+    x = constrain(x, ("batch", "seq", "embed"))
     h = L.apply_norm(lp["ln1"], x, cfg)
     cache = None if cache_kv is None else {"k": cache_kv[0], "v": cache_kv[1]}
     sa, new_cache = L.attention_layer(
@@ -160,7 +163,7 @@ def prefill(params, cfg: ModelConfig, batch, cache):
     x = _dec_layers_cached(params, cfg, x, positions, memory, cache, 0)
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = unembed(params, x[:, -1:, :], cfg)
-    cache["memory"].copy_(memory)
+    L.assign(cache["memory"], memory)
     cache["pos"].fill_(seq)
     return logits, cache
 

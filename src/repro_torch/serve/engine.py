@@ -18,6 +18,18 @@ buffer, which the graph's argmax overwrites with the next token; and a
 ``(max_len, B)`` token record the graph writes a row of per step, read to
 the host once per batch.  The prefill stays eager: its length changes per
 batch, as the reference recompiles it.
+
+``cache_shardings`` (:func:`repro_torch.distributed.sharding.
+cache_shardings`) places the cache as DTensors on their mesh, and the
+prefill and the decode step run under ``activation_mesh`` of that mesh
+(the reference's jit propagates the cache's shardings; the port's models
+read the mesh from there).  Each rank writes its own cache shard
+(:func:`repro_torch.models.layers.write_cache`).  On a one-rank mesh the
+decode step is captured as without a mesh: DTensor's dispatch is host
+work, and no collective runs.  On a larger mesh the graph would hold each
+rank's local kernels and the NCCL collectives DTensor sends on the
+step's stream (the cache's ``kv_seq`` reductions, the FSDP gathers of
+sharded weights); only one card has run it.
 """
 from __future__ import annotations
 
@@ -28,6 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import layers as L
 from repro_torch.models.registry import Model
 from repro_torch.serve.exec_registry import CapturedStep
 
@@ -49,11 +63,16 @@ class ServeEngine:
     def __init__(self, model: Model, params: PyTree, batch_size: int,
                  max_len: int, cache_shardings: Optional[dict] = None,
                  device: DeviceLike = None):
-        if cache_shardings is not None:
-            raise NotImplementedError(
-                "a sharded cache needs the LM sharding rules and several "
-                "cards (ROADMAP item 14e and item 7 part 3)")
         self.model = model
+        self.cache_shardings = cache_shardings
+        self.mesh = None
+        if cache_shardings is not None:
+            keys = sorted(model.init_cache(batch_size, max_len,
+                                           device="meta"))
+            if sorted(cache_shardings) != keys:
+                raise ValueError(f"cache_shardings must hold one Sharding "
+                                 f"per cache entry {keys}")
+            self.mesh = cache_shardings[keys[0]].mesh
         self.params = params
         self.batch_size = batch_size
         self.max_len = max_len
@@ -76,18 +95,27 @@ class ServeEngine:
         static[RECORD].index_copy_(0, static[ROW], static[TOKEN].view(1, -1))
         static[ROW].add_(1).clamp_(max=self.max_len - 1)
         cache = {k: static[k] for k in self._cache_keys}
-        logits, out = self.model.decode_step(self.params, static[TOKEN],
-                                             cache)
-        self._check_in_place(cache, out, "decode_step")
-        static[TOKEN].copy_(
-            torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32))
+        with shd.activation_mesh(self.mesh):
+            logits, out = self.model.decode_step(self.params, static[TOKEN],
+                                                 cache)
+            self._check_in_place(cache, out, "decode_step")
+            L.assign(static[TOKEN], torch.argmax(
+                logits[:, -1, :], dim=-1)[:, None].to(torch.int32))
         return {}
+
+    def _new_cache(self) -> dict:
+        """``model.init_cache``'s values, placed by ``cache_shardings``."""
+        cache = self.model.init_cache(self.batch_size, self.max_len,
+                                      device=self.device)
+        if self.cache_shardings is not None:
+            cache = shd.distribute(cache, self.cache_shardings)
+        return cache
 
     def _decoder(self) -> CapturedStep:
         """The decode step, captured over a fresh cache at first use."""
         if self.decoder is None:
             b, dev = self.batch_size, self.device
-            cache = self.model.init_cache(b, self.max_len, device=dev)
+            cache = self._new_cache()
             self._cache_keys = tuple(cache)
             example = {
                 TOKEN: torch.zeros((b, 1), dtype=torch.int32, device=dev),
@@ -108,7 +136,7 @@ class ServeEngine:
         fresh = self.model.init_cache(self.batch_size, self.max_len,
                                       device=self.device)
         for k in self._cache_keys:
-            cache[k].copy_(fresh[k])
+            L.assign(cache[k], fresh[k])
         return cache
 
     # -- serving -------------------------------------------------------------
@@ -143,11 +171,12 @@ class ServeEngine:
             batch["image_embeds"] = torch.zeros(
                 (b, cfg.num_image_tokens, 1024), dtype=cfg.dtype(),
                 device=dev)
-        logits, out = self.model.prefill(self.params, batch, cache)
-        self._check_in_place(cache, out, "prefill")
         static = step.static
-        static[TOKEN].copy_(
-            torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32))
+        with shd.activation_mesh(self.mesh):
+            logits, out = self.model.prefill(self.params, batch, cache)
+            self._check_in_place(cache, out, "prefill")
+            L.assign(static[TOKEN], torch.argmax(
+                logits[:, -1, :], dim=-1)[:, None].to(torch.int32))
         static[ROW].zero_()
         for _ in range(max_new):
             step.replay()

@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.params import tree_leaves, tree_map
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed.sharding import carry_mesh, constrain
 from repro_torch.models.registry import Model
 from repro_torch.optim import adamw
 
@@ -32,8 +33,10 @@ def _chunk_loss(unembed_fn, h_c: torch.Tensor, y_c: torch.Tensor) -> tuple:
     """(summed CE over the labelled positions, their count) of one chunk."""
     logits = unembed_fn(h_c).to(F32)  # (B, chunk, V)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, torch.clamp(y_c, min=0)[..., None].long()
-                      )[..., 0]
+    ll = torch.gather(logits, -1, torch.clamp(y_c, min=0)[..., None].long())
+    # under a mesh: reduce the vocab shards' masked picks at once (DTensor
+    # can apply a pending vocab reduction only to the gather's own shape)
+    ll = constrain(ll, ("batch", "seq", None))[..., 0]
     mask = (y_c >= 0).to(F32)
     return torch.sum((lse - ll) * mask), torch.sum(mask)
 
@@ -48,6 +51,7 @@ def chunked_cross_entropy(unembed_fn, hidden: torch.Tensor,
     only its inputs (the reference's ``nothing_saveable`` remat), so the
     unembed GEMM and the fp32 softmax of one chunk at a time are live:
     peak memory O(B*chunk*V), not O(B*S*V)."""
+    hidden = constrain(hidden, ("batch", "seq", "embed"))
     b, s, d = hidden.shape
     # labels are already "next token": predict labels[t] from hidden[t]
     chunk = min(chunk, s)
@@ -64,7 +68,8 @@ def chunked_cross_entropy(unembed_fn, hidden: torch.Tensor,
     for i in range(nc):
         args = (unembed_fn, hs[:, i], ys[:, i])
         if torch.is_grad_enabled():
-            loss_sum, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+            loss_sum, n = checkpoint(carry_mesh(_chunk_loss), *args,
+                                     use_reentrant=False)
         else:
             loss_sum, n = _chunk_loss(*args)
         tot, cnt = tot + loss_sum, cnt + n

@@ -12,10 +12,20 @@ Features:
   * step-time watchdog: logs straggler steps (> 3 x median)
 
 The step's one host sync is the read of its metrics (the reference's
-``device_get``).  The reference's ``mesh`` / ``state_shardings`` /
-``batch_shardings`` shard the step over devices; the port runs on one
-card, and those arguments raise ``NotImplementedError`` (ROADMAP item 14e
-and item 7 part 3).
+``device_get``).
+
+Sharded training: ``mesh`` (a ``DeviceMesh`` of :mod:`repro_torch.launch.
+mesh`) with ``state_shardings`` (``{"params": param_shardings(...), "opt":
+opt_state_shardings(...)}``) places the state as DTensors at
+:meth:`Trainer.init_or_resume` and again after every step (the
+reference's ``out_shardings``); ``batch_shardings`` places each batch
+(without it the batch stays a plain tensor, taken as replicated, and the
+models' ``constrain`` shards it, as the reference's unspecified input
+sharding does).  The step runs under ``activation_mesh(mesh, mode)``, the
+mode the one installed around the run (``launch/train.py`` installs
+``--mode``, as the reference's launcher does).
+Checkpoints hold the full tensors (every rank gathers; rank 0 writes), so
+either package, sharded or not, resumes them.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.registry import Model
 from repro_torch.train import step as step_lib
 
@@ -48,17 +59,17 @@ class Trainer:
         extra_batch: Optional[Callable[[int], dict]] = None,
         device: DeviceLike = None,
     ):
-        if (mesh is not None or state_shardings is not None
-                or batch_shardings is not None):
-            raise NotImplementedError(
-                "a sharded train step needs the LM sharding rules and "
-                "several cards (ROADMAP item 14e and item 7 part 3); the "
-                "port trains on one card")
+        if (state_shardings is not None or batch_shardings is not None) \
+                and mesh is None:
+            raise ValueError("state or batch shardings need their mesh")
         self.model = model
         self.tc = tc
         self.stream = stream
         self.extra_batch = extra_batch
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.state_shardings = state_shardings
+        self.batch_shardings = batch_shardings
         self._preempted = False
         self.step_times: list[float] = []
         self.step_fn = step_lib.make_train_step(model, tc)
@@ -95,23 +106,54 @@ class Trainer:
             if latest is not None:
                 state = self.ckpt.restore(latest, state)
                 start_step = latest
-        return state, start_step
+        return self._placed(state), start_step
+
+    def _placed(self, state: dict) -> dict:
+        """``state`` as DTensors placed by ``state_shardings`` (as it is
+        without them)."""
+        if self.state_shardings is None:
+            return state
+        return shd.distribute(state, self.state_shardings)
+
+    def _save(self, step: int, state: dict) -> None:
+        """Checkpoint the full tensors: every rank gathers, rank 0
+        writes."""
+        import torch.distributed as dist
+
+        if self.mesh is not None:
+            state = shd.full_tensor(state)
+            if dist.get_rank() != 0:
+                return
+        self.ckpt.save(step, state)
 
     def _device_batch(self, batch: dict) -> dict:
         """The host batch on the card: staged through pinned memory and
         copied without waiting, so the step's only sync stays its metrics
-        read."""
+        read; placed by ``batch_shardings`` where there are some."""
         if self.device.type != "cuda":
-            return {k: torch.as_tensor(v) for k, v in batch.items()}
-        return {k: torch.as_tensor(v).pin_memory().to(self.device,
-                                                      non_blocking=True)
-                for k, v in batch.items()}
+            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        else:
+            batch = {k: torch.as_tensor(v).pin_memory().to(
+                self.device, non_blocking=True) for k, v in batch.items()}
+        if self.batch_shardings is not None:
+            batch = shd.distribute(batch, {k: self.batch_shardings[k]
+                                           for k in batch})
+        return batch
+
+    def train_step(self, state: dict, batch: dict) -> tuple:
+        """One step under the trainer's activation mesh, in the sharding
+        mode installed at the time (the launcher's ``activation_mesh``);
+        the new state placed as the old."""
+        with shd.activation_mesh(self.mesh, shd.sharding_mode()):
+            state, metrics = self.step_fn(state, batch)
+            return self._placed(state), metrics
 
     @staticmethod
     def _host_metrics(metrics: dict) -> dict:
         """Every metric read to the host in one copy (numpy fp32
         scalars)."""
         keys = list(metrics)
+        metrics = shd.full_tensor(metrics)
         vals = torch.stack([metrics[k].detach().to(torch.float32)
                             for k in keys]).cpu().numpy()
         return dict(zip(keys, vals))
@@ -127,7 +169,7 @@ class Trainer:
             if self.extra_batch is not None:
                 batch = {**batch, **self.extra_batch(step)}
             batch = self._device_batch(batch)
-            state, metrics = self.step_fn(state, batch)
+            state, metrics = self.train_step(state, batch)
             metrics = self._host_metrics(metrics)
             dt = time.perf_counter() - t0
             self.step_times.append(dt)
@@ -145,14 +187,14 @@ class Trainer:
                     f"gnorm={float(metrics['grad_norm']):.2f} {dt*1e3:.0f}ms"
                 )
             if self.ckpt and (step + 1) % self.tc.checkpoint_every == 0:
-                self.ckpt.save(step + 1, state)
+                self._save(step + 1, state)
             if self._preempted:
                 log_fn(f"[preempt] caught signal at step {step}; checkpointing")
                 if self.ckpt:
-                    self.ckpt.save(step + 1, state)
+                    self._save(step + 1, state)
                     self.ckpt.wait()
                 return state, step + 1, metrics_hist
         if self.ckpt:
-            self.ckpt.save(step + 1, state)
+            self._save(step + 1, state)
             self.ckpt.wait()
         return state, step + 1, metrics_hist

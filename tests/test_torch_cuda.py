@@ -1488,3 +1488,83 @@ def test_lm_train_step_on_card_matches_cpu(dev):
     for g, w in zip(tree_leaves(got), tree_leaves(want)):
         assert g.device.type == "cuda" and g.dtype == w.dtype
         torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-5)
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A one-rank NCCL group (an in-memory store, no socket) and the
+    ``(1, 1)`` host mesh on it; the group is torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_host_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_trainer_on_one_rank_mesh_matches_unsharded(dev, nccl_mesh):
+    """smollm-360m's smoke config, one state carried into both: 3 steps
+    of the sharded ``Trainer`` (state placed by the rules, the step under
+    the activation mesh) equal the unsharded ``Trainer``'s losses and
+    parameters (fp32, rtol 1e-6); no hand-written kernel launches."""
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.train import Trainer, init_state
+
+    m = get_model(get_smoke_config("smollm-360m"))
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    stream = TokenStream(m.cfg.vocab_size, 8, 32, seed=0)
+    state = init_state(m, torch.Generator(device=dev).manual_seed(0))
+    quiet = lambda *a, **k: None
+    pshard = shd.param_shardings(m, nccl_mesh)
+    ssh = {"params": pshard, "opt": shd.opt_state_shardings(pshard, nccl_mesh)}
+    _build.reset_launches()
+    want, _, wh = Trainer(m, tc, stream, device=dev).run(
+        tree_map(torch.clone, state), 0, 3, log_fn=quiet)
+    tr = Trainer(m, tc, stream, mesh=nccl_mesh, state_shardings=ssh,
+                 device=dev)
+    got, _, gh = tr.run(shd.distribute(state, ssh), 0, 3, log_fn=quiet)
+    assert not +_build.launches
+    for g, w in zip(gh, wh):
+        assert float(g["loss"]) == pytest.approx(float(w["loss"]), rel=1e-6)
+    for g, w in zip(tree_leaves(shd.full_tensor(got)), tree_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "pixtral-12b",
+                                  "moonshot-v1-16b-a3b", "zamba2-7b",
+                                  "rwkv6-1.6b", "whisper-tiny"])
+def test_sharded_engine_on_one_rank_mesh_matches_unsharded(dev, nccl_mesh,
+                                                           arch):
+    """``ServeEngine`` with ``cache_shardings`` on the one-rank mesh: the
+    decode step still one CUDA graph, tokens equal the unsharded
+    engine's (one smoke config a family)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeEngine
+
+    m = get_model(get_smoke_config(arch))
+    params = m.init(torch.Generator(device=dev).manual_seed(0))
+    max_len = 48 + (m.cfg.num_image_tokens if m.cfg.family == "vlm" else 0)
+    rng = np.random.default_rng(0)
+    batch = [Request(rng.integers(0, m.cfg.vocab_size, 5 + i).astype(
+        np.int32), 6) for i in range(3)]
+    plain = ServeEngine(m, params, 2, max_len, device=dev).generate(
+        [Request(r.prompt, 6) for r in batch])
+    cache = m.init_cache(2, max_len, device="meta")
+    eng = ServeEngine(m, params, 2, max_len, device=dev,
+                      cache_shardings=shd.cache_shardings(m.cfg, cache,
+                                                          nccl_mesh))
+    got = eng.generate([Request(r.prompt, 6) for r in batch])
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in plain]
+    assert eng.decoder.graph is not None and eng.captures == 1
+    assert type(eng.decoder.static["pos"]).__name__ == "DTensor"

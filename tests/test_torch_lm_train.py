@@ -479,13 +479,29 @@ def test_preemption_checkpoint(tmp_path):
         assert a.equal(b)
 
 
-def test_sharded_training_is_not_ported():
+def test_sharded_training_is_not_ported(capsys):
+    """Sharded training, which raised NotImplementedError here before the
+    LM sharding rules were ported, now runs: shardings without their mesh
+    raise, a mesh larger than the group raises (and the launcher leaves no
+    group behind), and ``--mesh 1x1`` on a one-rank gloo group trains to
+    the unsharded launcher's losses."""
+    import torch.distributed as dist
+
     model, stream = _setup()
-    with pytest.raises(NotImplementedError, match="14e"):
-        Trainer(model, TrainConfig(), stream, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7 part 3"):
-        launch_train.main(["--arch", "smollm-360m", "--mesh", "2x1",
-                           "--device", "cpu"])
+    with pytest.raises(ValueError, match="mesh"):
+        Trainer(model, TrainConfig(), stream, state_shardings={},
+                device="cpu")
+    argv = ["--arch", "smollm-360m", "--steps", "3", "--device", "cpu"]
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        launch_train.main(argv + ["--mesh", "2x1"])
+    assert not dist.is_initialized()
+    capsys.readouterr()
+    launch_train.main(argv)
+    plain = capsys.readouterr().out.strip().splitlines()[-1]
+    launch_train.main(argv + ["--mesh", "1x1"])
+    sharded = capsys.readouterr().out.strip().splitlines()[-1]
+    assert not dist.is_initialized()
+    assert plain.startswith("done: steps 0..3") and sharded == plain
 
 
 def test_train_checkpoint_resume_serve(tmp_path):

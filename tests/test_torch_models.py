@@ -339,22 +339,50 @@ def test_router_top_k_equals_reference(arch, monkeypatch):
             assert srt[tok, k - 1] - srt[tok, k] < 1e-6, (arch, tok)
 
 
+_MOE_SHARDS = r"""
+import json, sys, torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+from repro_torch import configs
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import get_model, layers, moe
+cfg = configs.get_smoke_config("dbrx-132b")
+p = get_model(cfg).init(torch.Generator().manual_seed(0))
+lp = layers.layer(p["layers"], 0)["moe"]
+x = torch.randn(2, 4, cfg.d_model, generator=torch.Generator().manual_seed(1))
+taken = []
+real = moe._sharded_dispatch
+moe._sharded_dispatch = lambda *a: taken.append(1) or real(*a)
+with torch.no_grad(), shd.activation_mesh(make_mesh((2, 1), ("data", "model"))):
+    y, _ = moe.moe_mlp_layer(lp, x, cfg)
+    shard = y.to_local()
+with torch.no_grad():
+    want, _ = moe.moe_mlp_layer(lp, x[:1], cfg)
+print(json.dumps({"taken": len(taken), "shape": list(y.shape),
+                  "err": float((shard - want).abs().max())}))
+"""
+
+
 def test_moe_mesh_with_several_data_shards_raises():
-    cfg = configs.get_smoke_config("dbrx-132b")
-    m = get_model(cfg)
-    p = m.init(torch.Generator().manual_seed(0))
-    lp = layers.layer(p["layers"], 0)["moe"]
-    x = torch.zeros(2, 4, cfg.d_model)
+    """The reference's shard_map branch, once a NotImplementedError here,
+    is ported: on a fake 2-rank group with two data shards, the layer
+    takes the sharded dispatch, and rank 0's shard equals the local path
+    over its own tokens at the per-shard capacity."""
+    import json
+    import os
+    import subprocess
+    import sys
 
-    class Mesh:
-        axis_names = ("data", "model")
-        devices = np.empty((2, 1), dtype=object)
-
-    with pytest.raises(NotImplementedError, match="14e"):
-        moe.moe_mlp_layer(lp, x, cfg, mesh=Mesh())
-    Mesh.devices = np.empty((1, 2), dtype=object)  # one data shard: local
-    y, _ = moe.moe_mlp_layer(lp, x, cfg, mesh=Mesh())
-    assert y.shape == x.shape
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    out = subprocess.run([sys.executable, "-c", _MOE_SHARDS],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["taken"] == 1
+    assert res["shape"] == [2, 4, configs.get_smoke_config("dbrx-132b").d_model]
+    assert res["err"] < 1e-6
 
 
 # -- the reference's own checks (tests/test_models.py) on the port ------------
