@@ -166,6 +166,28 @@ Phases, each of which raises (exit code != 0, no result line) on failure:
    degraded batch, the fp32 decoder replayed once.  Each run prints its
    fault counters, steady tick and summary; the two traced windows of
    run 4 their idle shares (the other runs are not traced).
+4d. The mesh paths over a ``(cell, batch)`` grid of several entries
+   (``launch.mesh.CellMesh``; each entry a shard with its own staged
+   buffers and its own CUDA graph, every shard's replay launched before
+   any is read back).  Phase 4b's two closed loops (the 8 SISO cells for
+   20 TTIs, the 4 coupled MU SIC cells for 10), each on the grids (4, 1)
+   and (2, 2) that repeat cuda:0, the launch counts zeroed just before
+   each run and read just after: every (group, rung, lane bucket, grid
+   entry) step captured before the first TTI and none after, launches
+   equal to captures x replays, each kernel of the path launched and seen
+   in a CUPTI trace of ten replayed ticks; the trajectory (the report
+   outside its wall-clock fields and ``mesh_shape`` / ``n_filler_lanes``,
+   which follow the grid's lane buckets; every tick log; the job ids)
+   equal to phase 4b's one-device run's; and one served bucket's shards,
+   put back in lane order, equal to the one-device lane step on the whole
+   stack (CRC flags, payloads, iteration counts, LLRs and combined LLRs
+   bit for bit).  Then phase 4c's canonical fault schedule (run 2) on a
+   (2, 1) grid at lane bucket 2: its fault counts and its trajectory
+   equal run 2's.  Printed beside the one-device figures: the steady
+   tick, replays (one a shard) and captures per tick, the device's idle
+   share, then the ``nvidia-smi`` line.  With two or more cards the same
+   runs span the distinct cards; with one, a line says the grid repeated
+   one card.
 5. The blocks path, with the launch counts zeroed just before and read
    just after: the paper's three AI-PHY compute blocks (Fig. 10) at full
    width, each through its sequential plan (separate ops; the FC GEMM on
@@ -285,6 +307,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -300,6 +323,18 @@ ROOT = pathlib.Path(__file__).resolve().parent
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def free_card() -> None:
+    """Return the card's memory of everything no longer referenced: a
+    collection first, since models and schedulers left in reference
+    cycles hold their tensors until the collector runs (which a phase
+    that allocates few Python objects may not trigger), then the
+    allocator's cache."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi_line() -> str:
@@ -354,12 +389,19 @@ def host_us(fn, calls: int = 1000, chunk: int = 100) -> float:
 def _device_events(prof) -> list:
     """(name, microseconds) of every device-side event (kernels, copies)
     the profiler recorded; a user annotation's device range (e.g.
-    ``Optimizer.step``) spans kernels already counted and is left out."""
+    ``Optimizer.step``) spans kernels already counted and is left out.
+    Read from the profiler's raw records: building its event objects
+    (``prof.events()``) took ~10 s a window of 45k device events."""
     from torch.autograd import DeviceType
 
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        annotation = getattr(e, "is_user_annotation", None)
+        if e.device_type() != DeviceType.CUDA or (
+                annotation is not None and annotation()):
+            continue
+        out.append((e.name(), e.duration_ns() / 1e3))
+    return out
 
 
 def _trace(fn, reps: int) -> list:
@@ -437,16 +479,20 @@ def profile_window(sch, run, ticks) -> dict:
     derived0 = derived_launches(sch)
     steps0 = {id(st) for st in captured_steps(sch)}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: host-op records are not read here, and
+    # parsing them took ~30 s a mesh window (45k device events)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for name, us in _device_events(prof):
-        by_name[name] = by_name.get(name, 0.0) + us
+        t1 = time.perf_counter()
+        wall_us = (t1 - t0) * 1e6
+    t2 = time.perf_counter()
     events = _device_events(prof)
+    t3 = time.perf_counter()
+    by_name: dict = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
     check(bool(events), "the profiled ticks' trace holds no device event")
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -465,6 +511,7 @@ def profile_window(sch, run, ticks) -> dict:
         "derived_launches": dict(+(derived_launches(sch) - derived0)),
         "captures_in_window": len(new_steps),
         "top_device_ms": [(name[:60], us / 1e3) for name, us in top],
+        "trace_stop_s": t2 - t1, "trace_read_s": t3 - t2,
     }
 
 
@@ -1597,9 +1644,15 @@ def captured_steps(sch) -> list:
     the registry's one fp32 unfused step)."""
     if hasattr(sch, "runners"):
         return [st for r in sch.runners for st in r._steps.values()]
-    steps = [st for g in sch.groups for st in g._execs.values()]
-    steps += list(getattr(sch, "_ref_execs", {}).values())
+    steps = [st for g in sch.groups for st in _flat(g._execs.values())]
+    steps += _flat(getattr(sch, "_ref_execs", {}).values())
     return list({id(st): st for st in steps}.values())
+
+
+def _flat(shard_steps) -> list:
+    """A mesh's cached steps (one tuple a (group, rung, bucket): a step a
+    grid entry) as one list."""
+    return [st for steps in shard_steps for st in steps]
 
 
 def derived_launches(sch):
@@ -1991,12 +2044,14 @@ def check_mesh_lanes(sch, label: str, max_ticks: int = 10) -> dict:
 
     def record(gi, mcs, lanes, staged, stats, prefetch=None):
         first = not rec and len(lanes) >= 2
-        inputs = ({k: v.clone() for k, v in staged.items()}
+        (shard,) = staged  # one device: one shard
+        inputs = ({k: v.clone() for k, v in shard.staged.items()}
                   if first else None)
         nxt = orig(gi, mcs, lanes, staged, stats, prefetch)
         if first:
-            key = (mcs, sch._bucket(len(lanes)), slot_schema(staged))
-            out = sch.groups[gi]._execs[key].out
+            key = (mcs, sch._bucket(len(lanes)), slot_schema(shard.staged))
+            (step,) = sch.groups[gi]._execs[key]
+            out = step.out
             rec.update(gi=gi, mcs=mcs, n=len(lanes), inputs=inputs,
                        out={k: v.clone() for k, v in out.items()
                             if isinstance(v, torch.Tensor)})
@@ -2086,6 +2141,253 @@ def drive_mesh_open(dev) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the mesh paths over a (cell, batch) grid of several entries
+# ---------------------------------------------------------------------------
+
+GRID = "grid"
+GRID_SHAPES = ((4, 1), (2, 2))
+SUP_GRID_SHAPE = (2, 1)
+# report fields that follow the grid (the lane buckets are multiples of its
+# cell axis), besides the wall-clock ones
+GRID_FIELDS = ("mesh_shape", "n_filler_lanes")
+
+
+def grid_mesh(shape: tuple, devices: list):
+    """A ``CellMesh`` of ``shape`` over ``devices`` (repeated to fill it)."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import CellMesh
+
+    n = shape[0] * shape[1]
+    arr = np.empty(n, dtype=object)
+    arr[:] = [devices[i % len(devices)] for i in range(n)]
+    return CellMesh(arr.reshape(shape))
+
+
+def trajectory(sch, rep, faults: bool = False) -> dict:
+    """What a grid run must share with the one-device run: the report
+    outside its wall-clock and grid fields (and, with ``faults``, its
+    fault fields), every cell's tick log, the finalized and queued ids."""
+    import dataclasses
+
+    d = _strip_report(rep, faults)
+    for k in GRID_FIELDS:
+        d.pop(k)
+    return {"report": d,
+            "ticks": [[dataclasses.asdict(t) for t in loop.tick_log]
+                      for loop in sch.loops],
+            "finalized": sch.finalized_job_ids(),
+            "queued": sch.queued_job_ids()}
+
+
+def _replays(sch) -> int:
+    return sum(st.replays for st in captured_steps(sch))
+
+
+def check_grid_lanes(sch, one, label: str, max_ticks: int = 10) -> dict:
+    """One served grid bucket of at least two real lanes, every shard's
+    inputs and outputs recorded as the scheduler served it and put back in
+    lane order, against the one-device scheduler ``one``'s lane step of
+    the same (group, rung, bucket) on the whole stack: CRC flags, payload
+    bits, iteration counts, LLRs and combined LLRs bit for bit (the
+    largest ``h_hat`` difference printed)."""
+    import torch
+
+    from repro_torch.serve.exec_registry import slot_schema
+    from repro_torch.serve.runtime import BATCHED_KEYS
+
+    orig, rec = sch._dispatch, {}
+
+    def record(gi, mcs, lanes, staged, stats, prefetch=None):
+        first = not rec and len(lanes) >= 2
+        inputs = ([{k: v.clone() for k, v in sh.staged.items()}
+                   for sh in staged] if first else None)
+        nxt = orig(gi, mcs, lanes, staged, stats, prefetch)
+        if first:
+            key = (mcs, sch._bucket(len(lanes)), slot_schema(staged[0].staged))
+            outs = [{k: v.clone() for k, v in st.out.items()
+                     if isinstance(v, torch.Tensor)}
+                    for st in sch.groups[gi]._execs[key]]
+            rec.update(gi=gi, mcs=mcs, n=len(lanes), shards=list(staged),
+                       inputs=inputs, outs=outs,
+                       bucket=sch._bucket(len(lanes)))
+        return nxt
+
+    sch._dispatch = record
+    try:
+        for _ in range(max_ticks):
+            sch.tick()
+            if rec:
+                break
+    finally:
+        del sch._dispatch
+    check(bool(rec), f"{label}: no bucket of two real lanes in "
+          f"{max_ticks} ticks")
+
+    def whole(parts, key, dev):
+        """Shards' ``key`` put back as one (lanes, batch, ...) stack."""
+        rows = {}
+        for sh, part in zip(rec["shards"], parts):
+            v = part[key].to(dev)
+            for i, lane in enumerate(range(sh.lanes.start, sh.lanes.stop)):
+                rows.setdefault(lane, {})[sh.slots.start] = v[i]
+        return torch.stack([torch.cat([r[s] for s in sorted(r)])
+                            for _, r in sorted(rows.items())])
+
+    dev = one.device
+    first = rec["inputs"][0]
+    inputs = {}
+    for k in first:
+        if k in BATCHED_KEYS:
+            inputs[k] = whole(rec["inputs"], k, dev)
+        elif k == "noise_var":
+            inputs[k] = torch.cat([x[k].to(dev) for sh, x in
+                                   zip(rec["shards"], rec["inputs"])
+                                   if sh.slots.start == 0])
+        else:
+            inputs[k] = first[k].to(dev)
+    g1 = one.groups[rec["gi"]]
+    step = one.registry.acquire_pipeline_step(
+        g1.pipelines[rec["mcs"]], inputs, batch=one.batch_size,
+        lanes=rec["bucket"])
+    want = step(inputs)
+    torch.cuda.synchronize()
+    for k in ("crc_ok", "info_bits_hat", "decode_iters", "llr", "cw_llr"):
+        got = whole(rec["outs"], k, dev)
+        check(got.shape == want[k].shape and torch.equal(got, want[k]),
+              f"{label}: the grid's {k} differs from the one-device lane "
+              "step's on the same lanes")
+    got_h = whole(rec["outs"], "h_hat", dev)
+    return {"lanes": rec["bucket"], "real_lanes": rec["n"],
+            "shards": len(rec["shards"]),
+            "rung": g1.rungs[rec["mcs"]].name,
+            "h_hat_max_abs_err": float((got_h - want["h_hat"]).abs().max())}
+
+
+def drive_grid_mesh(label: str, specs, kw: dict, n_ticks: int, needs: tuple,
+                    mesh, one: dict, dev) -> tuple:
+    """One mesh path on ``mesh``: every (group, rung, lane bucket, grid
+    entry) step captured before the first TTI, the launch counts zeroed
+    just before the run and read just after, the run's trajectory equal to
+    the one-device run's (``one``), a bucket's lanes equal to the
+    one-device lane step's, ten replayed ticks under CUPTI; returns
+    (launches, traced launches, what to print)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ExecRegistry, MeshSlotScheduler
+
+    wall = {}
+    t0 = time.perf_counter()
+    sch = MeshSlotScheduler(specs(), mesh=mesh, prebuild=True,
+                            registry=ExecRegistry(), device=dev, **kw)
+    wall["build_and_capture_s"] = time.perf_counter() - t0
+    prebuilt = len(captured_steps(sch))
+    check(prebuilt == mesh.size * sum(
+        len(g.rungs) * len(sch._capture_buckets(g)) for g in sch.groups)
+        and all(len(sts) == mesh.size for g in sch.groups
+                for sts in g._execs.values()),
+          f"{label}: {prebuilt} steps prebuilt")
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    rep = sch.run(n_ticks)
+    launches = dict(_build.launches)
+    wall["run_s"] = time.perf_counter() - t0
+    replays = _replays(sch)
+    counts = check_mesh_run(sch, rep, launches, label, needs)
+    check(len(captured_steps(sch)) == prebuilt,
+          f"{label}: {len(captured_steps(sch)) - prebuilt} steps captured "
+          "in the run")
+    check(trajectory(sch, rep) == one["trajectory"],
+          f"{label}: the trajectory differs from the one-device run's")
+    t0 = time.perf_counter()
+    lanes = check_grid_lanes(sch, one["sch"], label)
+    wall["lanes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = trace_replayed_ticks(sch, label, needs)
+    wall["trace_s"] = time.perf_counter() - t0
+    out = {"mesh_shape": list(rep.mesh_shape),
+           "steady_tick_ms": counts["steady_tick_ms"],
+           "one_device_steady_tick_ms": one["counts"]["steady_tick_ms"],
+           "replays_per_tick": replays / rep.n_ticks,
+           "one_device_replays_per_tick": one["replays"] / n_ticks,
+           "buckets_per_tick": counts["replays_per_tick"],
+           "captures_per_tick": 0.0, "captures_before_first_tti": prebuilt,
+           "filler_lanes": rep.n_filler_lanes,
+           "one_device_filler_lanes": one["counts"]["filler_lanes"],
+           "device_idle_share": prof["device_idle_share"],
+           "one_device_idle_share": one["idle"],
+           "traced_wall_ms_per_tick": prof["wall_ms"] / prof["ticks"],
+           "lanes_vs_one_device": lanes, "wall": wall}
+    return launches, prof["traced_launches"], out
+
+
+def drive_grid_supervised(dev, devices: list, clean: dict) -> dict:
+    """Phase 4c's canonical fault schedule (run 2) on a (2, 1) grid at lane
+    bucket 2, the launch counts zeroed just before and read just after:
+    the counts equal the plan's, and the trajectory equals phase 4c's
+    clean one-device run's."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ExecRegistry, FixedBuckets, Supervisor
+
+    label = f"{SUP} {GRID} {SUP_GRID_SHAPE}"
+    t0 = time.perf_counter()
+    mesh = grid_mesh(SUP_GRID_SHAPE, devices)
+    sup = Supervisor(_sup_specs(), mesh=mesh, prebuild=True,
+                     registry=ExecRegistry(), device=dev,
+                     bucket_policy=FixedBuckets((SUP_GRID_SHAPE[0],)),
+                     fault_plan=clean["plan"], checkpoint_every=1, **SUP_KW)
+    pre = {id(st) for st in captured_steps(sup)}
+    _build.reset_launches()
+    rep = sup.run(clean["ticks"])
+    launches = dict(_build.launches)
+    check_supervised_run(sup, rep, launches, pre, label)
+    check(fault_counts(rep) == clean["counts"],
+          f"{label}: fault counts {fault_counts(rep)}, want "
+          f"{clean['counts']}")
+    check(trajectory(sup, rep, faults=True) == clean["trajectory"],
+          f"{label}: the trajectory differs from the clean run's")
+    return {"mesh_shape": list(rep.mesh_shape), "faults": fault_counts(rep),
+            "degradation_steps": sum(len(s) for s in
+                                     sup._ref_execs.values()),
+            "steady_tick_ms": rep.steady_tick_s * 1e3,
+            "one_device_steady_tick_ms": clean["steady_tick_ms"],
+            "launches": launches, "wall_s": time.perf_counter() - t0}
+
+
+def drive_grids(dev, one: dict, clean: dict) -> tuple:
+    """Phase 4d: each mesh path of phase 4b on the grids
+    :data:`GRID_SHAPES`, then the supervised cluster on
+    :data:`SUP_GRID_SHAPE`: over cuda:0 repeated on one card, and also
+    over the distinct cards where there are several.  Returns (launches by
+    path, traced launches by path, needs by path, what to print)."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    layouts = [("one card", [torch.device("cuda", 0)])]
+    if n_cards >= 2:
+        layouts.append((f"{n_cards} cards",
+                        [torch.device("cuda", i) for i in range(n_cards)]))
+    by_path, traced, needs_by, rows = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for where, devices in layouts:
+        for label, specs, kw, n_ticks, needs in MESH_PATHS:
+            for shape in GRID_SHAPES:
+                path = f"{label} {GRID} {shape} on {where}"
+                launches, tr, row = drive_grid_mesh(
+                    path, specs, kw, n_ticks, needs,
+                    grid_mesh(shape, devices), one[label], dev)
+                by_path[path], traced[path], needs_by[path] = \
+                    launches, tr, needs
+                rows[path] = row
+        rows[f"{SUP} {GRID} {SUP_GRID_SHAPE} on {where}"] = \
+            drive_grid_supervised(dev, devices, clean)
+    rows["phase 4d wall_s"] = time.perf_counter() - t0
+    rows["cards"] = ("distinct cards and cuda:0 repeated" if n_cards >= 2
+                     else "one card visible: every grid entry repeated "
+                     "cuda:0; placement on distinct cards not run")
+    return by_path, traced, needs_by, rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: supervised fault-tolerant serving
 # ---------------------------------------------------------------------------
 
@@ -2164,11 +2466,10 @@ def _record(sch) -> dict:
                              if hasattr(sch, "_tick_t0") else None)})
         return dispatch(gi, mcs, lanes, staged, stats, prefetch)
 
-    def record_feedback(lanes, mcs, state, stats):
-        crc = state["crc_ok"][:len(lanes)].cpu().numpy()
+    def record_feedback(lanes, mcs, crc_ok, cw_llr, stats):
         for li, lane in enumerate(lanes):
-            log["crc"][(sch.now, lane.cell_idx)] = crc[li].tolist()
-        return feedback(lanes, mcs, state, stats)
+            log["crc"][(sch.now, lane.cell_idx)] = crc_ok[li].tolist()
+        return feedback(lanes, mcs, crc_ok, cw_llr, stats)
 
     sch._dispatch, sch._feedback = record_dispatch, record_feedback
     return log
@@ -2333,9 +2634,9 @@ def trace_degraded_dispatch(sup, gi8: int, max_ticks: int = 10) -> dict:
             return inner(gi, mcs, lanes, staged, stats, prefetch)
         armed[0] = False
         bucket = sup._bucket(len(lanes))
-        ref = sup._ref_step(gi, mcs, bucket, staged)
+        (ref,) = sup._ref_step(gi, mcs, bucket, staged)
         check(all("ldpc_decode" not in st.launch_delta
-                  for st in sup.groups[gi]._execs.values()),
+                  for st in _flat(sup.groups[gi]._execs.values())),
               f"{SUP}: an int8 step launches the fp32 decoder")
         sup.injector = FaultInjector(FaultPlan([FaultEvent(
             "nan_llr", tick=sup.now, seq=sup._seq,
@@ -2397,7 +2698,8 @@ def trace_degraded_dispatch(sup, gi8: int, max_ticks: int = 10) -> dict:
 def drive_supervised_paths(dev) -> tuple:
     """Phase 4c: the 4-cell cluster in five runs (see the module doc);
     returns (the launches of the transparent-fault run, the CUPTI traces
-    of its clean ticks and of a degraded dispatch, what to print)."""
+    of its clean ticks and of a degraded dispatch, what to print, run 2's
+    plan and clean trajectory for phase 4d)."""
     from repro_torch.kernels import _build
     from repro_torch.serve import (
         FaultEvent, FaultPlan, MeshSlotScheduler, Supervisor,
@@ -2486,6 +2788,10 @@ def drive_supervised_paths(dev) -> tuple:
                          ticks_over_budget=0, cell_quarantines=0,
                          crashes=1, recoveries=1, jobs_failed=0),
           f"{label}: fault counts {counts}")
+    # what phase 4d holds the (2, 1) grid's run of the same plan to
+    clean = {"plan": plan, "ticks": 20, "counts": counts,
+             "trajectory": trajectory(base, base_rep, faults=True),
+             "steady_tick_ms": rep.steady_tick_s * 1e3}
     # one degradation step per degraded (group, rung, lane bucket), each
     # captured once per (rung scenario, bucket): both groups' fp32 unfused
     # chain is the same step
@@ -2500,11 +2806,12 @@ def drive_supervised_paths(dev) -> tuple:
     # the int8 group launches the fp32 decoder only through its
     # degradation step, and at least once
     gi8 = sup.groups.index(sup._group_of[INT8_CELLS[0]])
-    ref8 = [st for (gi, _, _), st in sup._ref_execs.items() if gi == gi8]
+    ref8 = [st for (gi, _, _), sts in sup._ref_execs.items() if gi == gi8
+            for st in sts]
     check(all("ldpc_decode" not in st.launch_delta
-              for st in sup.groups[gi8]._execs.values())
+              for st in _flat(sup.groups[gi8]._execs.values()))
           and all(set(st.launch_delta) == {"ldpc_decode"}
-                  for st in sup._ref_execs.values())
+                  for st in _flat(sup._ref_execs.values()))
           and sum(st.replays for st in ref8) >= 1,
           f"{label}: the int8 group's fp32 decoder ran outside its "
           "degradation step, or not at all")
@@ -2588,7 +2895,7 @@ def drive_supervised_paths(dev) -> tuple:
     t0 = time.perf_counter()
     out["run 5 SupervisedBatchRunner"] = check_supervised_runner(dev)
     out["run 5 SupervisedBatchRunner"]["wall_s"] = time.perf_counter() - t0
-    return launches, prof, deg, out
+    return launches, prof, deg, out, clean
 
 
 # ---------------------------------------------------------------------------
@@ -3465,7 +3772,7 @@ def drive_lm_full(dev, arch: str, layers, text: int) -> dict:
     n_img = cfg.num_image_tokens if cfg.family == "vlm" else 0
     seq = text + n_img  # the positions a prompt fills in the cache
     f32 = {"compute_dtype": "float32"}
-    torch.cuda.empty_cache()
+    free_card()
     torch.cuda.reset_peak_memory_stats()
     row = {"model": arch, "layers": cfg.num_layers,
            "published_layers": published.num_layers, "batch": LM_BATCH,
@@ -3479,7 +3786,7 @@ def drive_lm_full(dev, arch: str, layers, text: int) -> dict:
             cut = _lm_model(dev, cfg.replace(num_layers=n, **f32), seq)
             by_depth[n] = _lm_consistency(*cut, seq, dev)
             del cut
-            torch.cuda.empty_cache()
+            free_card()
         if by_depth:
             row["consistency_layers"] = min(by_depth)
             row["consistency_err_over_scale"] = by_depth[min(by_depth)]
@@ -3556,7 +3863,7 @@ def drive_lm_full(dev, arch: str, layers, text: int) -> dict:
     row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     row["wall_s"] = time.perf_counter() - t0
     del m, params, batch
-    torch.cuda.empty_cache()
+    free_card()
     return row
 
 
@@ -3705,7 +4012,7 @@ def drive_lm_train_lifecycle(dev) -> tuple:
     shutil.rmtree(ckpt, ignore_errors=True)
     tc = _lmt_config(microbatches=LMT_MICRO, checkpoint_every=10,
                      async_checkpoint=False, checkpoint_dir=str(ckpt))
-    torch.cuda.empty_cache()
+    free_card()
     torch.cuda.reset_peak_memory_stats()
     log = []
     try:
@@ -3798,7 +4105,7 @@ def drive_lm_train_lifecycle(dev) -> tuple:
         "served_tokens": len(served), "log": log,
     }
     del box, tr, tr2, tr3
-    torch.cuda.empty_cache()
+    free_card()
     return summary, trace
 
 
@@ -3834,7 +4141,7 @@ def check_lm_microbatches(dev) -> dict:
           f"{LMT} (b): updated parameters differ by {worst:.3g} of a leaf's "
           "largest value")
     del state, out4, p1
-    torch.cuda.empty_cache()
+    free_card()
     return {"loss_mb1": l1, "loss_mb4": l4,
             "loss_rel_err": abs(l1 - l4) / abs(l1),
             "param_err_over_leaf_max": worst}
@@ -3855,7 +4162,7 @@ def drive_lm_moe_train(dev) -> dict:
     arch, layers, b, s, steps = LMT_MOE
     cfg = get_config(arch).replace(num_layers=layers)
     m = get_model(cfg)
-    torch.cuda.empty_cache()
+    free_card()
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(m, _lmt_config(), TokenStream(cfg.vocab_size, b, s),
                  device=dev)
@@ -3876,7 +4183,7 @@ def drive_lm_moe_train(dev) -> dict:
            "ms_per_step": step_s * 1e3, "tokens_per_s": b * s / step_s,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     del state, tr
-    torch.cuda.empty_cache()
+    free_card()
     return row
 
 
@@ -4253,10 +4560,14 @@ def main() -> int:
             print(f"host split {label} (not gated): "
                   f"{json.dumps(host_split(sch, dev))}", flush=True)
 
+    one_device = {}  # each mesh path's run, for phase 4d's grids
     for label, specs, kw, n_ticks, needs in MESH_PATHS:
         sch, rep, launches = drive_mesh(specs(), kw, n_ticks, dev)
         by_path[label] = launches
         counts = check_mesh_run(sch, rep, launches, label, needs)
+        one_device[label] = {"sch": sch, "counts": counts,
+                             "trajectory": trajectory(sch, rep),
+                             "replays": _replays(sch)}
         if label == MESH_HANDOVER:
             check(rep.handovers > 0, f"{label}: no user was handed over")
         print(f"path {label}: launches {launches}; {json.dumps(counts)}",
@@ -4269,6 +4580,7 @@ def main() -> int:
               f"ms, replays per tick {counts['replays_per_tick']:.3f}, "
               f"device idle share {prof['device_idle_share']:.4f}",
               flush=True)
+        one_device[label]["idle"] = prof["device_idle_share"]
         print(f"served {label} bucket, lane by lane vs single-cell steps: "
               f"{json.dumps(check_mesh_lanes(sch, label))}", flush=True)
     rep, launches, summary, prof = drive_mesh_open(dev)
@@ -4279,7 +4591,7 @@ def main() -> int:
     print(rep.summary(), flush=True)
     print(f"profiled {MESH_OPEN} run: {json.dumps(prof)}", flush=True)
 
-    launches, prof, deg, runs = drive_supervised_paths(dev)
+    launches, prof, deg, runs, clean = drive_supervised_paths(dev)
     by_path[SUP] = launches
     # the clean ticks' trace and the degraded dispatch's
     traced_by_path[SUP] = dict(collections.Counter(prof["traced_launches"])
@@ -4292,6 +4604,21 @@ def main() -> int:
     print(f"path {SUP}: steady tick "
           f"{runs['run 2 transparent faults']['steady_tick_ms']:.3f} ms, "
           f"device idle share {prof['device_idle_share']:.4f}", flush=True)
+
+    grid_launches, grid_traced, grid_needs, grid_rows = drive_grids(
+        dev, one_device, clean)
+    # the mesh schedulers hold CUDA graphs and staged buffers in reference
+    # cycles: free them before the LM phases' large models
+    del one_device, sch, rep, clean
+    free_card()
+    grid_rows["card_memory_allocated_gb_after_4d"] = \
+        torch.cuda.memory_allocated() / 1e9
+    by_path.update(grid_launches)
+    traced_by_path.update(grid_traced)
+    for path, row in grid_rows.items():
+        print(f"{path}: {json.dumps(row)}", flush=True)
+    print(f"phase 4d ({GRID}): {grid_rows['cards']} | {nvidia_smi_line()}",
+          flush=True)
 
     ops_in = _blocks_operands(dev)
     plans, quantized, launches = drive_blocks(dev, ops_in)
@@ -4401,6 +4728,7 @@ def main() -> int:
     needs_by_path = {label: needs for label, *_, needs in PATHS}
     needs_by_path.update({label: needs for label, *_, needs in MESH_PATHS})
     needs_by_path[MESH_OPEN] = MESH_OPEN_NEEDS
+    needs_by_path.update(grid_needs)
     needs_by_path[SUP] = SUP_NEEDS
     needs_by_path[BLOCKS] = BLOCKS_NEEDS
     needs_by_path[TRAIN] = TRAIN_NEEDS

@@ -33,18 +33,20 @@ wherever no tensor is placed.
 **PHY placement.**  The reference stacks a shape group's slots as
 ``(cell, batch, ...)`` arrays and shards them over a ``(cell, batch)``
 device mesh, every key with its own lane axis (a lane's side info
-included).  The port folds the lanes into the kernels' batch axis on the
-mesh's one device (:class:`repro_torch.launch.mesh.CellMesh`), so
-:func:`cell_slot_placement` places:
+included).  The port's mesh is a grid of local devices
+(:class:`repro_torch.launch.mesh.CellMesh`); :func:`cell_slot_placement`
+cuts the stack into one :class:`LaneShard` a grid entry (the lanes over
+``cell``, each lane's slots over ``batch``) and places on the entry's
+device:
 
 * the batched keys as ``(lanes, batch, ...)``, lane-major and contiguous
-  on the device (host arrays, such as the HARQ priors, go through pinned
-  memory with ``non_blocking=True``), so a step can view them as
-  ``(lanes * batch, ...)``;
+  (host arrays, such as the HARQ priors, go through pinned memory with
+  ``non_blocking=True``), so the entry's step can view them as
+  ``(lanes * batch, ...)``: its lanes fold into its kernels' batch axis;
 * ``noise_var`` as an ``(L,)`` float32 tensor, one value per lane;
 * every other key, side info that is grid-static inside a shape group
   (``pilot_seq``, ``pilot_masks``, ``data_mask``), once: it must be equal
-  across lanes.
+  across the shard's lanes.
 
 The equality check runs on the device.  Reading its result synchronizes,
 so a caller that overlaps staging with a running step passes ``pending=``
@@ -481,39 +483,40 @@ def _to_device(v, dev: torch.device) -> torch.Tensor:
     return v.to(dev).contiguous()
 
 
-def cell_slot_placement(slot: dict, mesh, batched_keys: tuple = (), *,
-                        pending: Optional[list] = None) -> dict:
-    """Place a ``(lanes, ...)``-stacked slot dict on ``mesh``'s device.
+@dataclasses.dataclass
+class LaneShard:
+    """One grid entry's share of a staged step: the lanes ``lanes`` and,
+    of each, the slots ``slots``, staged on ``device``."""
+    entry: tuple  # (row, column) of the grid
+    device: torch.device
+    lanes: slice
+    slots: slice
+    staged: dict
 
-    Keys in ``batched_keys`` carry ``(lanes, batch)`` leading dims and stay
-    so; ``noise_var`` (one value per lane) becomes ``(L,)``; every other
-    key is per-lane side info that must agree across lanes and is placed
-    once.  The agreement is checked here (``pending=None``) or appended to
-    ``pending`` as a :class:`LaneCheck` for the caller to verify after its
-    next synchronize.  A mesh over several devices raises
-    ``NotImplementedError``."""
-    dev = mesh.single_device("placing a multi-cell step")
-    lead = [np.shape(slot[k]) for k in batched_keys if k in slot]
-    if not lead or not lead[0]:
-        raise ValueError("a staged step needs a (lanes, batch, ...) key")
-    n_lanes = lead[0][0]
+
+def _split(n: int, parts: int) -> list:
+    """``n`` rows split over ``parts`` grid entries: equal shares where
+    ``parts`` divides ``n``, else whole on the first entry (the
+    reference's ``spec_for`` fallback, without computing the same rows on
+    every entry)."""
+    if n % parts:
+        return [slice(0, n)]
+    k = n // parts
+    return [slice(i * k, (i + 1) * k) for i in range(parts)]
+
+
+def _place_shard(slot: dict, batched_keys: tuple, dev: torch.device,
+                 lanes: slice, slots: slice, pending: Optional[list]
+                 ) -> dict:
+    n_lanes = lanes.stop - lanes.start
     out, keys, flags = {}, [], []
     for k, v in slot.items():
-        v = _to_device(v, dev)
         if k in batched_keys:
-            if v.ndim < 2 or v.shape[0] != n_lanes:
-                raise ValueError(f"{k!r}: {tuple(v.shape)} is not a "
-                                 f"({n_lanes}, batch, ...) lane stack")
-            out[k] = v
+            out[k] = _to_device(v[lanes, slots], dev)
         elif k == NOISE_KEY:
-            out[k] = v.to(torch.float32).reshape(-1)
-            if out[k].numel() != n_lanes:
-                raise ValueError(f"noise_var holds {out[k].numel()} values "
-                                 f"for {n_lanes} lanes")
+            out[k] = _to_device(v[lanes], dev).to(torch.float32)
         else:
-            if not v.ndim or v.shape[0] != n_lanes:
-                raise ValueError(f"side info {k!r}: {tuple(v.shape)} has no "
-                                 f"lane axis of {n_lanes}")
+            v = _to_device(v[lanes], dev)
             if n_lanes > 1:
                 keys.append(k)
                 flags.append(torch.all(v == v[:1]))
@@ -524,3 +527,47 @@ def cell_slot_placement(slot: dict, mesh, batched_keys: tuple = (), *,
     else:
         pending.append(check)
     return out
+
+
+def cell_slot_placement(slot: dict, mesh, batched_keys: tuple = (), *,
+                        pending: Optional[list] = None) -> list:
+    """Place a ``(lanes, ...)``-stacked slot dict on ``mesh``'s grid (the
+    port's counterpart of the reference's ``cell_slot_shardings`` +
+    ``device_put``): one :class:`LaneShard` a grid entry that holds rows.
+
+    The lanes split over the ``cell`` axis and each lane's slots over the
+    ``batch`` axis; an axis that does not divide its rows leaves them
+    whole on the first entry of its row or column (:func:`_split`).  Keys
+    in ``batched_keys`` carry ``(lanes, batch)`` leading dims and keep
+    them; ``noise_var`` (one value per lane) travels with its lanes as
+    ``(L,)``; every other key is per-lane side info that must agree across
+    a shard's lanes and is placed once.  The agreement is checked here
+    (``pending=None``) or appended to ``pending``, one :class:`LaneCheck`
+    a shard, for the caller to verify after its next synchronize."""
+    lead = [tuple(np.shape(slot[k])) for k in batched_keys if k in slot]
+    if not lead or len(lead[0]) < 2:
+        raise ValueError("a staged step needs a (lanes, batch, ...) key")
+    n_lanes, batch = lead[0][:2]
+    for k, v in slot.items():
+        shape = tuple(np.shape(v))
+        if k in batched_keys:
+            if shape[:2] != (n_lanes, batch):
+                raise ValueError(f"{k!r}: {shape} is not a ({n_lanes}, "
+                                 f"{batch}, ...) lane stack")
+        elif k == NOISE_KEY:
+            if math.prod(shape) != n_lanes:
+                raise ValueError(f"noise_var holds {math.prod(shape)} "
+                                 f"values for {n_lanes} lanes")
+        elif not shape or shape[0] != n_lanes:
+            raise ValueError(f"side info {k!r}: {shape} has no lane axis "
+                             f"of {n_lanes}")
+    slot = {k: (np.reshape(v, -1) if isinstance(v, np.ndarray)
+                else torch.as_tensor(v).reshape(-1))
+            if k == NOISE_KEY else v for k, v in slot.items()}
+    return [
+        LaneShard((i, j), mesh.devices[i, j], ls, ss,
+                  _place_shard(slot, batched_keys, mesh.devices[i, j],
+                               ls, ss, pending))
+        for i, ls in enumerate(_split(n_lanes, mesh.cell))
+        for j, ss in enumerate(_split(batch, mesh.batch))
+    ]

@@ -507,12 +507,16 @@ def _comb_extract(y, pilot_symbols: tuple, pilot_stride: int, n_tx: int):
 def ls_che_torch(y, pilot_symbols: tuple, pilot_stride: int, op):
     """Plain PyTorch twin of the fused LS-CHE kernel.
     y (B, n_sym, n_sc, n_rx), op (n_tx, n_p, n_sc)
-    -> H (B, n_sc, n_rx, n_tx)."""
+    -> H (B, n_sc, n_rx, n_tx).  The product is a multiply and a sum
+    over the pilots, so a row's result does not depend on the batch
+    (a GEMM's rounding does, on the CPU below four rows), as the kernel's
+    does not."""
     n_tx = op.shape[0]
     comb = torch.mean(
         _comb_extract(y, pilot_symbols, pilot_stride, n_tx), dim=1
     )  # (B, n_tx, n_p, n_rx)
-    return torch.einsum("btpr,tps->bsrt", comb, op)
+    h = torch.sum(comb[:, :, :, None, :] * op[None, :, :, :, None], dim=2)
+    return h.permute(0, 2, 3, 1)  # (B, t, s, r) -> (B, s, r, t)
 
 
 def _ls_lib():

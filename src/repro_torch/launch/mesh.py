@@ -20,12 +20,13 @@ Multi-cell PHY serving (:mod:`repro_torch.serve.cell_mesh`) lays its steps
 out on a ``(cell, batch)`` grid of local devices: one logical lane per
 cell, the slots of a lane data-parallel.  The reference builds a JAX
 device mesh and shards the staged ``(lanes, batch, ...)`` arrays over it.
-The port folds the lanes into the kernels' batch axis on one device
-instead, so its cell mesh is a plain record of that grid: a
-:class:`CellMesh`, not a ``DeviceMesh``, which would need a process group
-that a single-process server does not have.  The schedulers serve a mesh
-of one device; lanes across several cards are ``ROADMAP.md`` queue 1,
-item 7 part 3.
+The port's cell mesh is a plain record of that grid, a :class:`CellMesh`
+(not a ``DeviceMesh``, which would need a process group that a
+single-process server does not have): each grid entry is a shard of its
+own, with its own staged buffers and its own captured step, and the
+lanes of a shard fold into its kernels' batch axis.  A grid may name one
+device more than once (a JAX mesh cannot): on one card that is how the
+grid path runs (``ROADMAP.md`` queue 1, item 7 part 3).
 """
 from __future__ import annotations
 
@@ -95,7 +96,8 @@ def make_host_mesh(model_axis: int = 1):
 class CellMesh:
     """A ``(cell, batch)`` grid of local devices: ``devices`` is an object
     array of that shape (``devices.shape`` is the mesh shape, as a JAX
-    mesh's is)."""
+    mesh's is).  Every entry is a shard of its own, even where two
+    entries name the same device."""
     devices: np.ndarray
     axis_names: tuple = AXES
 
@@ -107,23 +109,36 @@ class CellMesh:
     def size(self) -> int:
         return int(self.devices.size)
 
-    def single_device(self, what: str = "multi-cell serving"
-                      ) -> torch.device:
-        """The mesh's one device; raise ``NotImplementedError`` for a mesh
-        over several (lanes across cards are not ported)."""
-        if self.size != 1:
-            raise NotImplementedError(
-                f"{what} on a {self.shape[0]}x{self.shape[1]} mesh of "
-                f"{self.size} devices: the port folds lanes into one "
-                "device's batch axis; lanes across several cards are "
-                "ROADMAP.md queue 1, item 7 part 3, which waits for a "
-                "machine with two cards")
-        return self.devices.flat[0]
+    @property
+    def cell(self) -> int:
+        """Entries along the ``cell`` axis (the lanes' split)."""
+        return int(self.devices.shape[0])
+
+    @property
+    def batch(self) -> int:
+        """Entries along the ``batch`` axis (each lane's slots' split)."""
+        return int(self.devices.shape[1])
+
+    @property
+    def home(self) -> torch.device:
+        """Entry ``(0, 0)``'s device: where the schedulers draw slots and
+        keep the cells' state."""
+        return self.devices[0, 0]
+
+    def distinct_devices(self) -> list:
+        """The grid's devices, each once, in entry order."""
+        out: list = []
+        for d in self.devices.flat:
+            if d not in out:
+                out.append(d)
+        return out
 
 
 def local_devices(device: DeviceLike = None) -> list:
     """The local devices a mesh on ``device`` may span (None -> CUDA): every
-    visible card for ``cuda`` without an index, else that one device."""
+    visible card for ``cuda`` without an index, else that one device.  So
+    with two or more cards the schedulers' default mesh spans them all,
+    as the reference's spans ``jax.devices()``."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         return [torch.device("cuda", i)
@@ -139,7 +154,7 @@ def make_cell_mesh(n_cells: int, device: DeviceLike = None, *,
 
     The reference's rule: the ``cell`` axis gets the largest device-count
     divisor that also divides ``n_cells``, the rest go to ``batch``.  On
-    one device it is ``(1, 1)``."""
+    one device it is ``(1, 1)``; ``devices`` may repeat a device."""
     devs = list(devices) if devices is not None else local_devices(device)
     if not devs:
         raise ValueError("a cell mesh needs at least one device")

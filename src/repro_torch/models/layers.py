@@ -128,6 +128,26 @@ def _gqa_reshape(q: torch.Tensor, num_kv_heads: int) -> torch.Tensor:
     return q.reshape(b, s, num_kv_heads, h // num_kv_heads, d)
 
 
+def _heads_whole(b: int, *ts: torch.Tensor) -> tuple:
+    """``ts`` (B, S, heads, D) with their heads whole on every rank where
+    the activation mesh's ``model`` axis does not divide the batch ``b``
+    (else as they are).  The attention einsums flatten batch x heads, and
+    DTensor cannot unflatten a model-sharded product whose leading batch
+    the axis does not divide; the other placements are kept."""
+    if _divides_model_axis(b):
+        return ts
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def whole(t):
+        if not isinstance(t, DTensor):
+            return t
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+              for p in t.placements]
+        return t.redistribute(t.device_mesh, pl)
+
+    return tuple(whole(t) for t in ts)
+
+
 def _merge_heads(out: torch.Tensor, b: int, s: int, h: int, d: int,
                  kh: int) -> torch.Tensor:
     """(B, S, KH, G, D) -> (B, S, H, D).  Where :func:`_gqa_reshape`
@@ -186,6 +206,7 @@ def chunked_attention(
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
     scale = d**-0.5
+    q, k, v = _heads_whole(b, q, k, v)
     qr = _gqa_reshape(q, kh).to(F32) * scale  # (B,Sq,KH,G,D)
 
     chunk_size = min(chunk_size, sk)
@@ -234,6 +255,7 @@ def decode_attention(
     b, _, h, d = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     scale = d**-0.5
+    q, k_cache, v_cache = _heads_whole(b, q, k_cache, v_cache)
     qr = _gqa_reshape(q, kh).to(F32) * scale  # (B,1,KH,G,D)
     scores = torch.einsum("bqhgd,bshd->bqhgs", qr, k_cache.to(F32))
     kpos = torch.arange(s, dtype=torch.int32, device=q.device)

@@ -147,6 +147,10 @@ def moe_mlp_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
         if not (dp > 1 and t % dp == 0):  # the tokens form one shard
             dp_axes = ()
         y = _sharded_dispatch(p, xt, idx, gate, cfg, serving, mesh, dp_axes)
+        if dp_axes and b % dp:
+            # the tokens split over the data shards but the rows do not:
+            # gather them, as DTensor cannot unflatten the rows
+            y = _tokens_whole(y)
     else:
         x_disp, soa = _dispatch_local(cfg, xt, idx, t, e, k, serving)
         y_e = _expert_ffn(p, x_disp.to(dt), cfg)
@@ -156,6 +160,16 @@ def moe_mlp_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
         y = y + L.mlp_layer(p["shared"], xt[None], cfg).reshape(t, d)
 
     return y.reshape(b, s, d).to(dt), aux_loss
+
+
+def _tokens_whole(y):
+    """``y`` (T, D) with its tokens whole on every rank (its other
+    placements kept)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if isinstance(q, Shard) and q.dim == 0 else q
+          for q in y.placements]
+    return y.redistribute(y.device_mesh, pl)
 
 
 def _placements_on(mesh, dims: dict) -> tuple:

@@ -99,7 +99,10 @@ def mmse_channel_estimate(
     With L noise values there is one (n_sc, n_sc) operator per lane, and
     lane l's operator smooths its B / L rows.  Each lane's solve and
     product are the one-value computation at that lane's shapes, so a
-    lane's rows come out as a step of its own would give them."""
+    lane's rows come out as a step of its own would give them.  The
+    product is a multiply and a sum over ``k``, not a GEMM: a GEMM's
+    rounding depends on its row count (on the CPU below four rows), and a
+    lane's rows must not depend on how many of them a grid entry holds."""
     n_sc = h_ls.shape[-1]
     ar = torch.arange(n_sc, device=h_ls.device)
     d = torch.abs(ar[:, None] - ar[None, :])
@@ -110,7 +113,7 @@ def mmse_channel_estimate(
         raise ValueError(f"{nv.numel()} noise values for {h_ls.shape[0]} "
                          "rows: 1 value, or one per lane of an equal share")
     # w (n_sc, n_sc) per lane, applied as sum_k w[s, k] h[b, k]
-    out = [torch.einsum("sk,bk->bs", _solve(r + v * eye, r), h_l)
+    out = [torch.sum(_solve(r + v * eye, r)[None] * h_l[:, None, :], dim=-1)
            for v, h_l in zip(nv, h_ls.reshape(nv.numel(), -1, n_sc))]
     return out[0] if len(out) == 1 else torch.cat(out)
 

@@ -1,5 +1,5 @@
-"""Multi-cell PHY slot serving on one device (port of
-:mod:`repro.serve.cell_mesh`).
+"""Multi-cell PHY slot serving over a ``(cell, batch)`` grid of devices
+(port of :mod:`repro.serve.cell_mesh`).
 
 The paper places TensorPool inside a densified base-station fleet: one
 compute cluster multiplexes many cells' uplink traffic.  This module
@@ -18,18 +18,23 @@ Execution model
 * A group step stages its slots as ``(n_lanes, batch, ...)``: one lane per
   cell (or per share of a hot cell), each lane with its own ``noise_var``.
   The reference runs ``jit(vmap(pipeline._apply))`` over that stack,
-  sharded over a ``(cell, batch)`` device mesh.  The port folds the lanes
-  into the kernels' batch axis on the mesh's one device
-  (:func:`repro_torch.serve.exec_registry.lane_step`): the kernels see
-  ``lanes * batch`` rows, the stages that read the noise variance read
-  row ``b``'s lane value, and each (group, rung, lane bucket) step is one
-  CUDA graph of the registry (:mod:`repro_torch.serve.exec_registry`).
-  A lane's numbers are those of the single-cell step on its slots.
+  sharded over a ``(cell, batch)`` device mesh.  The port cuts the stack
+  into one shard a grid entry (the lanes over ``cell``, each lane's slots
+  over ``batch``: :func:`repro_torch.distributed.sharding.
+  cell_slot_placement`) and folds each shard's lanes into its kernels'
+  batch axis (:func:`repro_torch.serve.exec_registry.lane_step`): the
+  kernels see ``lanes * batch`` rows, the stages that read the noise
+  variance read row ``b``'s lane value, and each (group, rung, lane
+  bucket, grid entry) step is one CUDA graph of the registry
+  (:mod:`repro_torch.serve.exec_registry`) on the entry's device, from
+  the pipeline built for that device.  Every shard's replay is launched
+  before any is read back, so separate cards run at once; the host then
+  reads each shard once and puts the rows back in lane order.  A lane's
+  numbers are those of the single-cell step on its slots.
 * **Staging overlaps the device**: a step is replayed, then the host
   stacks the next step's slots (the HARQ priors, host arrays, go to the
   card from pinned memory without blocking), then the host synchronizes
-  and reads the results (:func:`repro_torch.distributed.sharding.
-  cell_slot_placement`).
+  and reads the results.
 * A **load-imbalance policy** keeps lanes busy: ``balance="steal"`` gives
   lanes to the cells with the longest queues each step (a hot cell may
   take several lanes); ``balance="pad"`` keeps one lane per cell and pads
@@ -49,9 +54,10 @@ Two frontends share this execution model:
   ladder group, and when no sibling has headroom, not-yet-started jobs
   are shed from the queue tails.
 
-Entry points take ``device=None`` (CUDA) to build the default mesh; a mesh
-over several devices raises ``NotImplementedError``
-(:meth:`repro_torch.launch.mesh.CellMesh.single_device`).
+Entry points take ``device=None`` (CUDA: every visible card) to build the
+default mesh, or ``mesh=`` a :class:`~repro_torch.launch.mesh.CellMesh`,
+whose grid may repeat a device.  The cells' state and their slots live on
+the mesh's first device (``CellMesh.home``).
 """
 from __future__ import annotations
 
@@ -104,14 +110,15 @@ def _join(values: list, op: str):
 
 
 def stage_lanes(lanes: list, mesh, *, bucket: Optional[int] = None,
-                pending: Optional[list] = None) -> dict:
-    """Stage one step's lanes, ``[(slots, pad), ...]``, as the mesh step
-    takes them: each lane's slots (batch dim 1 each) plus ``pad`` repeats
+                pending: Optional[list] = None) -> list:
+    """Stage one step's lanes, ``[(slots, pad), ...]``, as the mesh steps
+    take them: each lane's slots (batch dim 1 each) plus ``pad`` repeats
     of its first, filler lanes replaying lane 0 up to ``bucket``, the
     batched keys ``(lanes, batch, ...)`` and each lane's side info (its
     first slot's, ``noise_var`` included) stacked by lane, then placed on
-    the mesh's device (:func:`cell_slot_placement`; ``pending`` defers
-    its side-info check to the caller's next synchronize)."""
+    the mesh's grid: one :class:`~repro_torch.distributed.sharding.
+    LaneShard` an entry (:func:`cell_slot_placement`; ``pending`` defers
+    each shard's side-info check to the caller's next synchronize)."""
     rows = [list(slots) + [slots[0]] * pad for slots, pad in lanes]
     bucket = len(rows) if bucket is None else bucket
     if bucket < len(rows):
@@ -136,6 +143,64 @@ def stage_lanes(lanes: list, mesh, *, bucket: Optional[int] = None,
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _synchronize_mesh(mesh) -> None:
+    for dev in mesh.distinct_devices():
+        _synchronize(dev)
+
+
+def _pipelines(mesh, build: Callable) -> dict:
+    """``build(device)`` for each distinct device of ``mesh``: one
+    pipeline a device (its constants, the Wiener operators' inputs
+    included, live there)."""
+    return {dev: build(dev) for dev in mesh.distinct_devices()}
+
+
+def _acquire_steps(registry, pipes: dict, shards: list, mesh,
+                   stats: ExecStats) -> tuple:
+    """One captured step a shard: the pipeline of its device over its
+    staged share, keyed by its grid entry on a mesh of several entries
+    (two entries on one device get two steps, two sets of buffers)."""
+    grid = mesh.size > 1
+    return tuple(
+        registry.acquire_pipeline_step(
+            pipes[sh.device], sh.staged, batch=sh.slots.stop - sh.slots.start,
+            lanes=sh.lanes.stop - sh.lanes.start, stats=stats,
+            entry=sh.entry if grid else None)
+        for sh in shards)
+
+
+def _launch(steps: tuple, shards: list) -> list:
+    """Every shard's step on its staged share, each launched before any
+    output is read back (separate cards run at once): one output dict a
+    shard, valid until that step's next call."""
+    return [step(sh.staged) for step, sh in zip(steps, shards)]
+
+
+def gather_lanes(shards: list, outs: list, read, n_lanes: int
+                 ) -> np.ndarray:
+    """``read(out, k)``, a ``(k, slots, ...)`` tensor of a shard's first
+    ``k`` lanes (or the key ``read`` of its outputs), for the first
+    ``n_lanes`` lanes of a grid step, on the host as ``(n_lanes, batch,
+    ...)`` in lane order: one read a shard, and the filler lanes past
+    ``n_lanes`` are never read."""
+    if isinstance(read, str):
+        key = read
+        read = lambda out, k: out[key][:k]  # noqa: E731
+    parts = []
+    for sh, out in zip(shards, outs):
+        k = min(sh.lanes.stop, n_lanes) - sh.lanes.start
+        if k > 0:
+            parts.append((sh, read(out, k).cpu().numpy()))
+    if len(parts) == 1:
+        return parts[0][1]
+    batch = max(sh.slots.stop for sh, _ in parts)
+    first = parts[0][1]
+    res = np.empty((n_lanes, batch) + first.shape[2:], first.dtype)
+    for sh, a in parts:
+        res[sh.lanes.start:sh.lanes.start + len(a), sh.slots] = a
+    return res
 
 
 def _verify(pending: list) -> None:
@@ -192,14 +257,16 @@ class _Lane:
 
 class _Group:
     """Cells sharing one pipeline and its captured steps (same shapes and
-    receiver).  The steps live in the process's executable registry;
-    ``_execs`` caches the acquired handle per slot schema."""
+    receiver): ``pipes`` holds the pipeline on each of the mesh's devices,
+    ``pipeline`` the one on its first.  The steps live in the process's
+    executable registry; ``_execs`` caches the acquired handles, one a
+    shard, per slot schema."""
 
-    def __init__(self, pipeline: _link.ReceiverPipeline,
-                 cell_idxs: list):
-        self.pipeline = pipeline
+    def __init__(self, pipes: dict, cell_idxs: list):
+        self.pipes = pipes
+        self.pipeline = next(iter(pipes.values()))
         self.cell_idxs = cell_idxs
-        self._execs: dict = {}  # slot schema -> CapturedStep
+        self._execs: dict = {}  # slot schema -> (CapturedStep a shard)
         self.wall_s = 0.0
         self.n_steps = 0
         self.n_padded = 0
@@ -329,16 +396,15 @@ class CellMeshEngine:
                 if by_key else 1
             mesh = make_cell_mesh(lanes, device)
         self.mesh = mesh
-        self.device = mesh.single_device("CellMeshEngine")
+        self.device = mesh.home
         self.groups: list = []
         for idxs in by_key.values():
             first = self.cells[idxs[0]]
-            pipeline = _link.build_pipeline(
-                first.spec.receiver, first.scenario, device=self.device,
-                **dict(first.spec.options),
-            )
-            self.groups.append(_Group(pipeline, idxs))
-        if self.device.type == "cuda":
+            pipes = _pipelines(mesh, lambda dev: _link.build_pipeline(
+                first.spec.receiver, first.scenario, device=dev,
+                **dict(first.spec.options)))
+            self.groups.append(_Group(pipes, idxs))
+        if any(d.type == "cuda" for d in mesh.distinct_devices()):
             from repro_torch.kernels import _build
 
             _build.build_all()
@@ -353,7 +419,7 @@ class CellMeshEngine:
                 _verify(self._pending)
                 self._group_step(group, staged)
 
-    def _template_staged(self, group: _Group) -> dict:
+    def _template_staged(self, group: _Group) -> list:
         """A staged example step of ``group`` from a template slot, through
         the serving staging path, so keys, shapes and dtypes match."""
         scn = self.cells[group.cell_idxs[0]].scenario
@@ -362,18 +428,16 @@ class CellMeshEngine:
         lane = _Lane(cell_idx=None, reqs=[req], pad=self.batch_size - 1)
         return self._stage([lane] * len(group.cell_idxs))
 
-    def _group_step(self, group: _Group, example: dict):
-        """Acquire ``group``'s step for ``example``'s slot schema (a
-        registry hit once resident)."""
-        schema = slot_schema(example)
-        step = group._execs.get(schema)
-        if step is None:
-            step = self.registry.acquire_pipeline_step(
-                group.pipeline, example, batch=self.batch_size,
-                lanes=len(group.cell_idxs), stats=self.exec_stats,
-            )
-            group._execs[schema] = step
-        return step
+    def _group_step(self, group: _Group, shards: list) -> tuple:
+        """Acquire ``group``'s steps, one a shard, for ``shards``' slot
+        schema (registry hits once resident)."""
+        schema = slot_schema(shards[0].staged)
+        steps = group._execs.get(schema)
+        if steps is None:
+            steps = _acquire_steps(self.registry, group.pipes, shards,
+                                   self.mesh, self.exec_stats)
+            group._execs[schema] = steps
+        return steps
 
     # -- traffic ----------------------------------------------------------
     def _cell(self, name: str) -> _Cell:
@@ -468,25 +532,31 @@ class CellMeshEngine:
         return steps
 
     # -- staging (host side; overlapped with the device) ------------------
-    def _stage(self, lanes: list) -> dict:
-        """One step's slots as ``(n_lanes, batch, ...)`` on the device."""
+    def _stage(self, lanes: list) -> list:
+        """One step's slots as ``(n_lanes, batch, ...)`` on the grid."""
         return stage_lanes([([r.slot for r in l.reqs], l.pad)
                             for l in lanes], self.mesh,
                            pending=self._pending)
 
     # -- serving ----------------------------------------------------------
-    def _record(self, group: _Group, lanes: list, state: dict,
-                side_keys) -> None:
-        """Per-lane, per-slot metrics of the step's unfolded outputs (its
-        ``(lanes, batch, ...)`` planes read as ``lanes * batch`` rows)."""
-        flat = {k: (v.flatten(0, 1) if k not in side_keys
-                    and isinstance(v, torch.Tensor) else v)
-                for k, v in state.items()}
-        metrics = {
-            k: v.reshape(len(lanes), -1).cpu().numpy()
-            for k, v in _link.slot_metrics(
-                flat, group.pipeline.scenario, per_slot=True).items()
-        }  # each (n_lanes, batch)
+    def _record(self, group: _Group, lanes: list, shards: list,
+                outs: list, side_keys) -> None:
+        """Per-lane, per-slot metrics of the steps' unfolded outputs (each
+        shard's ``(lanes, batch, ...)`` planes read as ``lanes * batch``
+        rows, its metrics read once), in lane order."""
+        names: list = []
+
+        def shard_metrics(out, k):
+            flat = {key: (v[:k].flatten(0, 1) if key not in side_keys
+                          and isinstance(v, torch.Tensor) else v)
+                    for key, v in out.items()}
+            m = _link.slot_metrics(flat, group.pipeline.scenario,
+                                   per_slot=True)
+            names[:] = list(m)
+            return torch.stack(list(m.values()), -1).reshape(k, -1, len(m))
+
+        table = gather_lanes(shards, outs, shard_metrics, len(lanes))
+        metrics = {k: table[..., i] for i, k in enumerate(names)}
         for j, lane in enumerate(lanes):
             if lane.cell_idx is None:
                 continue
@@ -511,20 +581,20 @@ class CellMeshEngine:
             if not plan:
                 continue
             staged = self._stage(plan[0])
-            side = {k for k in staged if k not in BATCHED_KEYS}
-            step = self._group_step(group, staged)
+            side = {k for k in staged[0].staged if k not in BATCHED_KEYS}
+            steps = self._group_step(group, staged)
             t_group = 0.0
             for i, lanes in enumerate(plan):
                 t0 = time.perf_counter()
-                state = step(staged)
+                shards, outs = staged, _launch(steps, staged)
                 staged = (self._stage(plan[i + 1])
                           if i + 1 < len(plan) else None)
-                _synchronize(self.device)
+                _synchronize_mesh(self.mesh)
                 dt = time.perf_counter() - t0
                 _verify(self._pending)
                 t_group += dt
                 self.step_times.append(dt)
-                self._record(group, lanes, state, side)
+                self._record(group, lanes, shards, outs, side)
             group.wall_s += t_group
             group.n_steps += len(plan)
         return self._report()
@@ -675,22 +745,28 @@ class _ClosedLane:
 
 
 class _LadderGroup:
-    """Cells sharing one MCS ladder + receiver: per-rung pipelines whose
-    captured steps live in the registry, cached here per (rung, lane
-    bucket, slot schema)."""
+    """Cells sharing one MCS ladder + receiver: per-rung pipelines on each
+    of the mesh's devices (``pipes``; ``pipelines`` those on its first),
+    whose captured steps live in the registry, cached here per (rung,
+    lane bucket, slot schema), one a shard."""
 
     def __init__(self, ladder_name: str, rungs, receiver: str,
-                 options: dict, cell_idxs: list, device: torch.device):
+                 options: dict, cell_idxs: list, mesh):
         self.ladder_name = ladder_name
         self.rungs = rungs
         self.receiver = receiver
         self.options = options
         self.cell_idxs = cell_idxs
-        self.pipelines = [
-            _link.build_pipeline(receiver, s, device=device, **options)
-            for s in rungs
-        ]
-        self._execs: dict = {}  # (mcs, bucket, schema) -> CapturedStep
+        self.pipes = _pipelines(mesh, lambda dev: [
+            _link.build_pipeline(receiver, s, device=dev, **options)
+            for s in rungs])
+        self.pipelines = self.pipes[mesh.home]
+        # (mcs, bucket, schema) -> (CapturedStep a shard)
+        self._execs: dict = {}
+
+    def rung_pipes(self, mcs: int) -> dict:
+        """Rung ``mcs``'s pipeline on each device."""
+        return {dev: ps[mcs] for dev, ps in self.pipes.items()}
 
 
 @dataclasses.dataclass
@@ -822,8 +898,9 @@ class MeshSlotScheduler:
     conservation holds mesh-wide across handover: issued ids == finalized
     ids + queued ids, exactly once each.
 
-    Besides the reference's parameters: ``device`` (None -> CUDA; the
-    default mesh's device, where pipelines and default slots live),
+    Besides the reference's parameters: ``device`` (None -> CUDA, every
+    visible card; the default mesh's devices: the pipelines live on each,
+    the cells' slots and state on the first),
     ``slot_factory`` (handed to every :class:`CellLoop`, as
     :class:`SlotScheduler` does) and ``registry``.
     """
@@ -857,7 +934,7 @@ class MeshSlotScheduler:
         if mesh is None:
             mesh = make_cell_mesh(len(self.specs), device)
         self.mesh = mesh
-        self.device = mesh.single_device("MeshSlotScheduler")
+        self.device = mesh.home
         by_key: dict = {}
         for i, spec in enumerate(self.specs):
             by_key.setdefault(
@@ -868,11 +945,11 @@ class MeshSlotScheduler:
         for (ladder, receiver, options), idxs in by_key.items():
             ladder_name, rungs = resolve_ladder(ladder)
             g = _LadderGroup(ladder_name, rungs, receiver, dict(options),
-                             idxs, self.device)
+                             idxs, mesh)
             self.groups.append(g)
             for i in idxs:
                 self._group_of[i] = g
-        if self.device.type == "cuda":
+        if any(d.type == "cuda" for d in mesh.distinct_devices()):
             from repro_torch.kernels import _build
 
             _build.build_all()
@@ -1046,10 +1123,9 @@ class MeshSlotScheduler:
         :class:`BucketPolicy`'s)."""
         return self.bucket_policy.bucket_for(n_lanes)
 
-    def _stage(self, lanes: list, bucket: Optional[int] = None) -> dict:
-        """Stage one step's lanes as ``(bucket, batch, ...)`` on the
-        device, filler lanes replaying lane 0 up to the policy's lane
-        bucket."""
+    def _stage(self, lanes: list, bucket: Optional[int] = None) -> list:
+        """Stage one step's lanes as ``(bucket, batch, ...)`` on the grid,
+        filler lanes replaying lane 0 up to the policy's lane bucket."""
         if bucket is None:
             bucket = self._bucket(len(lanes))
         return stage_lanes([(lane.slots, lane.pad) for lane in lanes],
@@ -1103,42 +1179,43 @@ class MeshSlotScheduler:
             staged = self._dispatch(gi, mcs, lanes, staged, stats,
                                     prefetch)
 
-    def _dispatch(self, gi: int, mcs: int, lanes: list, staged: dict,
-                  stats: list, prefetch=None) -> Optional[dict]:
+    def _dispatch(self, gi: int, mcs: int, lanes: list, staged: list,
+                  stats: list, prefetch=None) -> Optional[list]:
         """Run one (group, rung) bucket step and fan feedback back out.
 
-        The timed window holds the staging copies and the replay, the next
-        bucket's staging (``prefetch``) and the synchronize.  Returns the
-        next bucket's staged batch, so the caller's double buffering
-        survives overrides."""
+        The timed window holds the staging copies and every shard's
+        replay, the next bucket's staging (``prefetch``) and the
+        synchronize.  Returns the next bucket's staged shards, so the
+        caller's double buffering survives overrides."""
         bucket = self._bucket(len(lanes))
-        step = self._step_for(gi, mcs, bucket, staged)
+        steps = self._step_for(gi, mcs, bucket, staged)
         t0 = time.perf_counter()
-        state = step(staged)
+        outs = _launch(steps, staged)
         nxt = prefetch() if prefetch is not None else None
-        _synchronize(self.device)
+        _synchronize_mesh(self.mesh)
         self.wall_s += time.perf_counter() - t0
         _verify(self._pending)
         self.n_steps += 1
         self.n_real_lanes += len(lanes)
         self.n_filler_lanes += bucket - len(lanes)
-        self._feedback(lanes, mcs, state, stats)
+        n = len(lanes)
+        self._feedback(lanes, mcs, gather_lanes(staged, outs, "crc_ok", n),
+                       gather_lanes(staged, outs, "cw_llr", n), stats)
         return nxt
 
-    def _step_for(self, gi: int, mcs: int, bucket: int, example: dict):
-        """Acquire the (group, rung, bucket, schema) step from the
-        registry: resident steps are a dict lookup, new ones are captured
-        here, before the timed window."""
+    def _step_for(self, gi: int, mcs: int, bucket: int,
+                  shards: list) -> tuple:
+        """Acquire the (group, rung, bucket, schema) steps, one a shard,
+        from the registry: resident steps are a dict lookup, new ones are
+        captured here, before the timed window."""
         g = self.groups[gi]
-        key = (mcs, bucket, slot_schema(example))
-        step = g._execs.get(key)
-        if step is None:
-            step = self.registry.acquire_pipeline_step(
-                g.pipelines[mcs], example, batch=self.batch_size,
-                lanes=bucket, stats=self.exec_stats,
-            )
-            g._execs[key] = step
-        return step
+        key = (mcs, bucket, slot_schema(shards[0].staged))
+        steps = g._execs.get(key)
+        if steps is None:
+            steps = _acquire_steps(self.registry, g.rung_pipes(mcs), shards,
+                                   self.mesh, self.exec_stats)
+            g._execs[key] = steps
+        return steps
 
     def _capture_buckets(self, g: _LadderGroup) -> tuple:
         """Every lane bucket a (group, rung) step of ``g`` can be served
@@ -1202,13 +1279,11 @@ class MeshSlotScheduler:
         self.now += 1
         return stats
 
-    def _feedback(self, lanes: list, mcs: int, state: dict,
-                  stats: list) -> None:
-        """Each real lane's CRC flags and combined LLRs, read to the host
-        before this step replays again, back to its cell; the filler lanes
-        past ``len(lanes)`` are never read."""
-        crc_ok = state["crc_ok"][:len(lanes)].cpu().numpy()  # (L, B, C)
-        cw_llr = state["cw_llr"][:len(lanes)].cpu().numpy()
+    def _feedback(self, lanes: list, mcs: int, crc_ok: np.ndarray,
+                  cw_llr: np.ndarray, stats: list) -> None:
+        """Each real lane's CRC flags ``(L, B, C)`` and combined LLRs, read
+        to the host in lane order before the step replays again, back to
+        its cell."""
         for li, lane in enumerate(lanes):
             loop = self.loops[lane.cell_idx]
             for j, (u, job) in enumerate(lane.pairs):

@@ -11,7 +11,9 @@ graph of the pipeline's whole receive chain, captured once per
 * :class:`ExecKey` — one hashable identity per step: (scenario, receiver
   variant, precision, slot batch, lane bucket, backend, donation, slot
   schema), the reference's fields; ``backend`` is the pipeline's device
-  type (``"cuda"`` or ``"cpu"``).
+  type (``"cuda"`` or ``"cpu"``), or, for a step of one entry of a
+  several-entry cell mesh, that entry's device and place (one step per
+  (group, rung, lane bucket, grid entry)).
 * Mesh steps (``lanes > 0``, :func:`lane_step`): the port's counterpart of
   the reference's ``vmap(pipeline._apply)``.  A staged ``(lanes, batch,
   ...)`` batch is viewed as ``(lanes * batch, ...)``, so the lanes fold
@@ -88,7 +90,8 @@ class ExecKey:
     """Stable identity of one captured serving step.
 
     ``lanes == 0`` is a single-cell step; ``lanes > 0`` a mesh step over
-    that lane bucket.  ``variant``
+    that lane bucket (its share of it, on a grid: ``backend`` then names
+    the entry's device and place, ``cuda:0/1,0``).  ``variant``
     fingerprints the pipeline beyond its display name (stage structure +
     neural-weight digest); ``schema`` names the slot's batched keys, so
     open-loop and HARQ slots capture separately.
@@ -168,8 +171,13 @@ def _pipeline_variant(pipeline) -> str:
 
 def exec_key_for(pipeline, batch: int, *, lanes: int = 0,
                  donate: bool = False, schema: str = "",
-                 backend: Optional[str] = None) -> ExecKey:
-    """The :class:`ExecKey` of ``pipeline``'s step at (batch, lanes)."""
+                 backend: Optional[str] = None,
+                 entry: Optional[tuple] = None) -> ExecKey:
+    """The :class:`ExecKey` of ``pipeline``'s step at (batch, lanes); with
+    ``entry``, the step of that ``(row, column)`` of a grid of several
+    entries, one per entry even where two share a device."""
+    if entry is not None:
+        backend = f"{pipeline.device}/{entry[0]},{entry[1]}"
     return ExecKey(
         scenario=pipeline.scenario.name,
         receiver=pipeline.name,
@@ -377,6 +385,17 @@ def lane_step(pipeline, lanes: int, batch: int) -> Callable[[dict], dict]:
     return step
 
 
+def _shapes(example: dict) -> tuple:
+    """The example's tensors' and arrays' (key, shape, dtype).  Steps of
+    one key whose examples differ here are separate entries: a scenario's
+    name, which the key holds, does not fix its grid, and a registry
+    shared by a process may meet a shrunk copy of a registered
+    scenario."""
+    return tuple(sorted(
+        (k, tuple(v.shape), str(v.dtype)) for k, v in example.items()
+        if isinstance(v, (torch.Tensor, np.ndarray))))
+
+
 def _spec(batch: dict) -> dict:
     """What a batch must share with the capture: per key, a tensor's
     (shape, dtype), or a non-tensor value itself (an array by its bytes)."""
@@ -494,7 +513,8 @@ class CapturedStep:
 # ---------------------------------------------------------------------------
 
 class ExecRegistry:
-    """LRU-bounded map of :class:`ExecKey` -> :class:`CapturedStep`.
+    """LRU-bounded map of :class:`ExecKey` -> :class:`CapturedStep`
+    (one a key and example shape set: :func:`_shapes`).
 
     ``capacity`` bounds resident steps (None = unbounded);
     least-recently-acquired entries evict first and drop their graphs.
@@ -511,10 +531,10 @@ class ExecRegistry:
         return len(self._entries)
 
     def __contains__(self, key: ExecKey) -> bool:
-        return key in self._entries
+        return any(k == key for k, _ in self._entries)
 
     def keys(self) -> list:
-        return list(self._entries)
+        return [k for k, _ in self._entries]
 
     # -- acquisition ------------------------------------------------------
     def acquire(self, key: ExecKey, fn: Callable[[dict], dict],
@@ -525,9 +545,10 @@ class ExecRegistry:
         code) if absent.  Capture happens here, ahead of the timed serving
         window; a replay never captures."""
         self.lookups += 1
-        step = self._entries.get(key)
+        entry = (key, _shapes(example))
+        step = self._entries.get(entry)
         if step is not None:
-            self._entries.move_to_end(key)
+            self._entries.move_to_end(entry)
             self.stats.add(0.0, False, True)
             if stats is not None:
                 stats.add(0.0, False, True)
@@ -538,7 +559,7 @@ class ExecRegistry:
         self.stats.add(dt, True, False)
         if stats is not None:
             stats.add(dt, True, False)
-        self._entries[key] = step
+        self._entries[entry] = step
         while (self.capacity is not None
                and len(self._entries) > self.capacity):
             _, old = self._entries.popitem(last=False)
@@ -548,19 +569,21 @@ class ExecRegistry:
 
     def acquire_pipeline_step(self, pipeline, example: dict, *, batch: int,
                               lanes: int = 0,
-                              stats: Optional[ExecStats] = None
+                              stats: Optional[ExecStats] = None,
+                              entry: Optional[tuple] = None
                               ) -> CapturedStep:
         """Acquire ``pipeline``'s serving step over ``example``.
 
         ``lanes == 0`` captures the single-cell step (``pipeline.run``
         over a stacked batch); ``lanes > 0`` the mesh step
-        (:func:`lane_step` over a staged ``(lanes, batch, ...)`` batch).
-        The key's ``donate`` follows the reference's rule, true for a mesh
+        (:func:`lane_step` over a staged ``(lanes, batch, ...)`` batch),
+        ``entry`` naming its place on a grid of several entries.  The
+        key's ``donate`` follows the reference's rule, true for a mesh
         step off the CPU; the static inputs never alias the caller's
         batch, so it names the step and changes nothing else."""
         donate = lanes > 0 and pipeline.device.type != "cpu"
         key = exec_key_for(pipeline, batch, lanes=lanes, donate=donate,
-                           schema=slot_schema(example))
+                           schema=slot_schema(example), entry=entry)
         fn = lane_step(pipeline, lanes, batch) if lanes else pipeline.run
         return self.acquire(key, fn, example, stats=stats)
 

@@ -37,21 +37,23 @@ supervision layer driven by :mod:`repro_torch.serve.faults`:
      jobs go back to their users' queue heads untouched (HARQ
      retransmissions are never shed).  The first bucket always runs, so
      every tick makes progress.
-  4. **step execution**: staged-tensor faults are injected, then the
-     captured step runs under bounded retry-with-backoff (each retry
+  4. **step execution**: staged-tensor faults are injected into every
+     shard that holds the lane, then the captured steps (one a grid
+     entry) run under bounded retry-with-backoff (each retry
      re-stages clean inputs; transient faults do not fire again), each
      attempt closed by a device synchronize so an asynchronous failure
      surfaces in the attempt that caused it.  Retries exhausted: the
      bucket's batches are quarantined (jobs requeued, cells charged).
-  5. **non-finite guard** (per lane, on the device, one host read): a
-     lane with a non-finite combined LLR degrades the bucket to the fp32
-     unfused reference step on a clean re-stage; lanes still non-finite
-     after that are quarantined.
+  5. **non-finite guard** (per lane, on each shard's device, one host
+     read a shard): a lane with a non-finite combined LLR degrades the
+     bucket to the fp32 unfused reference steps (one a shard) on a clean
+     re-stage; lanes still non-finite after that are quarantined.
   6. **checkpoint** (tick end): every ``checkpoint_every`` ticks, every
      cell's loop state is snapshotted through the atomic checkpoint
      manager (plus one snapshot at construction, so a tick-0 crash can
      restore).  A snapshot reads every open HARQ process's payload from
-     the card to the host.
+     the card to the host; a restore puts it back on the loop's device,
+     the mesh's first (where the cells' slots are drawn).
 
 On the card a bucket's step is a CUDA graph whose outputs are static
 tensors that its next replay overwrites: the guard, the real lanes'
@@ -81,7 +83,8 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager, host_array
 from repro_torch.phy import link as _link
 from repro_torch.serve.cell_mesh import (
-    MeshClosedLoopReport, MeshSlotScheduler, _synchronize, _verify,
+    MeshClosedLoopReport, MeshSlotScheduler, _acquire_steps, _launch,
+    _pipelines, _synchronize, _synchronize_mesh, _verify, gather_lanes,
 )
 from repro_torch.serve.exec_registry import slot_schema
 from repro_torch.serve.faults import FaultInjector, FaultPlan, InjectedFault
@@ -359,8 +362,9 @@ class Supervisor(MeshSlotScheduler):
         self._tick_t0 = 0.0
         self._tick_deferred = False
         self._seq = 0
-        # fp32 unfused reference pipelines (lazy per (group, rung)); their
-        # captured steps live in the registry, cached per (gi, mcs, bucket)
+        # fp32 unfused reference pipelines (lazy per (group, rung), one a
+        # device); their captured steps live in the registry, cached per
+        # (gi, mcs, bucket), one a shard
         self._ref_pipes: dict = {}
         self._ref_execs: dict = {}
 
@@ -497,7 +501,8 @@ class Supervisor(MeshSlotScheduler):
                 u.backlog.appendleft(job)
 
     # -- degradation ladder ------------------------------------------------
-    def _ref_step(self, gi: int, mcs: int, bucket: int, example: dict):
+    def _ref_step(self, gi: int, mcs: int, bucket: int,
+                  shards: list) -> tuple:
         """The fp32 unfused reference step for (group, rung): the same
         receiver kind with no build options (no fused kernels, no
         quantized precision), acquired from the registry at first use,
@@ -506,48 +511,53 @@ class Supervisor(MeshSlotScheduler):
         donates no buffers, so an unfused fp32 group's lane step and its
         degradation step are one graph, which is safe because
         :meth:`_dispatch` reads the primary's outputs to the host before
-        the degradation replay."""
+        the degradation replay.  One step a shard, as the primary's."""
         key = (gi, mcs, bucket)
-        step = self._ref_execs.get(key)
-        if step is None:
+        steps = self._ref_execs.get(key)
+        if steps is None:
             pkey = (gi, mcs)
             if pkey not in self._ref_pipes:
                 g = self.groups[gi]
-                self._ref_pipes[pkey] = _link.build_pipeline(
-                    g.receiver, g.rungs[mcs], device=self.device
-                )
-            step = self.registry.acquire_pipeline_step(
-                self._ref_pipes[pkey], example, batch=self.batch_size,
-                lanes=bucket, stats=self.exec_stats,
-            )
-            self._ref_execs[key] = step
-        return step
+                self._ref_pipes[pkey] = _pipelines(
+                    self.mesh, lambda dev: _link.build_pipeline(
+                        g.receiver, g.rungs[mcs], device=dev))
+            steps = _acquire_steps(self.registry, self._ref_pipes[pkey],
+                                   shards, self.mesh, self.exec_stats)
+            self._ref_execs[key] = steps
+        return steps
 
     # -- staged-tensor fault injection ------------------------------------
     @staticmethod
-    def _corrupt(staged: dict, key: str, li: int, value: float) -> dict:
-        """A copy of ``staged`` whose ``key`` has lane ``li`` overwritten
-        (a clone: the staged tensor is not the step's input, the step
-        copies it in).  Lanes are the leading axis on the one device, so
-        no re-placement is needed."""
-        staged = dict(staged)
-        corrupted = staged[key].clone()
-        corrupted[li] = value
-        staged[key] = corrupted
-        return staged
+    def _corrupt(shards: list, key: str, li: int, value: float) -> list:
+        """A copy of ``shards`` whose ``key`` has lane ``li`` overwritten in
+        every shard that holds (part of) it (a clone: the staged tensor is
+        not the step's input, the step copies it in).  Lanes are the
+        leading axis of a shard on its device, so no re-placement is
+        needed."""
+        out = []
+        for sh in shards:
+            if sh.lanes.start <= li < sh.lanes.stop:
+                staged = dict(sh.staged)
+                corrupted = staged[key].clone()
+                corrupted[li - sh.lanes.start] = value
+                staged[key] = corrupted
+                sh = dataclasses.replace(sh, staged=staged)
+            out.append(sh)
+        return out
 
-    def _inject_stage(self, staged: dict, lanes, seq: int) -> dict:
+    def _inject_stage(self, staged: list, lanes, seq: int) -> list:
         for ev in self.injector.stage_events(self.now, seq):
             li = next(
                 (i for i, lane in enumerate(lanes)
                  if lane.cell_idx == ev.cell), 0,
             )
-            if ev.kind == "nan_llr" and "prior_llr" in staged:
+            if ev.kind == "nan_llr" and "prior_llr" in staged[0].staged:
                 staged = self._corrupt(staged, "prior_llr", li,
                                        float("nan"))
             elif ev.kind == "corrupt_slot":
                 key = next(
-                    (k for k in ("y_time", "y") if k in staged), None
+                    (k for k in ("y_time", "y") if k in staged[0].staged),
+                    None
                 )
                 if key is not None:
                     staged = self._corrupt(staged, key, li, float("inf"))
@@ -573,13 +583,13 @@ class Supervisor(MeshSlotScheduler):
             return nxt
 
         bucket = self._bucket(len(lanes))
-        step = self._step_for(gi, mcs, bucket, staged)
+        steps = self._step_for(gi, mcs, bucket, staged)
 
         staged = self._inject_stage(staged, lanes, seq)
         straggle = self.injector.straggle_s(self.now, seq)
 
         nxt, prefetched = None, False
-        state = None
+        outs = None
         for attempt in range(self.max_step_retries + 1):
             ev = self.injector.step_error(self.now, seq)
             t0 = time.perf_counter()
@@ -589,15 +599,16 @@ class Supervisor(MeshSlotScheduler):
                         f"injected step error at tick {self.now} "
                         f"bucket {seq} (attempt {attempt})"
                     )
-                out = step(staged)  # the replay, queued on the device
+                # every shard's replay, queued on its device
+                launched = _launch(steps, staged)
                 if not prefetched:
                     nxt = prefetch() if prefetch is not None else None
                     prefetched = True
                 if straggle > 0.0:
                     time.sleep(straggle)
                     straggle = 0.0
-                _synchronize(self.device)
-                state = out
+                _synchronize_mesh(self.mesh)
+                outs = launched
                 self.wall_s += time.perf_counter() - t0
                 break
             except Exception:
@@ -613,7 +624,7 @@ class Supervisor(MeshSlotScheduler):
         # a staging or side-info error is a bug, never a step fault
         _verify(self._pending)
 
-        if state is None:
+        if outs is None:
             self.quarantined_batches += len(lanes)
             for lane in lanes:
                 self._cell_quarantined[lane.cell_idx] += 1
@@ -625,13 +636,12 @@ class Supervisor(MeshSlotScheduler):
         self.n_real_lanes += len(lanes)
         self.n_filler_lanes += bucket - len(lanes)
 
-        # the real lanes' results and their guard, read before any other
-        # replay can overwrite the step's outputs
+        # the real lanes' results and their guard (one read a shard each),
+        # read before any other replay can overwrite the steps' outputs
         n = len(lanes)
-        finite = torch.isfinite(state["cw_llr"][:n]).flatten(1).all(1)
-        finite = finite.cpu().numpy()
-        crc = state["crc_ok"][:n].cpu().numpy().copy()
-        llr = state["cw_llr"][:n].cpu().numpy().copy()
+        finite = self._finite_lanes(staged, outs, n)
+        crc = gather_lanes(staged, outs, "crc_ok", n).copy()
+        llr = gather_lanes(staged, outs, "cw_llr", n).copy()
         bad = [li for li in range(n) if not finite[li]]
         still_bad: set = set()
         if bad:
@@ -644,14 +654,13 @@ class Supervisor(MeshSlotScheduler):
             clean = self._stage(lanes)
             ref = self._ref_step(gi, mcs, bucket, clean)
             t0 = time.perf_counter()
-            out = ref(clean)
-            _synchronize(self.device)
+            routs = _launch(ref, clean)
+            _synchronize_mesh(self.mesh)
             self.wall_s += time.perf_counter() - t0
             _verify(self._pending)
-            rfinite = torch.isfinite(out["cw_llr"][:n]).flatten(1).all(1)
-            rfinite = rfinite.cpu().numpy()
-            rcrc = out["crc_ok"][:n].cpu().numpy()
-            rllr = out["cw_llr"][:n].cpu().numpy()
+            rfinite = self._finite_lanes(clean, routs, n)
+            rcrc = gather_lanes(clean, routs, "crc_ok", n)
+            rllr = gather_lanes(clean, routs, "cw_llr", n)
             for li in bad:
                 if rfinite[li]:
                     crc[li], llr[li] = rcrc[li], rllr[li]
@@ -666,13 +675,18 @@ class Supervisor(MeshSlotScheduler):
         for li, lane in enumerate(lanes):
             if li in still_bad:
                 continue
-            self._feedback(
-                [lane], mcs,
-                {"crc_ok": torch.from_numpy(crc[li:li + 1]),
-                 "cw_llr": torch.from_numpy(llr[li:li + 1])},
-                stats,
-            )
+            self._feedback([lane], mcs, crc[li:li + 1], llr[li:li + 1],
+                           stats)
         return nxt
+
+    @staticmethod
+    def _finite_lanes(shards: list, outs: list, n: int) -> np.ndarray:
+        """Whether each of the first ``n`` lanes' combined LLRs are finite
+        (tested on each shard's device, one read a shard)."""
+        return gather_lanes(
+            shards, outs,
+            lambda out, k: torch.isfinite(out["cw_llr"][:k]).flatten(2)
+            .all(2), n).all(1)
 
     # -- reporting ---------------------------------------------------------
     def report(self) -> MeshClosedLoopReport:

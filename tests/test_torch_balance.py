@@ -13,6 +13,7 @@ import pytest
 from repro.core import balance as ref_balance
 from repro.core import machine as ref_machine
 from repro_torch.core import balance, machine
+from _port_share import port_share  # noqa: F401
 
 _MACHINES = ["TENSORPOOL_N7", "H100_SXM"]
 

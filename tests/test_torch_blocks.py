@@ -33,6 +33,7 @@ from repro.phy import ofdm as ref_ofdm
 from repro_torch.core import pool
 from repro_torch.kernels import _build, dwconv_block, fc_softmax, ops, ref
 from repro_torch.phy import ofdm
+from _port_share import port_share  # noqa: F401
 
 
 def _rand(seed, *shapes):

@@ -23,8 +23,9 @@
 * **The open-loop engine** (the reference's ``tests/test_cell_mesh.py``):
   groups by shape, per-cell parity with ``PhyServeEngine``, ``steal``
   against ``pad``, bad inputs.
-* **Registry and mesh**: lane steps' keys, ``make_cell_mesh``, and the
-  refusal of a mesh over several devices.
+* **Registry and mesh**: lane steps' keys, ``make_cell_mesh``'s grids,
+  the bucket rule, and a two-entry grid that serves (the grid path is
+  held to the reference in ``tests/test_torch_cell_mesh_grid.py``).
 """
 import dataclasses
 import functools
@@ -51,6 +52,7 @@ from repro_torch.serve.exec_registry import (
     ExecRegistry, exec_key_for, slot_schema, template_slot,
 )
 from test_torch_closed_loop import _UNSTABLE, _JaxSlotFactory, _assert_same
+from _port_share import port_share  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # live replay of a two-cell reference run
@@ -181,10 +183,11 @@ def _lane_case(name: str, kind: str, opts: tuple) -> tuple:
         kw.pop("fused", None)
     port_p = link.build_pipeline(kind, _shrunk(scenarios, name),
                                  device="cpu", **kw)
-    staged = cell_slot_placement(
+    (shard,) = cell_slot_placement(
         {k: torch.from_numpy(v) for k, v in stacked.items()},
         make_cell_mesh(len(lanes), "cpu"),
         batched_keys=runtime.BATCHED_KEYS)
+    staged = shard.staged
     reg = ExecRegistry()
     step = reg.acquire_pipeline_step(port_p, staged, batch=_LANE_B,
                                      lanes=len(lanes))
@@ -507,7 +510,8 @@ def test_lane_step_keys_and_reacquire():
     p = link.build_classical(scn, fused=True, device="cpu")
     mesh = make_cell_mesh(2, "cpu")
     slot = template_slot(scn, harq=True, device="cpu")
-    staged = stage_lanes([([slot], 1), ([slot], 1)], mesh)
+    (shard,) = stage_lanes([([slot], 1), ([slot], 1)], mesh)
+    staged = shard.staged
     reg = ExecRegistry()
     step = reg.acquire_pipeline_step(p, staged, batch=2, lanes=2)
     # the reference's rule: a lane step donates on the card, not on the CPU
@@ -525,7 +529,7 @@ def test_lane_step_keys_and_reacquire():
     assert single is not step and len(reg) == 2
     # a lane stack of another lane count is refused by the step
     with pytest.raises(ValueError):
-        step(stage_lanes([([slot], 1)] * 3, mesh))
+        step(stage_lanes([([slot], 1)] * 3, mesh)[0].staged)
 
 
 def test_placement_holds_side_info_and_noise_per_lane():
@@ -533,7 +537,8 @@ def test_placement_holds_side_info_and_noise_per_lane():
     mesh = make_cell_mesh(2, "cpu")
     a = template_slot(scn, harq=True, device="cpu")
     b = dict(a, noise_var=a["noise_var"] * 2.0)
-    staged = stage_lanes([([a], 0), ([b], 0)], mesh, bucket=3)
+    (shard,) = stage_lanes([([a], 0), ([b], 0)], mesh, bucket=3)
+    staged = shard.staged
     assert staged["noise_var"].tolist() == [
         float(a["noise_var"]), float(b["noise_var"]), float(a["noise_var"])]
     assert tuple(staged["prior_llr"].shape[:2]) == (3, 1)
@@ -548,17 +553,37 @@ def test_placement_holds_side_info_and_noise_per_lane():
 
 
 def test_cell_mesh_shape_and_multi_device_refusal(ladder):
+    """The grid shapes (the reference's ``gcd`` rule over a repeated CPU
+    device), the reference's ``ValueError`` for a bucket policy that the
+    ``cell`` axis does not divide, and a two-entry grid that serves (it
+    no longer refuses): both frontends, one step a shard."""
+    from repro_torch.serve.exec_registry import FixedBuckets
+
     assert make_cell_mesh(4, "cpu").shape == (1, 1)
     devs = [torch.device("cpu")] * 4
     assert make_cell_mesh(6, devices=devs).shape == (2, 2)
     assert make_cell_mesh(8, devices=devs).shape == (4, 1)
+    assert make_cell_mesh(1, devices=devs).shape == (1, 4)
     wide = make_cell_mesh(2, devices=devs[:2])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MeshSlotScheduler([closed_cell("c0", ladder),
-                           closed_cell("c1", ladder)], mesh=wide,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _engine([cell("x", _siso("A")), cell("y", _siso("B"))], mesh=wide)
+    assert (wide.shape, wide.cell, wide.batch) == ((2, 1), 2, 1)
+    assert wide.distinct_devices() == [torch.device("cpu")]
+    cells = [closed_cell("c0", ladder, fused=True),
+             closed_cell("c1", ladder, fused=True)]
+    with pytest.raises(ValueError, match="not a multiple of the mesh cell"):
+        MeshSlotScheduler(cells, mesh=wide, device="cpu",
+                          bucket_policy=FixedBuckets((1, 2)))
+    sch = MeshSlotScheduler(cells, mesh=wide, device="cpu", batch_size=2,
+                            seed=3, registry=ExecRegistry())
+    rep = sch.run(2)
+    assert rep.mesh_shape == (2, 1) and rep.n_steps > 0
+    assert all(len(steps) == 2 for g in sch.groups
+               for steps in g._execs.values())
+    eng = _engine([cell("x", _siso("A")), cell("y", _siso("B"))],
+                  mesh=wide, batch_size=2)
+    eng.submit_traffic(7, 2)
+    rep = eng.run()
+    assert rep.mesh_shape == (2, 1) and rep.n_slots == 4
+    assert rep.executables_compiled == 2  # one step a grid entry
 
 
 def test_detect_twins_take_one_value_or_one_per_lane():

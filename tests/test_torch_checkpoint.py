@@ -35,6 +35,7 @@ from repro_torch.serve import (
     BatchRunner, InjectedFault, PhyServeEngine, SupervisedBatchRunner,
 )
 from repro_torch.serve.exec_registry import ExecRegistry
+from _port_share import port_share  # noqa: F401
 
 
 def _state(seed=0):

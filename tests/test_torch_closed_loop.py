@@ -38,6 +38,7 @@ from repro_torch.serve.exec_registry import ExecRegistry
 # the reference's jitted one-slot draws, compiled once per scenario for
 # this file and the pipeline parity tests
 from test_torch_pipeline import jax_slots
+from _port_share import port_share  # noqa: F401
 
 # fields derived from wall time or compile history (the golden test's set)
 _UNSTABLE = {"wall_s", "slots_per_sec", "goodput_bits_per_sec",

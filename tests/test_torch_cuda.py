@@ -992,7 +992,8 @@ def test_lane_step_replay_equals_eager_and_single_steps(dev, name, kw):
             ).numpy()
             slots.append(s)
         lanes.append((slots, 0))
-    staged = stage_lanes(lanes, make_cell_mesh(3, dev))
+    (shard,) = stage_lanes(lanes, make_cell_mesh(3, dev))
+    staged = shard.staged
     assert len(set(staged["noise_var"].tolist())) == 3
     reg = ExecRegistry()
     step = reg.acquire_pipeline_step(rx, staged, batch=2, lanes=3)
@@ -1015,6 +1016,56 @@ def test_lane_step_replay_equals_eager_and_single_steps(dev, name, kw):
             assert torch.equal(got[k][lane], want[k]), (lane, k)
         torch.testing.assert_close(got["h_hat"][lane], want["h_hat"],
                                    rtol=1e-4, atol=1e-6)
+
+
+def test_grid_shards_equal_one_device_lane_step(dev):
+    """A bucket of two lanes of distinct noise variance staged on a (2, 1)
+    grid that repeats cuda:0 (one shard, one captured graph an entry,
+    both replays launched before either is read) equals the one-device
+    mesh's lane step on the same lanes: CRC flags, payloads, iteration
+    counts, LLRs and combined LLRs bit for bit."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import make_cell_mesh
+    from repro_torch.serve.cell_mesh import (
+        _acquire_steps, _launch, gather_lanes, stage_lanes,
+    )
+    from repro_torch.serve.exec_registry import ExecRegistry, ExecStats
+    from repro_torch.serve.runtime import TorchSlotFactory
+
+    card = torch.device("cuda", 0)
+    scn = scenarios.get_scenario("siso-qam16-r12-snr15")
+    rx = link.build_pipeline("classical", scn, device=card, fused=True)
+    factory = TorchSlotFactory(card)
+    lanes = []
+    for lane in range(2):
+        slots = []
+        for u in range(2):
+            s = factory(70 + 10 * lane + u,
+                        scn.replace(snr_db=scn.snr_db + 3.0 * lane), 1, rv=0)
+            s["prior_llr"] = torch.zeros(
+                (1, coding.codewords_per_slot(scn), scn.code.n_mother)
+            ).numpy()
+            slots.append(s)
+        lanes.append((slots, 0))
+    grid = make_cell_mesh(2, devices=[card, card])
+    assert grid.shape == (2, 1) and grid.distinct_devices() == [card]
+    shards = stage_lanes(lanes, grid)
+    assert [(sh.entry, sh.lanes) for sh in shards] == \
+        [((0, 0), slice(0, 1)), ((1, 0), slice(1, 2))]
+    reg = ExecRegistry()
+    steps = _acquire_steps(reg, {card: rx}, shards, grid, ExecStats())
+    assert len(reg) == 2 and steps[0] is not steps[1]
+    assert all(st.graph is not None for st in steps)
+    outs = _launch(steps, shards)
+    torch.cuda.synchronize()
+    (one,) = stage_lanes(lanes, make_cell_mesh(2, devices=[card]))
+    step = reg.acquire_pipeline_step(rx, one.staged, batch=2, lanes=2)
+    want = step(one.staged)
+    torch.cuda.synchronize()
+    for k in ("crc_ok", "info_bits_hat", "decode_iters", "llr", "cw_llr"):
+        got = gather_lanes(shards, outs, k, 2)
+        assert np.array_equal(got, want[k].cpu().numpy()), k
 
 
 # ---------------------------------------------------------------------------
@@ -1112,7 +1163,7 @@ def test_corrupted_lane_degrades_to_finite_llrs(dev):
     rep = sup.run(3)
     assert rep.faults_injected == 1 and rep.degraded_batches == 1
     assert rep.quarantined_batches == 0
-    ((key, ref),) = sup._ref_execs.items()
+    ((key, (ref,)),) = sup._ref_execs.items()
     assert ref.graph is not None and ref.replays == 1
     assert set(ref.launch_delta) == {"ldpc_decode"}
     assert torch.isfinite(ref.out["cw_llr"]).all()
@@ -1138,8 +1189,8 @@ def test_unfused_group_degrades_through_its_own_lane_step(dev):
         [FaultEvent("nan_llr", tick=1, seq=0, cell=0)]), **_SUP_KW)
     rep = sup.run(3)
     assert rep.faults_injected == 1 and rep.degraded_batches == 1
-    ((key, ref),) = sup._ref_execs.items()
-    assert any(ref is st for st in sup.groups[key[0]]._execs.values())
+    ((key, (ref,)),) = sup._ref_execs.items()
+    assert any(ref is st for (st,) in sup.groups[key[0]]._execs.values())
     assert len(reg) == len(sup.groups[0]._execs)
     assert ref.graph is not None and torch.isfinite(ref.out["cw_llr"]).all()
 

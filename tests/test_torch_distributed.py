@@ -23,13 +23,19 @@ processes, each from the carried parameters:
   so are one decode step after it and the cache it leaves; a device
   offset's write into one seq-sharded cache buffer equals the plain
   write, for one row, rows across the shard boundary, more rows than a
-  shard holds and a clamped start;
+  shard holds and a clamped start; a forward of 3 sequences, which
+  neither mesh axis divides, equal to the unsharded one (atol 1e-5 of
+  the largest logit);
 * the moonshot forward through ``local_map`` (per-shard capacity) equal
   to the reference's ``shard_map`` forward at the LM parity tolerance
   (rtol 1e-4, atol 1e-5 of the largest logit); on 2 x 15 tokens, which
   the 4 data shards do not divide, equal to the port's forward
   without a mesh (atol 1e-5 of the largest logit: the experts still
-  split over ``model``, the partial sums add in another order).
+  split over ``model``, the partial sums add in another order); on 3 x 16
+  tokens (the rows do not split over the data shards, the tokens do)
+  equal to the reference's sharded forward at the parity tolerance.
+
+The reference and the ranks run one thread each.
 """
 import json
 import os
@@ -37,10 +43,13 @@ import subprocess
 import sys
 
 import numpy as np
+from _port_share import port_share  # noqa: F401
 
 REF_SCRIPT = r"""
 import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           "--xla_cpu_multi_thread_eigen=false "
+                           "intra_op_parallelism_threads=1")
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs import TrainConfig, get_smoke_config
 from repro.data import TokenStream
@@ -79,8 +88,13 @@ kw = {} if _AxisType is None else {"axis_types": (_AxisType.Auto,) * 2}
 mesh = jax.make_mesh((4, 2), ("data", "model"), **kw)
 with shd.activation_mesh(mesh):
     logits, _ = jax.jit(lambda p, b: m.forward(p, b))(params, {"tokens": jnp.asarray(tokens)})
+    # 3 sequences: 4 data shards do not divide the rows, but they divide
+    # the 48 tokens, so the dispatch still takes per-shard capacity
+    logits3, _ = jax.jit(lambda p, b: m.forward(p, b))(
+        params, {"tokens": jnp.asarray(tokens[:3])})
 out["moe_tokens"] = tokens
 out["moe_logits"] = np.asarray(logits)
+out["moe3_logits"] = np.asarray(logits3)
 out.update({"moe/" + k: v for k, v in flat(params).items()})
 np.savez(sys.argv[1], **out)
 """
@@ -169,6 +183,15 @@ def run(rank, world, port, ref_path, out_path):
                                   / want_dec.abs().max())
         res["decode_cache_err"] = float((kv - plain_cache["k"]).abs().max()
                                         / plain_cache["k"].abs().max())
+        # 3 sequences, which neither mesh axis divides: the attention
+        # gathers its heads, the rows stay whole
+        three = {"tokens": tokens[:3]}
+        want3, _ = m.forward(full, three)
+        with shd.activation_mesh(mesh):
+            got3, _ = m.forward(state["params"], three)
+            got3 = got3.full_tensor()
+        res["three_rows_err"] = float((got3 - want3).abs().max()
+                                      / want3.abs().max())
 
         # write_cache at a device offset into one layer's seq-sharded
         # buffer (2 shards of 32): one row, rows across the shard
@@ -210,6 +233,16 @@ def run(rank, world, port, ref_path, out_path):
         want, _ = m.forward(shd.full_tensor(placed), few)
         res["moe_whole_rows_err"] = float((logits - want).abs().max()
                                           / want.abs().max())
+        # 3 x 16: the rows do not split over the 4 data shards, the 48
+        # tokens do (per-shard capacity, as the reference's shard_map);
+        # against the reference's sharded forward
+        with shd.activation_mesh(mesh):
+            logits, _ = m.forward(placed, {"tokens": tokens[:3]})
+            logits = logits.full_tensor()
+        want = torch.from_numpy(ref["moe3_logits"])
+        res["moe3_err"] = float(((logits - want).abs()
+                                 - 1e-4 * want.abs()).max()
+                                / want.abs().max())
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(res, f)
@@ -227,7 +260,10 @@ if __name__ == "__main__":
 
 def _env():
     src = os.path.join(os.path.dirname(__file__), "..", "src")
-    return dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu")
+    # one thread a process: the 8 ranks and the reference share the
+    # machine with the other test workers
+    return dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu",
+                OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
 
 
 def test_sharded_train_step_8dev(tmp_path):
@@ -256,3 +292,5 @@ def test_sharded_train_step_8dev(tmp_path):
     assert res["writes_equal"] == [True] * 4, res["writes_equal"]
     assert res["moe_err"] < 1e-5, res
     assert res["moe_ep"] and res["moe_whole_rows_err"] < 1e-5, res
+    assert res["three_rows_err"] < 1e-5, res
+    assert res["moe3_err"] < 1e-5, res

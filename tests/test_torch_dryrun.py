@@ -12,6 +12,7 @@ import math
 import os
 import subprocess
 import sys
+from _port_share import port_share  # noqa: F401
 
 SCRIPT = r"""
 import dataclasses, json, math

@@ -43,6 +43,7 @@ from repro_torch.serve.exec_registry import (
     FixedBuckets, PowerOfTwoBuckets, exec_key_for, get_registry,
     set_registry, slot_schema, template_batch, template_slot,
 )
+from _port_share import port_share  # noqa: F401
 
 _SCN = "siso-qam16-r12-snr15"
 
@@ -310,3 +311,28 @@ def test_open_loop_engine_acquires_its_step_before_the_window():
     assert second.compile_time_s == 0.0 and len(reg) == 1
     assert first.n_batches == second.n_batches == 2
     assert get_registry() is not reg  # dropped: a fresh default next time
+
+
+def test_a_shrunk_copy_of_a_scenario_gets_its_own_step():
+    """A scenario's name, which the key holds, does not fix its grid: a
+    process-wide registry that served the registered scenario must not
+    hand its step to a 64-subcarrier copy of the same name (the step
+    would refuse the batch).  Each shape set is an entry of its own; a
+    re-acquire of either is a hit."""
+    reg = ExecRegistry()
+    full = scenarios.get_scenario(_SCN)
+    small = full.replace(grid=dataclasses.replace(
+        full.grid, n_subcarriers=64, fft_size=64, n_taps=4,
+        delay_spread=1.0))
+    steps = []
+    for scn in (full, small):
+        p = link.build_classical(scn, fused=True, device="cpu")
+        batch = runtime.stack_slots(
+            [template_slot(scn, harq=True, device="cpu")], 1)  # batch 2
+        step = reg.acquire_pipeline_step(p, batch, batch=2)
+        assert step(batch)["crc_ok"].shape[0] == 2
+        assert reg.acquire_pipeline_step(p, batch, batch=2) is step
+        steps.append(step)
+    assert steps[0] is not steps[1] and len(reg) == 2
+    assert reg.keys()[0] == reg.keys()[1]  # one key, two shape sets
+    assert reg.stats.cache_hits == 2

@@ -30,6 +30,7 @@ from repro.kernels import ref
 from repro.phy import coding as ref_coding
 from repro_torch.kernels import ldpc
 from repro_torch.phy import coding
+from _port_share import port_share  # noqa: F401
 
 # (rate, snr_db, regime): BPSK-over-AWGN channel LLRs of random codewords
 _POINTS = [

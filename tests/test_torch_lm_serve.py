@@ -23,6 +23,7 @@ from repro_torch.models.registry import Model
 from repro_torch.serve import Request, ServeEngine
 
 import _lm_parity as P
+from _port_share import port_share  # noqa: F401
 
 FAMILIES = ["qwen1.5-0.5b", "pixtral-12b", "dbrx-132b", "zamba2-7b",
             "rwkv6-1.6b", "whisper-tiny"]

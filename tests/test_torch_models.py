@@ -30,6 +30,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.models import get_model, layers, moe
 
 import _lm_parity as P
+from _port_share import port_share  # noqa: F401
 
 ARCHS = ["llama3-8b", "qwen1.5-0.5b", "smollm-360m", "command-r-plus-104b",
          "pixtral-12b", "dbrx-132b", "moonshot-v1-16b-a3b"]

@@ -19,6 +19,7 @@ from repro_torch.common import params
 from repro_torch.models import get_model, mamba2, rwkv6
 
 import _lm_parity as P
+from _port_share import port_share  # noqa: F401
 
 ARCHS = ["zamba2-7b", "rwkv6-1.6b", "whisper-tiny"]
 

@@ -39,6 +39,7 @@ from repro_torch.serve import runtime
 # the reference's jitted one-slot draws and the closed-loop comparison
 from test_torch_closed_loop import _JaxSlotFactory, _assert_same, _snapshot
 from test_torch_pipeline import jax_slots
+from _port_share import port_share  # noqa: F401
 
 
 def _np_tree(tree, rng=None):

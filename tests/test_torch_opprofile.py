@@ -37,6 +37,7 @@ from repro_torch.analysis import opprofile
 from repro_torch.configs import TrainConfig
 from repro_torch.optim import adamw
 from repro_torch.train import step as step_lib
+from _port_share import port_share  # noqa: F401
 
 FAMILIES = ["llama3-8b", "pixtral-12b", "moonshot-v1-16b-a3b"]
 RTOL = 0.02

@@ -5,6 +5,7 @@ test_torch_opprofile.py, which holds the other families)."""
 import pytest
 
 from test_torch_opprofile import check_flops
+from _port_share import port_share  # noqa: F401
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b", "whisper-tiny"])

@@ -33,6 +33,7 @@ from repro.phy import link as ref_link
 from repro.phy import scenarios as ref_scn
 from repro_torch.kernels import ldpc
 from repro_torch.phy import coding, link, ofdm, scenarios
+from _port_share import port_share  # noqa: F401
 
 _NAMES = ["siso-qpsk-r12-snr8", "siso-qam16-r12-snr15",
           "siso-qam16-r34-snr18", "mimo2x2-qam16-r12-snr17"]

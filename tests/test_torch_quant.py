@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import quant as ref_quant
 from repro_torch.kernels import quant
+from _port_share import port_share  # noqa: F401
 
 _AXES = [None, 0, -1, (0, 2)]
 

@@ -32,6 +32,7 @@ from repro.kernels import mha as ref_mha
 from repro.kernels import ops as ref_ops
 from repro.kernels import te_gemm as ref_te
 from repro_torch.kernels import mha, ops, quant, te_gemm
+from _port_share import port_share  # noqa: F401
 
 _PRECISIONS = ["int8", "fp8"]
 _EPILOGUES = [("none", False), ("relu", True), ("softmax", False)]

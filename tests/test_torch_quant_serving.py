@@ -40,6 +40,7 @@ from test_torch_closed_loop import (_CONFIG, _JaxSlotFactory, _assert_same,
 from test_torch_neural import _port_twin
 from test_torch_pipeline import jax_slots
 from test_torch_sic import _reports_equal
+from _port_share import port_share  # noqa: F401
 
 _STEP = np.float32(quant.llr_scale())
 

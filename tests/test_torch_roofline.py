@@ -26,6 +26,7 @@ from repro_torch.configs import SHAPES, applicable_shapes, get_config
 from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.core.machine import H100_SXM, H100_SXM_TENSOR_FLOPS
 from repro_torch.models import get_model
+from _port_share import port_share  # noqa: F401
 
 REL = 1e-12
 

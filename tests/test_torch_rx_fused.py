@@ -26,6 +26,7 @@ from repro.kernels import rx_fused as ref_rx
 from repro.phy import ofdm as ref_ofdm
 from repro_torch.kernels import rx_fused
 from repro_torch.phy import ofdm
+from _port_share import port_share  # noqa: F401
 
 _SHAPES = [(1, 1), (2, 2), (4, 4), (8, 4)]
 _MODEMS = ["qpsk", "qam16", "qam64", "qam256"]

@@ -24,6 +24,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import get_model
+from _port_share import port_share  # noqa: F401
 
 
 class FakeMesh:

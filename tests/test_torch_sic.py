@@ -44,6 +44,7 @@ from repro_torch.serve import runtime
 from test_torch_closed_loop import _JaxSlotFactory, _assert_same, _snapshot
 from test_torch_pipeline import assert_decode_matches_reference, jax_slots
 from test_torch_rx_fused import _cgauss, port_modem, ref_modem
+from _port_share import port_share  # noqa: F401
 
 _SHAPES = [(1, 1), (2, 2), (4, 4), (8, 4)]
 _MODEMS = ["qpsk", "qam16", "qam64", "qam256"]

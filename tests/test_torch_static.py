@@ -18,6 +18,7 @@ from repro.phy import ofdm as ref_ofdm
 from repro.phy import scenarios as ref_scn
 from repro_torch.kernels import rx_fused
 from repro_torch.phy import coding, ofdm, scenarios
+from _port_share import port_share  # noqa: F401
 
 _GRIDS = sorted({ref_scn.get_scenario(n).grid
                  for n in scenarios.scenario_names()}, key=repr)

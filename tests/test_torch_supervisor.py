@@ -47,6 +47,7 @@ from repro_torch.serve import faults as port_faults
 from repro_torch.serve.exec_registry import ExecRegistry
 from test_torch_cell_mesh import _mesh_snapshot
 from test_torch_closed_loop import _JaxSlotFactory, _assert_same
+from _port_share import port_share  # noqa: F401
 
 _SMOKE = dict(n_subcarriers=64, fft_size=64, n_taps=4, delay_spread=1.0)
 _RUNGS = (("siso-qpsk-r12-snr8", "mcl-qpsk-r12"),
@@ -541,3 +542,46 @@ def test_supervised_fault_conservation(seed):
     _assert_conservation(sup)
     if rep.first_tx_bler is not None and rep.residual_bler is not None:
         assert rep.residual_bler <= rep.first_tx_bler + 1e-12
+
+
+def test_nan_lane_on_second_grid_shard_is_quarantined_as_on_one_device():
+    """On a (2, 1) grid of CPU entries, a NaN burst in the lane that the
+    second shard holds is degraded, charged and quarantined exactly as on
+    one device at the same lane buckets: the whole report, fault fields
+    included, and the per-cell fault counts are equal."""
+    import torch
+
+    from repro_torch.launch.mesh import make_cell_mesh
+    from repro_torch.serve.exec_registry import PowerOfTwoBuckets
+
+    plan = [FaultEvent("nan_llr", tick=1, seq=0, cell=1),
+            FaultEvent("nan_llr", tick=4, seq=0, cell=1)]
+    kw = dict(fault_plan=FaultPlan(plan), quarantine_faults=1,
+              quarantine_ttis=2, probation_ttis=2,
+              bucket_policy=PowerOfTwoBuckets(2),
+              **dict(_KW, arrival_rate=1.0, seed=17))
+    corrupted = []
+    reps = []
+    for mesh in (make_cell_mesh(2, "cpu"),
+                 make_cell_mesh(2, devices=[torch.device("cpu")] * 2)):
+        sup = _uniform(Supervisor, 2, mesh=mesh, **kw)
+        real = sup._corrupt
+
+        def spy(shards, key, li, value, real=real, mesh=mesh):
+            held = [sh.entry for sh in shards
+                    if sh.lanes.start <= li < sh.lanes.stop]
+            corrupted.append((mesh.shape, li, held))
+            return real(shards, key, li, value)
+
+        sup._corrupt = spy
+        reps.append(_strip(sup.run(7)))
+        _assert_conservation(sup)
+    one, grid = reps
+    assert (one["mesh_shape"], grid["mesh_shape"]) == ((1, 1), (2, 1))
+    grid["mesh_shape"] = one["mesh_shape"]
+    assert grid == one
+    assert one["cells"]["cell1"]["faults"] == 2
+    assert one["cell_quarantines"] == 2 and one["degraded_batches"] == 2
+    # on the grid the NaN lane is lane 1, the second shard's
+    assert [c for c in corrupted if c[0] == (2, 1)] == \
+        [((2, 1), 1, [(1, 0)])] * 2

@@ -32,6 +32,7 @@ from repro.kernels import mha as ref_mha
 from repro.kernels import ref as ref_oracle
 from repro.kernels import te_gemm as ref_te
 from repro_torch.kernels import _build, mha, te_gemm
+from _port_share import port_share  # noqa: F401
 
 _BF16_RTOL = 2.0 ** -7  # one rounding step of bf16's 8-bit significand
 

@@ -38,6 +38,7 @@ from repro_torch.kernels import mha, te_gemm
 from repro_torch.optim import adamw
 from repro_torch.phy import models, ofdm
 from repro_torch.train import neural_receiver as nr
+from _port_share import port_share  # noqa: F401
 
 GRID = dict(n_subcarriers=64, fft_size=64, pilot_stride=4)
 CFG = dict(d_model=32, heads=2, layers=2, d_ff=64, patch=4)

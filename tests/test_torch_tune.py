@@ -25,6 +25,7 @@ from repro.kernels import quant as ref_quant
 from repro.kernels import tune as ref_tune
 from repro_torch.kernels import ldpc, mha, quant, rx_fused, te_gemm, tune
 from repro_torch.phy import coding, ofdm
+from _port_share import port_share  # noqa: F401
 
 
 @pytest.fixture

@@ -22,6 +22,7 @@ from repro.phy import classical as ref_classical
 from repro.phy import coding as ref_coding
 from repro.phy import ofdm as ref_ofdm
 from repro_torch.phy import classical, coding, ofdm
+from _port_share import port_share  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 GRID = dict(n_subcarriers=64, fft_size=64, pilot_stride=4)
